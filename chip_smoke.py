@@ -1,0 +1,436 @@
+"""Drive the PyTorch port on one CUDA card and hold its kernels against their
+plain PyTorch versions.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, one JSON line each, in order:
+  1. build   -- nvcc builds every kernel of ``instancediff_torch/csrc`` for
+                sm_90a into the ignored ``instancediff_torch/_build/``;
+  2. check   -- each kernel against its plain version on the card at the main
+                path's shapes, in bf16 and fp32: max abs error (with the
+                stated tolerance), kernel ms, plain ms, one library call's ms
+                (a yardstick only: the port never calls it) and the bound;
+  3. main    -- the flagship drift sampler at full width (bench.py's flagship
+                settings: nf 64, ch_mult [1,2,4,4], 2 ResBlocks per level,
+                12-layer CLIP text tower, 256 px, bf16) with seeded random
+                weights answers two requests through ``Restorer.restore``
+                (8 images, then 3, which pads); launch counts are checked
+                (90 fused-conv and 2 flash launches per sampler step); then
+                torch.profiler splits one sampler step's device time by kernel
+                class and gives the device's idle share;
+  4. parity  -- one full-width UNet forward (fp32, batch 2) through the
+                kernels and through the plain versions, compared;
+  5. per-forward kernel times at the main path's own launch shapes, then the
+     ``{"kernels": [...]}`` line, the card's name and power limit, and last
+     ``{"ok": true, "device": {...}}``.
+
+Any failure raises and the script exits non-zero. Without CUDA it exits 1
+before doing anything."""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import Counter
+from unittest import mock
+
+import numpy as np
+import torch
+
+from instancediff_torch.models import unet as unet_mod
+from instancediff_torch.models.drift_model import ARTIFACT_PROMPTS, CLIPDriftEngine
+from instancediff_torch.models.layers import ConvParams
+from instancediff_torch.ops import _build
+from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from instancediff_torch.ops.fused_gn_conv import (fused_gn_silu_conv3x3,
+                                                  fused_gn_silu_conv3x3_plain)
+from instancediff_torch.sde import DriftSDE
+from instancediff_torch.sde.schedules import strided_sampling_grid
+from instancediff_torch.serving import Restorer
+
+# H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by operand type
+# (bf16 on the tensor cores; fp32 on the FMA units, which the fp32 kernels use)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# kernel vs plain on the card: max |diff| <= TOL * max(1, max |plain|).
+# fp32: the same fp32 arithmetic in another summation order. bf16: both
+# round the activation and the result to bf16, so a result may differ by one
+# bf16 ulp (2^-8 relative) where the fp32 sums straddle a rounding boundary.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# full-width fp32 UNet forward, kernels vs plain: 22 ResBlocks of fp32 sums
+# in another order; relative to the largest output
+FORWARD_TOL = 1e-3
+
+FLAGSHIP = dict(in_nc=2, out_nc=5, nf=64, ch_mult=[1, 2, 4, 4], context_dim=512,
+                text_module="scoremap", score_map_chan=16, if_MultiScoreMap=True,
+                num_res_blocks=2)
+RES, BATCH, T, SAMPLE_STEPS, ETA = 256, 8, 100, 4, 1.0
+CONV_SHAPES = [  # (B, H, W, C, Cout, residual)
+    (8, 256, 256, 64, 64, False), (8, 256, 256, 144, 64, False),
+    (8, 64, 64, 528, 256, False), (8, 32, 32, 256, 256, True), (8, 256, 256, 64, 5, False)]
+FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64)]
+CONV_SRC = "instancediff_torch/csrc/fused_gn_silu_conv3x3.cu"
+FLASH_SRC = "instancediff_torch/csrc/flash_attention.cu"
+CONV_TPU = "instancediff_tpu/ops/pallas_kernels.py:373"
+FLASH_TPU = "instancediff_tpu/ops/pallas_kernels.py:221"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_name_and_power() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_err(name, got, want, dtype) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    limit = TOL[dtype] * max(1.0, want.float().abs().max().item())
+    if not (err <= limit):  # also catches NaN
+        raise AssertionError(f"{name}: kernel vs plain max abs err {err} > {limit}")
+    return err
+
+
+# ---------------------------------------------------------------- the kernels
+
+
+def conv_case(shape, dtype, gen):
+    B, H, W, C, Cout, residual = shape
+    dev = "cuda"
+    x = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
+    scale = 1 + 0.2 * torch.randn(B, C, generator=gen, device=dev)
+    shift = 0.3 * torch.randn(B, C, generator=gen, device=dev)
+    w = (torch.randn(3, 3, C, Cout, generator=gen, device=dev) / (9 * C) ** 0.5).to(dtype)
+    bias = 0.1 * torch.randn(B, Cout, generator=gen, device=dev)
+    res = torch.randn(B, H, W, Cout, generator=gen, device=dev).to(dtype) if residual else None
+    return x, scale, shift, w, bias, res
+
+
+def conv_cost(shape, dtype):
+    B, H, W, C, Cout, residual = shape
+    s = torch.finfo(dtype).bits // 8
+    nbytes = (B * H * W * C * s + 2 * B * C * 4 + 9 * C * Cout * s + B * Cout * 4
+              + B * H * W * Cout * s * (2 if residual else 1))
+    return bound(nbytes, 2.0 * B * H * W * 9 * C * Cout, dtype)
+
+
+def measure_conv(shape, dtype, gen):
+    x, scale, shift, w, bias, res = conv_case(shape, dtype, gen)
+    got = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
+    torch.cuda.synchronize()
+    want = fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias, residual=res)
+    err = check_err(f"fused conv {shape} {dtype}", got, want, dtype)
+    # library yardstick: cuDNN's conv alone, on the already-normalised input,
+    # channels-last (the port's NHWC layout, cuDNN's tensor-core layout)
+    xn = torch.nn.functional.silu(
+        x.float() * scale[:, None, None] + shift[:, None, None]).to(dtype)
+    xn = xn.permute(0, 3, 1, 2)
+    wk = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bound_ms, bound_by = conv_cost(shape, dtype)
+    return dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)),
+        plain_ms=cuda_ms(lambda: fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias,
+                                                             residual=res)),
+        library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(xn, wk, padding=1)),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def measure_flash(shape, dtype, gen):
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = check_err(f"flash {shape} {dtype}", got, flash_attention_plain(q, k, v), dtype)
+    B, Hh, N, D = shape
+    s = torch.finfo(dtype).bits // 8
+    bound_ms, bound_by = bound(4 * B * Hh * N * D * s, 4.0 * B * Hh * N * N * D, dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(
+        max_abs_err=err, ms=cuda_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v)),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v)), bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------- the models
+
+
+def randomize_(module: torch.nn.Module, seed: int) -> None:
+    """Seeded numpy values for every parameter: weights ~ N(0, 1/fan_in),
+    norm scales ~ 1 + 0.1 N, biases and free parameters ~ init + 0.1 N."""
+    rng = np.random.default_rng(seed)
+    modules = dict(module.named_modules())
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            *path, pname = name.split(".")
+            owner = modules[".".join(path)]
+            shape = tuple(p.shape)
+            if pname == "weight" and isinstance(owner, torch.nn.Embedding):
+                r = rng.standard_normal(shape, dtype=np.float32)
+            elif pname == "weight" and isinstance(owner, ConvParams):
+                r = rng.standard_normal(shape, dtype=np.float32) / np.sqrt(9 * shape[2])
+            elif pname == "weight" and isinstance(owner, (torch.nn.Linear, torch.nn.Conv2d,
+                                                          torch.nn.ConvTranspose2d)):
+                fan_in = shape[1] if isinstance(owner, torch.nn.Linear) else \
+                    int(np.prod(shape[1:])) if isinstance(owner, torch.nn.Conv2d) else \
+                    shape[0] * shape[2] * shape[3]
+                r = rng.standard_normal(shape, dtype=np.float32) / np.sqrt(fan_in)
+            elif pname == "weight":  # norms
+                r = 1 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+            else:
+                r = p.detach().float().cpu().numpy() + 0.1 * rng.standard_normal(
+                    shape, dtype=np.float32)
+            p.copy_(torch.from_numpy(np.asarray(r, dtype=np.float32)))
+
+
+def flagship_engine(dtype) -> CLIPDriftEngine:
+    eng = CLIPDriftEngine(FLAGSHIP, FLAGSHIP, score_map_ch_mult=(1, 1, 2, 4),
+                          score_map_ngf=64, use_image_context=True, CLIP_Type="CLIP",
+                          sde=DriftSDE(T=T, max_sigma=0.4), dtype=dtype,
+                          device="cuda")
+    for i, key in enumerate(("d_ema", "n_ema")):  # the nets test(use_ema=True) runs
+        randomize_(eng.nets[key], seed=10 + i)
+    randomize_(eng.text_encoder, seed=20)
+    return eng
+
+
+def record_launch_shapes(net, args):
+    """Run one UNet forward and return the (shape, dtype) Counter of its
+    fused-conv and flash launches (the calls go through the real wrappers)."""
+    convs, flashes = Counter(), Counter()
+
+    def conv_rec(x, scale, shift, w, bias, residual=None):
+        B, H, W, C = x.shape
+        convs[((B, H, W, C, w.shape[3], residual is not None), x.dtype)] += 1
+        return fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=residual)
+
+    def flash_rec(q, k, v):
+        flashes[(tuple(q.shape), q.dtype)] += 1
+        return flash_attention(q, k, v)
+
+    with mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", conv_rec), \
+            mock.patch.object(unet_mod, "flash_attention", flash_rec), torch.inference_mode():
+        net(*args)
+    return convs, flashes
+
+
+KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
+    ("fused_conv", ("fgc_kernel",)), ("flash", ("flash_kernel",)),
+    ("library_conv", ("fprop", "conv", "dgrad", "wgrad")),
+    ("gemm", ("gemm", "cutlass", "matmul")), ("reduce", ("reduce",)))
+
+
+def profile_step(eng, gen) -> dict:
+    """Device time by kernel class over one sampler call of one step at
+    flagship width (text encodings included), with torch.profiler; the idle
+    share is 1 - (summed kernel time) / (host wall time of the call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"input": torch.rand(BATCH, RES, RES, 1, generator=gen, device=gen.device) * 2 - 1,
+             "type_idx": torch.arange(BATCH, device=gen.device) % len(ARTIFACT_PROMPTS)}
+    eng.test(batch, gen, sample_steps=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.test(batch, gen, sample_steps=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by_class, by_name = Counter(), Counter()
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.time_range.elapsed_us() / 1e3
+        name = evt.name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
+                   "elementwise_other")
+        by_class[cls] += ms
+        by_name[evt.name[:80]] += ms
+    busy = sum(by_class.values())
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return {"what": "one sampler step, batch 8, 256 px, bf16", "wall_ms": round(wall_ms, 3),
+            "device_busy_ms": round(busy, 3), "idle_share": round(1 - busy / wall_ms, 4),
+            "ms_by_class": {k: round(v, 3) for k, v in by_class.most_common()},
+            "top_kernels_ms": {k: round(v, 3) for k, v in by_name.most_common(8)}}
+
+
+def unet_args(B, gen):
+    """Inputs of one UNet forward at full width, on ``gen``'s device."""
+    dev = gen.device
+    text = [torch.randn(len(ARTIFACT_PROMPTS), 512, generator=gen, device=dev)
+            for _ in range(len(FLAGSHIP["ch_mult"]))]
+    return (torch.randn(B, RES, RES, 1, generator=gen, device=dev),
+            torch.rand(B, RES, RES, 1, generator=gen, device=dev) * 2 - 1,
+            torch.full((B,), 57, dtype=torch.int32, device=dev),
+            torch.arange(B, device=dev) % len(ARTIFACT_PROMPTS), text,
+            torch.randn(B, 1, 512, generator=gen, device=dev))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.time()
+    gpu = gpu_name_and_power()
+    kind = torch.cuda.get_device_name(0)
+
+    # 1. build
+    t0 = time.time()
+    logs = _build.build_all()
+    for name in _build.SIGNATURES:
+        _build.load(name)
+    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(time.time() - t0, 3), "gpu": gpu,
+          "kernels": list(_build.SIGNATURES), "ptxas": ptxas})
+
+    # 2. kernels against their plain versions at the main path's shapes
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {"conv": 0.0, "flash": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in CONV_SHAPES:
+            m = measure_conv(shape, dtype, gen)
+            if dtype == torch.bfloat16:
+                worst["conv"] = max(worst["conv"], m["max_abs_err"])
+            emit({"phase": "check", "kernel": "fused_gn_silu_conv3x3", "shape": shape,
+                  "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
+        for shape in FLASH_SHAPES:
+            m = measure_flash(shape, dtype, gen)
+            if dtype == torch.bfloat16:
+                worst["flash"] = max(worst["flash"], m["max_abs_err"])
+            emit({"phase": "check", "kernel": "flash_attention", "shape": shape,
+                  "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
+
+    # 3. the main path at full width: two requests through Restorer.restore
+    t0 = time.time()
+    eng = flagship_engine(torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    convs, flashes = record_launch_shapes(
+        eng.nets["d_ema"], unet_args(BATCH, gen))
+    restorer = Restorer(eng, batch_size=BATCH, sample_steps=SAMPLE_STEPS, eta=ETA, seed=0,
+                        device="cuda")
+    n_steps = len(strided_sampling_grid(T, SAMPLE_STEPS)[0])
+    rng = np.random.default_rng(0)
+    launches = {"conv": 0, "flash": 0}
+    for n_img in (8, 3):
+        images = rng.uniform(-1, 1, (n_img, RES, RES, 1)).astype(np.float32)
+        types = [ARTIFACT_PROMPTS[i % len(ARTIFACT_PROMPTS)] for i in range(n_img)]
+        fused_gn_silu_conv3x3.launches = 0
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = restorer.restore(images, types)
+        seconds = time.time() - t0
+        conv_n, flash_n = fused_gn_silu_conv3x3.launches, flash_attention.launches
+        launches["conv"] += conv_n
+        launches["flash"] += flash_n
+        if out.shape != images.shape or not np.isfinite(out).all():
+            raise AssertionError(f"request of {n_img}: bad output {out.shape}, "
+                                 f"finite={np.isfinite(out).all()}")
+        if conv_n != 90 * n_steps or flash_n != 2 * n_steps:
+            raise AssertionError(f"request of {n_img}: {conv_n} conv / {flash_n} flash "
+                                 f"launches, want {90 * n_steps} / {2 * n_steps}")
+        emit({"phase": "main", "images": n_img, "batch": BATCH, "res": RES, "T": T,
+              "sampler_steps": n_steps, "eta": ETA, "dtype": "bfloat16",
+              "seconds": round(seconds, 4), "ms_per_step": round(seconds / n_steps * 1e3, 3),
+              "img_per_s": round(n_img / seconds, 4), "conv_launches": conv_n,
+              "flash_launches": flash_n, "out_min": float(out.min()),
+              "out_max": float(out.max()), "engine_build_s": round(build_s, 2),
+              "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+              "gpu": gpu})
+    emit({"phase": "profile", **profile_step(eng, gen), "gpu": gpu})
+    del restorer, eng
+    torch.cuda.empty_cache()
+
+    # 4. one full-width fp32 UNet forward: kernels vs plain versions
+    eng32 = flagship_engine(torch.float32)
+    net = eng32.nets["d_ema"]
+    args = unet_args(2, gen)
+    with torch.inference_mode():
+        pred_k, maps_k = net(*args)
+        with mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", fused_gn_silu_conv3x3_plain), \
+                mock.patch.object(unet_mod, "flash_attention", flash_attention_plain):
+            pred_p, maps_p = net(*args)
+    errs = []
+    for got, want in zip([pred_k] + maps_k, [pred_p] + maps_p):
+        err = (got - want).abs().max().item()
+        limit = FORWARD_TOL * max(1.0, want.abs().max().item())
+        if not (err <= limit and torch.isfinite(got).all()):
+            raise AssertionError(f"UNet forward kernels vs plain: err {err} > {limit}")
+        errs.append(err)
+    emit({"phase": "parity", "what": "full-width UNet forward, fp32, batch 2",
+          "pred_max_abs_err": errs[0], "scoremap_max_abs_err": max(errs[1:]),
+          "pred_max_abs": pred_p.abs().max().item(), "tol_rel": FORWARD_TOL, "gpu": gpu})
+    del eng32, net
+    torch.cuda.empty_cache()
+
+    # 5. per UNet forward at the main path's launch shapes, and the kernels line
+    totals = {}
+    for kname, counter, measure in (("conv", convs, measure_conv),
+                                    ("flash", flashes, measure_flash)):
+        tot = Counter()
+        n_by = Counter()
+        per_shape = []
+        for (shape, dtype), count in counter.items():
+            m = measure(shape, dtype, gen)
+            per_shape.append([list(shape), count, round(m["ms"], 4), round(m["bound_ms"], 4),
+                              round(m["library_ms"], 4)])
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += m[key] * count
+            n_by[m["bound_by"]] += m["bound_ms"] * count
+            tot["max_abs_err"] = max(tot["max_abs_err"], m["max_abs_err"])
+        totals[kname] = (tot, n_by.most_common(1)[0][0], sum(counter.values()))
+        emit({"phase": "per_forward", "kernel": kname, "launches_per_forward":
+              sum(counter.values()), "distinct_shapes": len(counter),
+              **{k: round(v, 4) for k, v in tot.items()},
+              "shapes_count_ms_bound_library": per_shape, "gpu": gpu})
+    entries = []
+    for kname, name, src, tpu in (("conv", "fused_gn_silu_conv3x3", CONV_SRC, CONV_TPU),
+                                  ("flash", "flash_attention", FLASH_SRC, FLASH_TPU)):
+        tot, bound_by, _ = totals[kname]
+        entries.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
+                        "launches": launches[kname],
+                        "max_abs_err": max(worst[kname], tot["max_abs_err"]),
+                        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                        "bound_ms": tot["bound_ms"], "bound_by": bound_by,
+                        "library_ms": tot["library_ms"]})
+    emit({"kernels": entries})
+    print(gpu, flush=True)
+    print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

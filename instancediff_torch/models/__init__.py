@@ -1,0 +1,2 @@
+"""Models of the sampler path: CLIP text tower, score map modules, the UNet
+and the sampling engine."""

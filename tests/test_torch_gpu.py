@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card and skips without one: the kernels have no
+CPU mode. This file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from instancediff_torch.ops.fused_gn_conv import (
+    fused_gn_silu_conv3x3,
+    fused_gn_silu_conv3x3_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    # the plain versions in full fp32: cuDNN convs default to TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, scale=1.0):
+    return scale * torch.randn(*shape, generator=gen, device=gen.device)
+
+
+# fp32: summation order only; bf16: the stored result may differ by one bf16
+# ulp (2^-8 relative) where the fp32 sums straddle a rounding boundary
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("C,Cout,residual", [(20, 5, False), (144, 64, True),
+                                             (64, 130, True), (528, 256, False)])
+def test_fused_conv_kernel_matches_plain(cuda, dtype, tol, C, Cout, residual):
+    """Ragged C (20, 144, 528), Cout = 5 and a Cout past one 64-wide tile,
+    odd H and W, with and without the residual."""
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    B, H, W = 2, 19, 23
+    x = _randn(gen, B, H, W, C).to(dtype)
+    scale = 1 + _randn(gen, B, C, scale=0.2)
+    shift = _randn(gen, B, C, scale=0.3)
+    w = _randn(gen, 3, 3, C, Cout, scale=(9 * C) ** -0.5)
+    bias = _randn(gen, B, Cout, scale=0.1)
+    res = _randn(gen, B, H, W, Cout).to(dtype) if residual else None
+    before = fused_gn_silu_conv3x3.launches
+    got = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
+    torch.cuda.synchronize()
+    assert fused_gn_silu_conv3x3.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, W, Cout)
+    want = fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias, residual=res)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N", [256, 200, 784])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, N):
+    """N = 200 and 784 are ragged for the 64-row query and 32-key tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    q, k, v = (_randn(gen, 2, 4, N, 64).to(dtype) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 16, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="D=64"):
+        flash_attention(q, q, q)
+    x = torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.float16)
+    s = torch.zeros(1, 8, device=cuda)
+    with pytest.raises(TypeError):
+        fused_gn_silu_conv3x3(x, s, s, torch.zeros(3, 3, 8, 8, device=cuda), s)
