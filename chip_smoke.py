@@ -7,28 +7,47 @@ Phases, one JSON line each, in order:
   1. build   -- nvcc builds every kernel of ``instancediff_torch/csrc`` for
                 sm_90a into the ignored ``instancediff_torch/_build/``;
   2. check   -- each kernel against its plain version on the card at the main
-                path's shapes, in bf16 and fp32: max abs error (with the
+                paths' shapes, in bf16 and fp32: max abs error (with the
                 stated tolerance), kernel ms, plain ms, one library call's ms
                 (a yardstick only: the port never calls it) and the bound;
-  3. main    -- the flagship drift sampler at full width (bench.py's flagship
-                settings: nf 64, ch_mult [1,2,4,4], 2 ResBlocks per level,
-                12-layer CLIP text tower, 256 px, bf16) with seeded random
-                weights answers two requests through ``Restorer.restore``
-                (8 images, then 3, which pads); launch counts are checked
-                (90 fused-conv and 2 flash launches per sampler step); then
-                torch.profiler splits one sampler step's device time by kernel
-                class and gives the device's idle share;
-  4. parity  -- one full-width UNet forward (fp32, batch 2) through the
-                kernels and through the plain versions, compared;
-  5. per-forward kernel times at the main path's own launch shapes, then the
-     ``{"kernels": [...]}`` line, the card's name and power limit, and last
-     ``{"ok": true, "device": {...}}``.
+  3. main    -- three paths at full width, each answering two requests
+                through ``Restorer.restore`` (8 images, then 3, which pads)
+                with seeded random weights, 256 px, batch 8, bf16, 4 of T=100
+                steps, eta 1; each path's launch counts are zeroed before it
+                and checked after it, per sampler step:
+                  drift        -- the flagship drift sampler (bench.py's
+                                  flagship: nf 64, ch_mult [1,2,4,4], 2
+                                  ResBlocks per level, 12-layer CLIP text
+                                  tower) on the fused ResBlock body: 90
+                                  fused-conv, 2 flash, 0 GroupNorm launches;
+                  drift_unfused -- the same engine with
+                                  ``engine_opts={"fused_gnconv": False}``: 90
+                                  GroupNorm, 0 fused-conv, 2 flash launches;
+                  ddpm         -- the DDPM baseline at
+                                  Configurations/flagship_ddpm_tpu.yml's widths
+                                  (single score map, T=100, max_sigma 1): 45
+                                  GroupNorm, 1 flash launch;
+                then torch.profiler splits one sampler step's device time by
+                kernel class and gives the device's idle share, per path;
+  4. parity  -- full-width UNet forwards (fp32, batch 2) through the kernels
+                and through the plain versions, compared: the drift net on
+                the fused body, on the unfused body, the unfused body against
+                the fused one on the same weights, and the DDPM net;
+  5. per_forward -- every kernel each main path launches, held against its
+                plain version and timed at that path's own launch shapes
+                (bf16, batch 8), summed over one UNet forward; then the
+                ``{"kernels": [...]}`` line (each kernel's times from the
+                first path that launches it: fused-conv and flash from drift,
+                GroupNorm from drift_unfused; max_abs_err over every shape),
+                the card's name and power limit, and last
+                ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
 before doing anything."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -41,13 +60,16 @@ import numpy as np
 import torch
 
 from instancediff_torch.models import unet as unet_mod
-from instancediff_torch.models.drift_model import ARTIFACT_PROMPTS, CLIPDriftEngine
+from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
+from instancediff_torch.models.drift_model import CLIPDriftEngine
+from instancediff_torch.models.engine import ARTIFACT_PROMPTS
 from instancediff_torch.models.layers import ConvParams
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from instancediff_torch.ops.fused_gn_conv import (fused_gn_silu_conv3x3,
                                                   fused_gn_silu_conv3x3_plain)
-from instancediff_torch.sde import DriftSDE
+from instancediff_torch.ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
+from instancediff_torch.sde import DDPMSDE, DriftSDE
 from instancediff_torch.sde.schedules import strided_sampling_grid
 from instancediff_torch.serving import Restorer
 
@@ -67,15 +89,32 @@ FORWARD_TOL = 1e-3
 FLAGSHIP = dict(in_nc=2, out_nc=5, nf=64, ch_mult=[1, 2, 4, 4], context_dim=512,
                 text_module="scoremap", score_map_chan=16, if_MultiScoreMap=True,
                 num_res_blocks=2)
+# Configurations/flagship_ddpm_tpu.yml models.DDPM.net_settings (score_map_ngf
+# takes the engine's default, 64) and sdes.ddpm
+DDPM_NET = dict(in_nc=2, out_nc=5, nf=64, ch_mult=[1, 2, 4, 4], num_res_blocks=2,
+                context_dim=512, text_module="scoremap", score_map_chan=16)
+DDPM_MAX_SIGMA = 1.0
 RES, BATCH, T, SAMPLE_STEPS, ETA = 256, 8, 100, 4, 1.0
 CONV_SHAPES = [  # (B, H, W, C, Cout, residual)
     (8, 256, 256, 64, 64, False), (8, 256, 256, 144, 64, False),
     (8, 64, 64, 528, 256, False), (8, 32, 32, 256, 256, True), (8, 256, 256, 64, 5, False)]
 FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64)]
-CONV_SRC = "instancediff_torch/csrc/fused_gn_silu_conv3x3.cu"
-FLASH_SRC = "instancediff_torch/csrc/flash_attention.cu"
-CONV_TPU = "instancediff_tpu/ops/pallas_kernels.py:373"
-FLASH_TPU = "instancediff_tpu/ops/pallas_kernels.py:221"
+GN_SHAPES = [  # (B, H, W, C, groups, silu)
+    (8, 256, 256, 64, 32, True), (8, 256, 256, 144, 24, True), (8, 128, 128, 272, 17, True),
+    (8, 64, 64, 528, 24, True), (8, 32, 32, 512, 32, True)]
+# per kernel: its CUDA source and the TPU kernel it replaces
+SOURCES = {"conv": ("instancediff_torch/csrc/fused_gn_silu_conv3x3.cu",
+                    "instancediff_tpu/ops/pallas_kernels.py:373"),
+           "flash": ("instancediff_torch/csrc/flash_attention.cu",
+                     "instancediff_tpu/ops/pallas_kernels.py:221"),
+           "gn": ("instancediff_torch/csrc/group_norm_silu.cu",
+                  "instancediff_tpu/ops/pallas_kernels.py:134")}
+# the kernels' wrappers, whose ``launches`` count their launches
+WRAPPERS = {"conv": fused_gn_silu_conv3x3, "flash": flash_attention, "gn": group_norm_silu}
+# launches per sampler step on each main path
+PATHS = {"drift": {"conv": 90, "flash": 2, "gn": 0},
+         "drift_unfused": {"conv": 0, "flash": 2, "gn": 90},
+         "ddpm": {"conv": 0, "flash": 1, "gn": 45}}
 
 
 def emit(obj) -> None:
@@ -178,6 +217,39 @@ def measure_flash(shape, dtype, gen):
         library_ms=cuda_ms(lambda: sdpa(q, k, v)), bound_ms=bound_ms, bound_by=bound_by)
 
 
+def measure_gn(shape, dtype, gen):
+    B, H, W, C, G, silu = shape
+    dev = "cuda"
+    x = (0.5 + torch.randn(B, H, W, C, generator=gen, device=dev)).to(dtype)
+    gamma = 1 + 0.2 * torch.randn(C, generator=gen, device=dev)
+    beta = 0.3 * torch.randn(C, generator=gen, device=dev)
+    got = group_norm_silu(x, gamma, beta, G, silu=silu)
+    torch.cuda.synchronize()
+    want = group_norm_silu_plain(x, gamma, beta, G, silu=silu)
+    err = check_err(f"group_norm_silu {shape} {dtype}", got, want, dtype)
+    n = B * H * W * C
+    # read x once, write y once; ~10 fp32 operations per element with SiLU
+    # (sum, square-add, subtract, 2 multiplies, add, exp, add, divide), 7
+    # without, on the fp32 units whatever x's dtype
+    bound_ms, bound_by = bound(2 * n * (torch.finfo(dtype).bits // 8) + 2 * C * 4,
+                               (10 if silu else 7) * n, torch.float32)
+    # library yardstick: torch's GroupNorm then SiLU on the NCHW view
+    # (channels-last) of the same tensor
+    xn, g, b = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
+
+    def library():
+        y = torch.nn.functional.group_norm(xn, G, g, b, 1e-5)
+        return torch.nn.functional.silu(y) if silu else y
+
+    return dict(
+        max_abs_err=err, ms=cuda_ms(lambda: group_norm_silu(x, gamma, beta, G, silu=silu)),
+        plain_ms=cuda_ms(lambda: group_norm_silu_plain(x, gamma, beta, G, silu=silu)),
+        library_ms=cuda_ms(library), bound_ms=bound_ms, bound_by=bound_by)
+
+
+MEASURE = {"conv": measure_conv, "flash": measure_flash, "gn": measure_gn}
+
+
 # ---------------------------------------------------------------- the models
 
 
@@ -209,47 +281,71 @@ def randomize_(module: torch.nn.Module, seed: int) -> None:
             p.copy_(torch.from_numpy(np.asarray(r, dtype=np.float32)))
 
 
-def flagship_engine(dtype) -> CLIPDriftEngine:
+def flagship_engine(dtype, engine_opts=None) -> CLIPDriftEngine:
     eng = CLIPDriftEngine(FLAGSHIP, FLAGSHIP, score_map_ch_mult=(1, 1, 2, 4),
                           score_map_ngf=64, use_image_context=True, CLIP_Type="CLIP",
                           sde=DriftSDE(T=T, max_sigma=0.4), dtype=dtype,
-                          device="cuda")
+                          engine_opts=engine_opts, device="cuda")
     for i, key in enumerate(("d_ema", "n_ema")):  # the nets test(use_ema=True) runs
         randomize_(eng.nets[key], seed=10 + i)
     randomize_(eng.text_encoder, seed=20)
     return eng
 
 
-def record_launch_shapes(net, args):
-    """Run one UNet forward and return the (shape, dtype) Counter of its
-    fused-conv and flash launches (the calls go through the real wrappers)."""
-    convs, flashes = Counter(), Counter()
+def ddpm_engine(dtype) -> CLIPDDPMEngine:
+    eng = CLIPDDPMEngine(DDPM_NET, use_image_context=True, CLIP_Type="CLIP",
+                         sde=DDPMSDE(T=T, max_sigma=DDPM_MAX_SIGMA), dtype=dtype,
+                         device="cuda")
+    randomize_(eng.nets["n_ema"], seed=30)
+    randomize_(eng.text_encoder, seed=20)
+    return eng
+
+
+def record_launch_shapes(net, args) -> dict:
+    """Run one UNet forward and return, per kernel, the (shape, dtype)
+    Counter of its launches (the calls go through the real wrappers)."""
+    seen = {k: Counter() for k in WRAPPERS}
 
     def conv_rec(x, scale, shift, w, bias, residual=None):
         B, H, W, C = x.shape
-        convs[((B, H, W, C, w.shape[3], residual is not None), x.dtype)] += 1
+        seen["conv"][((B, H, W, C, w.shape[3], residual is not None), x.dtype)] += 1
         return fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=residual)
 
     def flash_rec(q, k, v):
-        flashes[(tuple(q.shape), q.dtype)] += 1
+        seen["flash"][(tuple(q.shape), q.dtype)] += 1
         return flash_attention(q, k, v)
 
+    def gn_rec(x, gamma, beta, num_groups, eps=1e-5, silu=True):
+        seen["gn"][((*x.shape, num_groups, silu), x.dtype)] += 1
+        return group_norm_silu(x, gamma, beta, num_groups, eps, silu)
+
     with mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", conv_rec), \
-            mock.patch.object(unet_mod, "flash_attention", flash_rec), torch.inference_mode():
+            mock.patch.object(unet_mod, "flash_attention", flash_rec), \
+            mock.patch.object(unet_mod, "group_norm_silu", gn_rec), torch.inference_mode():
         net(*args)
-    return convs, flashes
+    return seen
+
+
+def plain_kernels():
+    """Patch the UNet module's kernel wrappers with the plain versions."""
+    return (mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", fused_gn_silu_conv3x3_plain),
+            mock.patch.object(unet_mod, "flash_attention", flash_attention_plain),
+            mock.patch.object(unet_mod, "group_norm_silu", group_norm_silu_plain))
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("fused_conv", ("fgc_kernel",)), ("flash", ("flash_kernel",)),
+    ("group_norm", ("gns_stats_kernel", "gns_apply_kernel")),
     ("library_conv", ("fprop", "conv", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "matmul")), ("reduce", ("reduce",)))
 
 
-def profile_step(eng, gen) -> dict:
+def profile_step(eng, gen, path) -> dict:
     """Device time by kernel class over one sampler call of one step at
     flagship width (text encodings included), with torch.profiler; the idle
-    share is 1 - (summed kernel time) / (host wall time of the call)."""
+    share is 1 - (summed kernel time) / (host wall time of the call). The
+    host ops with the most self CPU time show what the host spends the idle
+    share on (the profiler's own cost included)."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = {"input": torch.rand(BATCH, RES, RES, 1, generator=gen, device=gen.device) * 2 - 1,
@@ -274,22 +370,80 @@ def profile_step(eng, gen) -> dict:
     busy = sum(by_class.values())
     if busy <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return {"what": "one sampler step, batch 8, 256 px, bf16", "wall_ms": round(wall_ms, 3),
-            "device_busy_ms": round(busy, 3), "idle_share": round(1 - busy / wall_ms, 4),
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {"path": path, "what": "one sampler step, batch 8, 256 px, bf16",
+            "wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy, 3),
+            "idle_share": round(1 - busy / wall_ms, 4),
             "ms_by_class": {k: round(v, 3) for k, v in by_class.most_common()},
-            "top_kernels_ms": {k: round(v, 3) for k, v in by_name.most_common(8)}}
+            "top_kernels_ms": {k: round(v, 3) for k, v in by_name.most_common(8)},
+            "top_host_ops_self_ms_calls": {e.key[:60]: [round(e.self_cpu_time_total / 1e3, 3),
+                                                        e.count] for e in host[:8]}}
 
 
-def unet_args(B, gen):
+def unet_args(B, gen, n_text=len(FLAGSHIP["ch_mult"])):
     """Inputs of one UNet forward at full width, on ``gen``'s device."""
     dev = gen.device
     text = [torch.randn(len(ARTIFACT_PROMPTS), 512, generator=gen, device=dev)
-            for _ in range(len(FLAGSHIP["ch_mult"]))]
+            for _ in range(n_text)]
     return (torch.randn(B, RES, RES, 1, generator=gen, device=dev),
             torch.rand(B, RES, RES, 1, generator=gen, device=dev) * 2 - 1,
             torch.full((B,), 57, dtype=torch.int32, device=dev),
             torch.arange(B, device=dev) % len(ARTIFACT_PROMPTS), text,
             torch.randn(B, 1, 512, generator=gen, device=dev))
+
+
+def serve(path, eng, build_s, gpu) -> Counter:
+    """Two requests through ``Restorer.restore``; each request's launches are
+    counted from 0 and checked against ``PATHS[path]`` per sampler step.
+    Returns the launches of both requests."""
+    restorer = Restorer(eng, batch_size=BATCH, sample_steps=SAMPLE_STEPS, eta=ETA, seed=0,
+                        device="cuda")
+    n_steps = len(strided_sampling_grid(T, SAMPLE_STEPS)[0])
+    rng = np.random.default_rng(0)
+    total = Counter()
+    torch.cuda.reset_peak_memory_stats()
+    for n_img in (8, 3):
+        images = rng.uniform(-1, 1, (n_img, RES, RES, 1)).astype(np.float32)
+        types = [ARTIFACT_PROMPTS[i % len(ARTIFACT_PROMPTS)] for i in range(n_img)]
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = restorer.restore(images, types)
+        seconds = time.time() - t0
+        got = {k: wrapper.launches for k, wrapper in WRAPPERS.items()}
+        total.update(got)
+        calls = -(-n_img // BATCH)  # sampler calls: the request is chunked to the batch
+        want = {k: per_step * n_steps * calls for k, per_step in PATHS[path].items()}
+        if out.shape != images.shape or not np.isfinite(out).all():
+            raise AssertionError(f"{path}, request of {n_img}: bad output {out.shape}, "
+                                 f"finite={np.isfinite(out).all()}")
+        if got != want:
+            raise AssertionError(f"{path}, request of {n_img}: launches {got}, want {want}")
+        emit({"phase": "main", "path": path, "images": n_img, "batch": BATCH, "res": RES,
+              "T": T, "sampler_steps": n_steps, "eta": ETA, "dtype": "bfloat16",
+              "seconds": round(seconds, 4), "ms_per_step": round(seconds / n_steps * 1e3, 3),
+              "img_per_s": round(n_img / seconds, 4), "launches": got,
+              "launches_per_step": PATHS[path], "out_min": float(out.min()),
+              "out_max": float(out.max()), "engine_build_s": round(build_s, 2),
+              "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+              "gpu": gpu})
+    return total
+
+
+def compare_forwards(what, got, want, gpu) -> None:
+    """(pred, score maps) against (pred, score maps), relative to the largest
+    output; emits the parity line."""
+    errs = []
+    for g, w in zip([got[0]] + got[1], [want[0]] + want[1]):
+        err = (g - w).abs().max().item()
+        limit = FORWARD_TOL * max(1.0, w.abs().max().item())
+        if not (err <= limit and torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: err {err} > {limit}")
+        errs.append(err)
+    emit({"phase": "parity", "what": what, "pred_max_abs_err": errs[0],
+          "scoremap_max_abs_err": max(errs[1:]), "pred_max_abs": want[0].abs().max().item(),
+          "tol_rel": FORWARD_TOL, "gpu": gpu})
 
 
 def main() -> int:
@@ -313,117 +467,99 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "gpu": gpu,
           "kernels": list(_build.SIGNATURES), "ptxas": ptxas})
 
-    # 2. kernels against their plain versions at the main path's shapes
+    # 2. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {"conv": 0.0, "flash": 0.0}
+    worst = Counter()
+    names = {"conv": "fused_gn_silu_conv3x3", "flash": "flash_attention",
+             "gn": "group_norm_silu"}
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in CONV_SHAPES:
-            m = measure_conv(shape, dtype, gen)
-            if dtype == torch.bfloat16:
-                worst["conv"] = max(worst["conv"], m["max_abs_err"])
-            emit({"phase": "check", "kernel": "fused_gn_silu_conv3x3", "shape": shape,
-                  "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
-        for shape in FLASH_SHAPES:
-            m = measure_flash(shape, dtype, gen)
-            if dtype == torch.bfloat16:
-                worst["flash"] = max(worst["flash"], m["max_abs_err"])
-            emit({"phase": "check", "kernel": "flash_attention", "shape": shape,
-                  "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
+        for kname, shapes in (("conv", CONV_SHAPES), ("flash", FLASH_SHAPES),
+                              ("gn", GN_SHAPES)):
+            for shape in shapes:
+                m = MEASURE[kname](shape, dtype, gen)
+                if dtype == torch.bfloat16:
+                    worst[kname] = max(worst[kname], m["max_abs_err"])
+                emit({"phase": "check", "kernel": names[kname], "shape": shape,
+                      "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
 
-    # 3. the main path at full width: two requests through Restorer.restore
-    t0 = time.time()
-    eng = flagship_engine(torch.bfloat16)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    convs, flashes = record_launch_shapes(
-        eng.nets["d_ema"], unet_args(BATCH, gen))
-    restorer = Restorer(eng, batch_size=BATCH, sample_steps=SAMPLE_STEPS, eta=ETA, seed=0,
-                        device="cuda")
-    n_steps = len(strided_sampling_grid(T, SAMPLE_STEPS)[0])
-    rng = np.random.default_rng(0)
-    launches = {"conv": 0, "flash": 0}
-    for n_img in (8, 3):
-        images = rng.uniform(-1, 1, (n_img, RES, RES, 1)).astype(np.float32)
-        types = [ARTIFACT_PROMPTS[i % len(ARTIFACT_PROMPTS)] for i in range(n_img)]
-        fused_gn_silu_conv3x3.launches = 0
-        flash_attention.launches = 0
-        torch.cuda.synchronize()
+    # 3. the main paths at full width: two requests each through Restorer.restore
+    launches = Counter()
+    shapes = {}
+    for path, make in (("drift", lambda: flagship_engine(torch.bfloat16)),
+                       ("drift_unfused",
+                        lambda: flagship_engine(torch.bfloat16, {"fused_gnconv": False})),
+                       ("ddpm", lambda: ddpm_engine(torch.bfloat16))):
         t0 = time.time()
-        out = restorer.restore(images, types)
-        seconds = time.time() - t0
-        conv_n, flash_n = fused_gn_silu_conv3x3.launches, flash_attention.launches
-        launches["conv"] += conv_n
-        launches["flash"] += flash_n
-        if out.shape != images.shape or not np.isfinite(out).all():
-            raise AssertionError(f"request of {n_img}: bad output {out.shape}, "
-                                 f"finite={np.isfinite(out).all()}")
-        if conv_n != 90 * n_steps or flash_n != 2 * n_steps:
-            raise AssertionError(f"request of {n_img}: {conv_n} conv / {flash_n} flash "
-                                 f"launches, want {90 * n_steps} / {2 * n_steps}")
-        emit({"phase": "main", "images": n_img, "batch": BATCH, "res": RES, "T": T,
-              "sampler_steps": n_steps, "eta": ETA, "dtype": "bfloat16",
-              "seconds": round(seconds, 4), "ms_per_step": round(seconds / n_steps * 1e3, 3),
-              "img_per_s": round(n_img / seconds, 4), "conv_launches": conv_n,
-              "flash_launches": flash_n, "out_min": float(out.min()),
-              "out_max": float(out.max()), "engine_build_s": round(build_s, 2),
-              "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
-              "gpu": gpu})
-    emit({"phase": "profile", **profile_step(eng, gen), "gpu": gpu})
-    del restorer, eng
-    torch.cuda.empty_cache()
+        eng = make()
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        net_key, n_text = ("n_ema", 1) if path == "ddpm" else ("d_ema", len(FLAGSHIP["ch_mult"]))
+        shapes[path] = record_launch_shapes(eng.nets[net_key], unet_args(BATCH, gen, n_text))
+        launches.update(serve(path, eng, build_s, gpu))
+        emit({"phase": "profile", **profile_step(eng, gen, path), "gpu": gpu})
+        del eng
+        torch.cuda.empty_cache()
 
-    # 4. one full-width fp32 UNet forward: kernels vs plain versions
+    # 4. full-width fp32 UNet forwards: kernels vs plain versions, both bodies
     eng32 = flagship_engine(torch.float32)
     net = eng32.nets["d_ema"]
     args = unet_args(2, gen)
+    out = {}
     with torch.inference_mode():
-        pred_k, maps_k = net(*args)
-        with mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", fused_gn_silu_conv3x3_plain), \
-                mock.patch.object(unet_mod, "flash_attention", flash_attention_plain):
-            pred_p, maps_p = net(*args)
-    errs = []
-    for got, want in zip([pred_k] + maps_k, [pred_p] + maps_p):
-        err = (got - want).abs().max().item()
-        limit = FORWARD_TOL * max(1.0, want.abs().max().item())
-        if not (err <= limit and torch.isfinite(got).all()):
-            raise AssertionError(f"UNet forward kernels vs plain: err {err} > {limit}")
-        errs.append(err)
-    emit({"phase": "parity", "what": "full-width UNet forward, fp32, batch 2",
-          "pred_max_abs_err": errs[0], "scoremap_max_abs_err": max(errs[1:]),
-          "pred_max_abs": pred_p.abs().max().item(), "tol_rel": FORWARD_TOL, "gpu": gpu})
-    del eng32, net
+        for body in ("fused", "unfused"):
+            net.use_fused_gnconv = body == "fused"
+            out[body] = net(*args)
+            with contextlib.ExitStack() as stack:
+                for patch in plain_kernels():
+                    stack.enter_context(patch)
+                out[body + "_plain"] = net(*args)
+    compare_forwards("drift UNet forward, fused body, kernels vs plain, fp32, batch 2",
+                     out["fused"], out["fused_plain"], gpu)
+    compare_forwards("drift UNet forward, unfused body, kernels vs plain, fp32, batch 2",
+                     out["unfused"], out["unfused_plain"], gpu)
+    compare_forwards("drift UNet forward, unfused vs fused body, kernels, fp32, batch 2",
+                     out["unfused"], out["fused"], gpu)
+    del eng32, net, out
+    torch.cuda.empty_cache()
+    eng32 = ddpm_engine(torch.float32)
+    args = unet_args(2, gen, n_text=1)
+    with torch.inference_mode():
+        got = eng32.nets["n_ema"](*args)
+        with contextlib.ExitStack() as stack:
+            for patch in plain_kernels():
+                stack.enter_context(patch)
+            want = eng32.nets["n_ema"](*args)
+    compare_forwards("DDPM UNet forward, kernels vs plain, fp32, batch 2", got, want, gpu)
+    del eng32, got, want
     torch.cuda.empty_cache()
 
-    # 5. per UNet forward at the main path's launch shapes, and the kernels line
-    totals = {}
-    for kname, counter, measure in (("conv", convs, measure_conv),
-                                    ("flash", flashes, measure_flash)):
-        tot = Counter()
-        n_by = Counter()
-        per_shape = []
-        for (shape, dtype), count in counter.items():
-            m = measure(shape, dtype, gen)
-            per_shape.append([list(shape), count, round(m["ms"], 4), round(m["bound_ms"], 4),
-                              round(m["library_ms"], 4)])
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                tot[key] += m[key] * count
-            n_by[m["bound_by"]] += m["bound_ms"] * count
-            tot["max_abs_err"] = max(tot["max_abs_err"], m["max_abs_err"])
-        totals[kname] = (tot, n_by.most_common(1)[0][0], sum(counter.values()))
-        emit({"phase": "per_forward", "kernel": kname, "launches_per_forward":
-              sum(counter.values()), "distinct_shapes": len(counter),
-              **{k: round(v, 4) for k, v in tot.items()},
-              "shapes_count_ms_bound_library": per_shape, "gpu": gpu})
-    entries = []
-    for kname, name, src, tpu in (("conv", "fused_gn_silu_conv3x3", CONV_SRC, CONV_TPU),
-                                  ("flash", "flash_attention", FLASH_SRC, FLASH_TPU)):
-        tot, bound_by, _ = totals[kname]
-        entries.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                        "launches": launches[kname],
-                        "max_abs_err": max(worst[kname], tot["max_abs_err"]),
-                        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-                        "bound_ms": tot["bound_ms"], "bound_by": bound_by,
-                        "library_ms": tot["library_ms"]})
+    # 5. every kernel of every path, per UNet forward at that path's own
+    # launch shapes; the kernels line takes the first path that launches it
+    entries = {}
+    for path, per_step in PATHS.items():
+        for kname in (k for k, n in per_step.items() if n):
+            tot = Counter()
+            bound_by = Counter()
+            per_shape = []
+            for (shape, dtype), count in shapes[path][kname].items():
+                m = MEASURE[kname](shape, dtype, gen)
+                per_shape.append([list(shape), count, round(m["ms"], 4),
+                                  round(m["bound_ms"], 4), round(m["library_ms"], 4)])
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    tot[key] += m[key] * count
+                bound_by[m["bound_by"]] += m["bound_ms"] * count
+                tot["max_abs_err"] = max(tot["max_abs_err"], m["max_abs_err"])
+            emit({"phase": "per_forward", "kernel": kname, "path": path,
+                  "launches_per_forward": sum(shapes[path][kname].values()),
+                  "distinct_shapes": len(per_shape), **{k: round(v, 4) for k, v in tot.items()},
+                  "shapes_count_ms_bound_library": per_shape, "gpu": gpu})
+            worst[kname] = max(worst[kname], tot["max_abs_err"])
+            entries.setdefault(kname, {
+                "name": names[kname], "route": "cuda", "source": SOURCES[kname][0],
+                "replaces": SOURCES[kname][1], "launches": launches[kname],
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": bound_by.most_common(1)[0][0], "library_ms": tot["library_ms"]})
+    entries = [dict(e, max_abs_err=worst[k]) for k, e in entries.items()]
     emit({"kernels": entries})
     print(gpu, flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)

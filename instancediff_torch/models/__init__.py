@@ -1,2 +1,2 @@
 """Models of the sampler path: CLIP text tower, score map modules, the UNet
-and the sampling engine."""
+and the sampling engines (drift and DDPM)."""

@@ -53,8 +53,8 @@ def conv_transpose_same(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor
 
 
 class ConvParams(nn.Module):
-    """Parameters of a 3x3 conv run by the fused kernel: ``weight`` is HWIO
-    [3,3,Cin,Cout] (the kernel's layout), ``bias`` [Cout]."""
+    """Parameters of a 3x3 conv: ``weight`` is HWIO [3,3,Cin,Cout] (the fused
+    kernel's layout, and flax's), ``bias`` [Cout]."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
@@ -62,13 +62,13 @@ class ConvParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
 
-class GNParams(nn.Module):
-    """GroupNorm affine parameters folded into the fused conv's scale/shift."""
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+def conv3x3(x: torch.Tensor, conv: ConvParams) -> torch.Tensor:
+    """flax ``nn.Conv((3,3), padding="SAME")`` on NHWC with the HWIO weight of
+    ``conv``. Stride-1 SAME pads (1, 1), which is torch's ``padding=1``; the
+    NCHW view of a contiguous NHWC tensor is already channels-last."""
+    w = conv.weight.permute(3, 2, 0, 1)  # HWIO -> OIHW
+    y = F.conv2d(x.to(w.dtype).permute(0, 3, 1, 2), w, conv.bias, padding=1)
+    return y.permute(0, 2, 3, 1)
 
 
 def cast_compute_(module: nn.Module, dtype: torch.dtype) -> nn.Module:

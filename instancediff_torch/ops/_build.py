@@ -29,6 +29,12 @@ SIGNATURES = {
         # q, k, v, out, BH, N, Nk, D, scale, dtype, stream
         "flash_forward": ([_VP] * 4 + [_I] * 4 + [_F, _I, _VP], _I),
     },
+    "group_norm_silu": {
+        # x, partials, B, HW, C, chunks, dtype, stream
+        "gns_stats": ([_VP] * 2 + [_I] * 5 + [_VP], _I),
+        # x, partials, gamma, beta, out, B, HW, C, G, chunks, eps, silu, dtype, stream
+        "gns_apply": ([_VP] * 5 + [_I] * 5 + [_F, _I, _I, _VP], _I),
+    },
 }
 
 _lock = threading.Lock()

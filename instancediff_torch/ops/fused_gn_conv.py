@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .group_norm_silu import group_mean_rstd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -21,16 +22,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def gn_channel_affine(x, gamma, beta, num_groups, eps=1e-5):
     """Per-(B,C) coefficients with GN(x)*gamma+beta == x*scale + shift.
     x: [B,H,W,C]; float32 sum/sumsq over (H,W), then the group fold."""
-    B, H, W, C = x.shape
-    G = num_groups
-    xf = x.float()
-    colsum = xf.sum(dim=(1, 2))
-    colsq = (xf * xf).sum(dim=(1, 2))
-    n = H * W * (C // G)
-    mean_g = colsum.reshape(B, G, C // G).sum(-1) / n
-    var_g = colsq.reshape(B, G, C // G).sum(-1) / n - mean_g**2
-    mean_c = mean_g.repeat_interleave(C // G, dim=1)
-    rstd_c = torch.rsqrt(var_g + eps).repeat_interleave(C // G, dim=1)
+    mean_c, rstd_c = group_mean_rstd(x, num_groups, eps)
     scale = rstd_c * gamma.float()[None]
     shift = beta.float()[None] - mean_c * scale
     return scale, shift

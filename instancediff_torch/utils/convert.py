@@ -31,7 +31,7 @@ import torch.nn as nn
 from ..models.layers import ConvParams
 
 # torch submodule names that differ from the flax module names
-_FLAX_MODULE_NAME = {"norm": "GroupNorm_0"}
+_FLAX_MODULE_NAME = {"norm": "GroupNorm_0", "ln": "LayerNorm_0"}
 
 
 def _flatten(tree, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -58,7 +58,7 @@ def _leaf(owner: nn.Module, pname: str):
         return "kernel", lambda a: a
     if isinstance(owner, nn.Embedding):
         return "embedding", lambda a: a
-    return "scale", lambda a: a  # GroupNorm / LayerNorm / GNParams
+    return "scale", lambda a: a  # GroupNorm / LayerNorm / FusedGroupNormSiLU
 
 
 def load_flax_params(module: nn.Module, tree) -> nn.Module:
@@ -93,8 +93,9 @@ def load_flax_params(module: nn.Module, tree) -> nn.Module:
 
 
 def load_engine(engine, state, text_params):
-    """Fill a port ``CLIPDriftEngine`` from the JAX engine's ``state`` (keys
-    drift / noise / d_ema / n_ema) and ``text_params``."""
+    """Fill a port engine from the JAX engine's ``state`` (keys drift / noise
+    / d_ema / n_ema for ``CLIPDriftEngine``, noise / n_ema for
+    ``CLIPDDPMEngine``) and ``text_params``."""
     for key, net in engine.nets.items():
         load_flax_params(net, state[key])
     load_flax_params(engine.text_encoder, text_params)

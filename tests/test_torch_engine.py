@@ -193,33 +193,94 @@ def _jax_noise(key, shape, n_steps):
     return eps, [np.asarray(jax.random.normal(k, shape)) for k in keys]
 
 
+@pytest.fixture(scope="module")
+def jax_samples(jax_engine, inputs):
+    """JAX ``build_sample_fn`` outputs by (optimize_type, eta, sample_steps),
+    each computed once and shared by the fused and the unfused port; the
+    key is ``jax.random.key(5)``."""
+    cache = {}
+
+    def get(optimize_type, eta, sample_steps):
+        k = (optimize_type, eta, sample_steps)
+        if k not in cache:
+            jax_engine.optimize_type = optimize_type
+            try:
+                sample = jax.jit(jax_engine.build_sample_fn(eta=eta,
+                                                            sample_steps=sample_steps))
+                cache[k] = np.asarray(sample(
+                    jax_engine.state["d_ema"], jax_engine.state["n_ema"],
+                    jax_engine.text_params, inputs["x_b"], inputs["type_idx"],
+                    inputs["emb"], jax.random.key(5)))
+            finally:
+                jax_engine.optimize_type = "inputRes"
+        return cache[k]
+
+    return get
+
+
+def _port_sample(engine, inputs, eta, sample_steps):
+    """The port engine's ``test`` with JAX's noise for ``jax.random.key(5)``."""
+    mu = inputs["x_b"]
+    n_steps = len(strided_sampling_grid(T, sample_steps)[0])
+    eps, zs = _jax_noise(jax.random.key(5), mu.shape, n_steps)
+    return engine.test(
+        {"input": mu, "type_idx": inputs["type_idx"], "A_emb": inputs["emb"]},
+        sample_steps=sample_steps, eta=eta, init_noise=torch.tensor(eps),
+        step_noise=[torch.tensor(z) for z in zs])
+
+
 @pytest.mark.parametrize("optimize_type,eta,sample_steps", [
     ("inputRes", 0.0, None), ("inputRes", 1.0, None), ("inputRes", 1.0, 2),
     ("predict_x0", 1.0, None), ("predict_std_noise_scale_drift", 0.0, 2)],
     ids=["eta0_T4", "eta1_T4", "eta1_strided2", "x0_eta1_T4", "scale_drift_eta0_strided2"])
-def test_sampler_matches_build_sample_fn(jax_engine, port_engine, inputs, optimize_type,
+def test_sampler_matches_build_sample_fn(jax_samples, port_engine, inputs, optimize_type,
                                          eta, sample_steps):
     """The whole slice: the port's engine ``test`` (kernel-structured UNet,
     two nets in turn) against JAX ``build_sample_fn`` (the plain graph on
     the CPU) with JAX's noise fed in, for each sampling contract."""
-    mu = inputs["x_b"]
-    key = jax.random.key(5)
-    jax_engine.optimize_type = port_engine.optimize_type = optimize_type
+    want = jax_samples(optimize_type, eta, sample_steps)
+    port_engine.optimize_type = optimize_type
     try:
-        sample = jax.jit(jax_engine.build_sample_fn(eta=eta, sample_steps=sample_steps))
-        want = np.asarray(sample(jax_engine.state["d_ema"], jax_engine.state["n_ema"],
-                                 jax_engine.text_params, mu, inputs["type_idx"],
-                                 inputs["emb"], key))
-        n_steps = len(strided_sampling_grid(T, sample_steps)[0])
-        eps, zs = _jax_noise(key, mu.shape, n_steps)
-        got = port_engine.test(
-            {"input": mu, "type_idx": inputs["type_idx"], "A_emb": inputs["emb"]},
-            sample_steps=sample_steps, eta=eta, init_noise=torch.tensor(eps),
-            step_noise=[torch.tensor(z) for z in zs])
+        got = _port_sample(port_engine, inputs, eta, sample_steps)
     finally:
-        jax_engine.optimize_type = port_engine.optimize_type = "inputRes"
-    assert got.shape == mu.shape
+        port_engine.optimize_type = "inputRes"
+    assert got.shape == inputs["x_b"].shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def unfused_engine(jax_engine):
+    """The port engine on the unfused ResBlock body and head."""
+    eng = CLIPDriftEngine(SETTINGS, SETTINGS, sde=DriftSDE(T=T, max_sigma=0.4),
+                          engine_opts={"fused_gnconv": False}, device="cpu", **ENGINE_KW)
+    assert not eng.nets["d_ema"].use_fused_gnconv
+    return load_engine(eng, jax_engine.state, jax_engine.text_params)
+
+
+@pytest.mark.parametrize("eta,sample_steps", [(0.0, None), (1.0, None), (1.0, 2)],
+                         ids=["eta0_T4", "eta1_T4", "eta1_strided2"])
+def test_unfused_sampler_matches_build_sample_fn(jax_samples, unfused_engine, inputs, eta,
+                                                 sample_steps):
+    """``engine_opts={"fused_gnconv": False}``: every ResBlock on the GN + SiLU
+    kernel's plain version and a plain conv, against the same JAX graph."""
+    want = jax_samples("inputRes", eta, sample_steps)
+    got = _port_sample(unfused_engine, inputs, eta, sample_steps)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+def test_fused_and_unfused_bodies_agree(port_engine, unfused_engine, inputs):
+    """The same weights through both bodies and heads: value-identical up to
+    float32 summation order."""
+    i = inputs
+    args = (torch.from_numpy(i["x_a"]), torch.from_numpy(i["x_b"]),
+            torch.from_numpy(i["t"]), torch.from_numpy(i["type_idx"]),
+            [torch.randn(5, SETTINGS["context_dim"], generator=torch.Generator().manual_seed(0))
+             for _ in range(2)], torch.from_numpy(i["emb"]))
+    with torch.no_grad():
+        want_pred, want_maps = port_engine.nets["d_ema"](*args)
+        pred, maps = unfused_engine.nets["d_ema"](*args)
+    for got, want in zip([pred] + maps, [want_pred] + want_maps):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_restorer_pads_chunks_and_rejects_unknown_types(port_engine):

@@ -16,6 +16,7 @@ from instancediff_torch.ops.fused_gn_conv import (
     fused_gn_silu_conv3x3,
     fused_gn_silu_conv3x3_plain,
 )
+from instancediff_torch.ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -73,6 +74,30 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, N):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# fp32: summation order only; bf16: one bf16 ulp (2^-8 relative to values
+# up to ~4 after the normalise) where the fp32 values straddle a rounding
+# boundary
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("C,G,silu", [(144, 24, True), (272, 17, True), (528, 24, False),
+                                      (64, 32, True), (20, 5, True)])
+def test_gn_kernel_matches_plain(cuda, dtype, tol, C, G, silu):
+    """Groups of 6, 16 and 22 channels that 8-wide bf16 loads straddle, and
+    C = 20, which takes the scalar path in bf16; odd H and W."""
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    x = (0.5 + _randn(gen, 3, 19, 23, C)).to(dtype)
+    gamma = 1 + _randn(gen, C, scale=0.2)
+    beta = _randn(gen, C, scale=0.3)
+    before = group_norm_silu.launches
+    got = group_norm_silu(x, gamma, beta, G, silu=silu)
+    torch.cuda.synchronize()
+    assert group_norm_silu.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = group_norm_silu_plain(x, gamma, beta, G, silu=silu)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again = group_norm_silu(x, gamma, beta, G, silu=silu)
+    assert torch.equal(got, again)  # no atomics: bit for bit
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 16, 32, device=cuda)
     with pytest.raises(NotImplementedError, match="D=64"):
@@ -81,3 +106,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     s = torch.zeros(1, 8, device=cuda)
     with pytest.raises(TypeError):
         fused_gn_silu_conv3x3(x, s, s, torch.zeros(3, 3, 8, 8, device=cuda), s)
+    g = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        group_norm_silu(x, g, g, 4)
+    x32 = x.float()
+    with pytest.raises(ValueError, match="groups"):
+        group_norm_silu(x32, g, g, 3)
+    with pytest.raises(ValueError, match=r"\[C\]"):
+        group_norm_silu(x32, g[:4], g[:4], 4)
+    with pytest.raises(ValueError, match="devices"):
+        group_norm_silu(x32, g.cpu(), g.cpu(), 4)

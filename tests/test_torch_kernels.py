@@ -37,6 +37,7 @@ from instancediff_torch.ops.fused_gn_conv import (
     fused_gn_silu_conv3x3_plain,
     gn_channel_affine,
 )
+from instancediff_torch.ops.group_norm_silu import group_norm_silu
 from instancediff_torch.utils.convert import load_flax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,13 +137,15 @@ def test_gn_channel_affine_matches_jax():
 
 
 def test_cpu_wrappers_do_not_count_launches():
-    before = (fused_gn_silu_conv3x3.launches, flash_attention.launches)
+    wrappers = (fused_gn_silu_conv3x3, flash_attention, group_norm_silu)
+    before = [f.launches for f in wrappers]
     rng = np.random.default_rng(4)
     x, scale, shift, w, bias, _ = _fgc_inputs(rng, 1, 4, 4, 8, 8, False)
     fused_gn_silu_conv3x3(_t(x), _t(scale), _t(shift), _t(w), _t(bias))
     q = _t(_rand(rng, 1, 1, 8, 4))
     flash_attention(q, q, q)
-    assert (fused_gn_silu_conv3x3.launches, flash_attention.launches) == before
+    group_norm_silu(_t(x), _t(scale[0]), _t(shift[0]), 4)
+    assert [f.launches for f in wrappers] == before
 
 
 # --------------------------------------------------------------------------- #
@@ -243,10 +246,12 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 15
+    # the package and every module, ddpm_model, ddpm_sde and group_norm_silu included
+    assert int(out.stdout.split()[1]) >= 23
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
     from instancediff_torch.models.drift_model import CLIPDriftEngine
     from instancediff_torch.serving import Restorer
 
@@ -255,11 +260,20 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
                     num_res_blocks=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CLIPDriftEngine(settings, settings, tiny_text_encoder=True)
-    eng = CLIPDriftEngine(settings, settings, score_map_ch_mult=(1, 1), score_map_ngf=8,
-                          tiny_text_encoder=True, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        Restorer(eng)
-    Restorer(eng, device="cpu")
+        CLIPDDPMEngine(settings, tiny_text_encoder=True)
+    with pytest.raises(KeyError, match="engine knob"):
+        CLIPDriftEngine(settings, settings, engine_opts={"fused_gnconv": 0, "fused_conv": 1},
+                        tiny_text_encoder=True, device="cpu")
+    eng = CLIPDriftEngine(settings, settings, score_map_ch_mult=(1, 1), score_map_ngf=8,
+                          tiny_text_encoder=True, engine_opts={"fused_gnconv": 0},
+                          device="cpu")
+    ddpm = CLIPDDPMEngine(dict(settings, score_map_ngf=8), tiny_text_encoder=True,
+                          device="cpu")
+    for engine in (eng, ddpm):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Restorer(engine)
+        Restorer(engine, device="cpu")
 
 
 def test_chip_smoke_fails_without_cuda():
