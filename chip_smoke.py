@@ -2,14 +2,21 @@
 plain PyTorch versions.
 
 Run from the repository root:  python3 chip_smoke.py
+(``python3 chip_smoke.py --sweep`` builds the kernels and only times the bf16
+fused conv at each flagship launch shape under each tile / N-block choice of
+its plan, beside cuDNN.)
 
 Phases, one JSON line each, in order:
   1. build   -- nvcc builds every kernel of ``instancediff_torch/csrc`` for
-                sm_90a into the ignored ``instancediff_torch/_build/``;
+                sm_90a into the ignored ``instancediff_torch/_build/`` (one
+                nvcc per source, in parallel) and reports ptxas's registers
+                and spills; a spilling tensor-core kernel fails the run;
   2. check   -- each kernel against its plain version on the card at the main
-                paths' shapes, in bf16 and fp32: max abs error (with the
-                stated tolerance), kernel ms, plain ms, one library call's ms
-                (a yardstick only: the port never calls it) and the bound;
+                paths' shapes and at the edges of the conv kernel's tiling,
+                in bf16 and fp32: max abs error (with the stated tolerance),
+                kernel ms (and the conv's achieved TFLOP/s), plain ms, one
+                library call's ms (a yardstick only: the port never calls
+                it) and the bound;
   3. main    -- three paths at full width, each answering two requests
                 through ``Restorer.restore`` (8 images, then 3, which pads)
                 with seeded random weights, 256 px, batch 8, bf16, 4 of T=100
@@ -49,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,8 +74,8 @@ from instancediff_torch.models.engine import ARTIFACT_PROMPTS
 from instancediff_torch.models.layers import ConvParams
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from instancediff_torch.ops.fused_gn_conv import (fused_gn_silu_conv3x3,
-                                                  fused_gn_silu_conv3x3_plain)
+from instancediff_torch.ops.fused_gn_conv import (conv_plan, fused_gn_silu_conv3x3,
+                                                  fused_gn_silu_conv3x3_plain, pack_weights)
 from instancediff_torch.ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
 from instancediff_torch.sde import DDPMSDE, DriftSDE
 from instancediff_torch.sde.schedules import strided_sampling_grid
@@ -97,7 +105,10 @@ DDPM_MAX_SIGMA = 1.0
 RES, BATCH, T, SAMPLE_STEPS, ETA = 256, 8, 100, 4, 1.0
 CONV_SHAPES = [  # (B, H, W, C, Cout, residual)
     (8, 256, 256, 64, 64, False), (8, 256, 256, 144, 64, False),
-    (8, 64, 64, 528, 256, False), (8, 32, 32, 256, 256, True), (8, 256, 256, 64, 5, False)]
+    (8, 64, 64, 528, 256, False), (8, 32, 32, 256, 256, True), (8, 256, 256, 64, 5, False),
+    # edges of the bf16 kernel's tiling: W not a multiple of the tile (the
+    # 224 px decoder levels), and C not a multiple of 8 (the scalar halo path)
+    (8, 28, 28, 528, 256, False), (8, 56, 56, 272, 128, False), (8, 64, 64, 20, 5, False)]
 FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64)]
 GN_SHAPES = [  # (B, H, W, C, groups, silu)
     (8, 256, 256, 64, 32, True), (8, 256, 256, 144, 24, True), (8, 128, 128, 272, 17, True),
@@ -115,6 +126,27 @@ WRAPPERS = {"conv": fused_gn_silu_conv3x3, "flash": flash_attention, "gn": group
 PATHS = {"drift": {"conv": 90, "flash": 2, "gn": 0},
          "drift_unfused": {"conv": 0, "flash": 2, "gn": 90},
          "ddpm": {"conv": 0, "flash": 1, "gn": 45}}
+
+
+# kernels whose registers must not spill: a wgmma accumulator spilled while
+# the instruction runs would be lost
+NO_SPILL = ("fgc_tc_kernel", "flash_tc_kernel")
+
+
+def ptxas_spills(logs) -> dict:
+    """Spill stores + loads in bytes per compiled entry (the start of its
+    mangled name), from nvcc's ``-Xptxas -v`` output."""
+    out, entry = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:  # from the kernel's own name on (fgc_..., flash_..., gns_...)
+                name = m.group(1)
+                entry = name[re.search(r"(fgc|flash|gns)_", name).start():][:48]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and entry:
+                out[entry] = int(m.group(1)) + int(m.group(2))
+    return out
 
 
 def emit(obj) -> None:
@@ -193,9 +225,10 @@ def measure_conv(shape, dtype, gen):
     xn = xn.permute(0, 3, 1, 2)
     wk = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     bound_ms, bound_by = conv_cost(shape, dtype)
+    ms = cuda_ms(lambda: fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res))
+    B, H, W, C, Cout, _ = shape
     return dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)),
+        max_abs_err=err, ms=ms, tflops=2.0 * B * H * W * 9 * C * Cout / (ms * 1e-3) / 1e12,
         plain_ms=cuda_ms(lambda: fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias,
                                                              residual=res)),
         library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(xn, wk, padding=1)),
@@ -334,7 +367,8 @@ def plain_kernels():
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
-    ("fused_conv", ("fgc_kernel",)), ("flash", ("flash_kernel",)),
+    ("fused_conv", ("fgc_tc_kernel", "fgc_fma_kernel")),
+    ("flash", ("flash_tc_kernel", "flash_fma_kernel")),
     ("group_norm", ("gns_stats_kernel", "gns_apply_kernel")),
     ("library_conv", ("fprop", "conv", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "matmul")), ("reduce", ("reduce",)))
@@ -446,6 +480,48 @@ def compare_forwards(what, got, want, gpu) -> None:
           "tol_rel": FORWARD_TOL, "gpu": gpu})
 
 
+# fused-conv launch shapes (H, W, C, Cout) of one flagship forward, for --sweep
+SWEEP_SHAPES = [(256, 256, 64, 64), (256, 256, 64, 5), (256, 256, 144, 64), (128, 128, 64, 128),
+                (128, 128, 128, 128), (128, 128, 272, 128), (64, 64, 128, 256),
+                (64, 64, 256, 256), (64, 64, 528, 256), (32, 32, 256, 256), (32, 32, 528, 256)]
+
+
+def sweep(gpu) -> None:
+    """Time the bf16 conv kernel at each flagship launch shape (batch 8) under
+    every tile / N-block choice its plan picks from, beside cuDNN's conv on
+    the normalised input; one JSON line per shape (ms, median of 10)."""
+    lib = _build.load("fused_gn_silu_conv3x3")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for H, W, C, Cout in SWEEP_SHAPES:
+        shape = (BATCH, H, W, C, Cout, False)
+        x, scale, shift, w, bias, _ = conv_case(shape, torch.bfloat16, gen)
+        out = torch.empty(BATCH, H, W, Cout, device="cuda", dtype=torch.bfloat16)
+        want = fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias)
+        xn = torch.nn.functional.silu(
+            x.float() * scale[:, None, None] + shift[:, None, None]).bfloat16().permute(0, 3, 1, 2)
+        wk = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        plan = conv_plan(BATCH, H, W, C, Cout)
+        row = {"phase": "sweep", "shape": [BATCH, H, W, C, Cout],
+               "plan": f"{plan['th']}x{plan['tw']} nb{plan['nb']}",
+               "cudnn_ms": cuda_ms(lambda: torch.nn.functional.conv2d(xn, wk, padding=1))}
+        for th in (16, 8):
+            for nb in sorted({plan["nb"], 64, 128, 256}):
+                if nb > max(64, 2 * Cout) or (nb == 8) != (Cout <= 8):
+                    continue
+                wpk = pack_weights(w, nb)
+
+                def run():
+                    _build.check(lib.fgc_tc_forward(
+                        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wpk.data_ptr(),
+                        bias.data_ptr(), None, out.data_ptr(), BATCH, H, W, C, Cout, th, nb,
+                        plan["stages"], torch.cuda.current_stream().cuda_stream), "sweep")
+
+                run()
+                check_err(f"sweep {row['shape']} {th}x8 nb{nb}", out, want, torch.bfloat16)
+                row[f"{th}x8 nb{nb}"] = cuda_ms(run)
+        emit(dict(row, gpu=gpu))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -464,8 +540,16 @@ def main() -> int:
         _build.load(name)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    spills = ptxas_spills(logs)
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "gpu": gpu,
-          "kernels": list(_build.SIGNATURES), "ptxas": ptxas})
+          "kernels": list(_build.SIGNATURES), "ptxas": ptxas, "spill_bytes": spills})
+    spilled = {k: v for k, v in spills.items() if v and any(t in k for t in NO_SPILL)}
+    if spilled:
+        raise AssertionError(f"tensor-core kernels spill registers: {spilled}")
+
+    if "--sweep" in sys.argv[1:]:
+        sweep(gpu)
+        return 0
 
     # 2. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -544,7 +628,8 @@ def main() -> int:
             for (shape, dtype), count in shapes[path][kname].items():
                 m = MEASURE[kname](shape, dtype, gen)
                 per_shape.append([list(shape), count, round(m["ms"], 4),
-                                  round(m["bound_ms"], 4), round(m["library_ms"], 4)])
+                                  round(m["bound_ms"], 4), round(m["library_ms"], 4)]
+                                 + ([round(m["tflops"], 2)] if "tflops" in m else []))
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                     tot[key] += m[key] * count
                 bound_by[m["bound_by"]] += m["bound_ms"] * count
@@ -552,7 +637,8 @@ def main() -> int:
             emit({"phase": "per_forward", "kernel": kname, "path": path,
                   "launches_per_forward": sum(shapes[path][kname].values()),
                   "distinct_shapes": len(per_shape), **{k: round(v, 4) for k, v in tot.items()},
-                  "shapes_count_ms_bound_library": per_shape, "gpu": gpu})
+                  "shapes_count_ms_bound_library" + ("_tflops" if kname == "conv" else ""):
+                  per_shape, "gpu": gpu})
             worst[kname] = max(worst[kname], tot["max_abs_err"])
             entries.setdefault(kname, {
                 "name": names[kname], "route": "cuda", "source": SOURCES[kname][0],

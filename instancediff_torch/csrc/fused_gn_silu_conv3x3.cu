@@ -7,257 +7,698 @@
 //               + sum_{dy,dx,c} a(x[b, h+dy-1, w+dx-1, c]) * wt[dy,dx,c,co]
 //   a(v) = round_to_T(silu(v * scale[b,c] + shift[b,c])), and 0 outside the image
 //
-// with NHWC x/res/y in T (bf16 or fp32), HWIO wt in T, scale/shift [B,C] and
-// bias [B,Cout] in fp32, fp32 accumulation.
+// with NHWC x/res/y in T (bf16 or fp32), HWIO wt, scale/shift [B,C] and
+// bias [B,Cout] in fp32, fp32 accumulation and one rounding at the store.
 //
 // What bounds it on the H100: per output pixel it moves about
-// (C + Cout [+ Cout]) * sizeof(T) bytes and does 2*9*C*Cout FLOPs. At the
-// flagship's widths that is ~290 FLOP/byte in bf16 at C = Cout = 64 (just
-// under the card's ~295 FLOP/byte ridge, so bound by bytes) up to ~1550 at
-// C = 528 -> 256 (bound by the tensor cores); the Cout=5 output head is
-// bound by bytes.
+// (C + Cout [+ Cout]) * sizeof(T) bytes and does 2*9*C*Cout FLOPs: ~290
+// FLOP/byte in bf16 at C = Cout = 64 (at the card's ~295 FLOP/byte ridge) up
+// to ~1550 at C = 528 -> 256, so every large launch of the flagship forward is
+// bound by the tensor cores (989 TFLOP/s bf16); the Cout=5 output head is
+// bound by bytes (it reads 64 channels to write 5).
 //
-// Design (the first, simple version): an implicit GEMM with M = B*H*W pixels,
-// N = Cout, K = 9*C, one 128x64 output tile per block of 256 threads. The K
-// loop walks the nine taps and 32-channel slices. Each step stages the
-// activation tile in shared memory with the normalize + SiLU applied while it
-// is loaded, writing 0 for out-of-image taps and for channels past C (so the
-// SAME padding is applied after the normalize, as the TPU kernel's mask does,
-// and ragged C such as 144/272/528 needs no padding), and stages the weight
-// slice transposed to [n][k]. bf16 multiplies on the tensor cores with
-// mma.sync m16n8k16 and fp32 accumulators (each warp owns a 32x32 sub-tile);
-// fp32 uses plain FMA on an 8x4 micro-tile per thread. The epilogue adds the
-// per-(B,Cout) bias and the optional residual in fp32, masks pixels past M and
-// channels past Cout, and stores T. There is no double buffering and no
-// TMA/wgmma yet, and the TPU's row-strip DMA pipeline is not carried over:
-// blocks run in parallel on the 132 SMs and need no carried state.
+// bf16 design (fgc_tc_kernel), for those bounds:
+//  * Normalise once per tile, as the Pallas kernel does. A block owns a TH x 8
+//    pixel tile of one image (TH = 16: two warpgroups; 8: one) and an N block
+//    of NB = 8, 64, 128 or 256 output channels sized from Cout (the Cout=5
+//    head pays for 8 columns). For each 32-channel slice it loads the
+//    raw (TH+2) x 10 halo once (cp.async, 16-byte chunks when C % 8 == 0,
+//    else scalar loads) with scale/shift, applies them + SiLU in fp32 once per
+//    element, rounds to bf16 and stores the normalised tile in shared memory.
+//    Halo pixels outside the image are set to exactly 0 by coordinate (a
+//    zero-filled load would become SiLU(shift) != 0), channels past C get
+//    scale = shift = 0. Normalisations per output pixel fall from 9 (one per
+//    tap) to 180/128 = 1.4 at TH = 16.
+//  * The nine taps read shifted windows of that one tile straight from shared
+//    memory: the tile is stored [8-channel chunk][halo pixel][8 channels], so
+//    eight neighbouring halo pixels are one 128-byte wgmma core matrix and the
+//    window of tap (dy, dx) is a plain matrix descriptor whose start moves
+//    with (dy, dx) (rows 160 bytes apart). No copy per tap.
+//  * Tensor cores: wgmma m64nNk16 bf16 -> fp32, A (activations) and B
+//    (weights) from shared memory, fp32 accumulators in registers, one step's
+//    wgmmas in flight behind the next step's issue. (A from registers, loaded
+//    by ldmatrix, needs the registers kept until the wgmma retires, which the
+//    compiler does not guarantee: it gave wrong sums.)
+//  * The weights are packed once per parameter by the wrapper into
+//    [nblock][slice][tap][NB][32] rows of 64 bytes in the wgmma 64-byte
+//    swizzle, zero-padded past C and Cout: one (slice, tap) step is one
+//    contiguous run that a single TMA bulk copy (cp.async.bulk, completion on
+//    an mbarrier) brings into a ring of `stages` buffers ahead of the MMAs.
+//  * Persistent blocks: as many as fit on the card, each walking tiles; the
+//    weight ring streams across tile boundaries, the next unit's halo and
+//    coefficients are in flight (cp.async) while the current unit is
+//    multiplied, and its normalisation runs between wgmma issue and wait.
+//  * No split-K and no atomics: a repeated call gives the same bits.
+//  * The epilogue adds bias[b,co] and the residual in fp32 and stores bf16.
+//  Measured on the H100 this runs at 10-28 % of the tensor-core rate on the
+//  large launches; even with the normalise, halo loads and stores switched
+//  off the step pipeline (one 32-channel step per block-wide barrier) stays
+//  far from the rate (PERF.md, findings of the redesign).
+//
+// fp32 (fgc_fma_kernel, the parity path, not served): the first, simple
+// design kept in full fp32 (no TF32): an implicit GEMM of 128x64 tiles that
+// normalises each operand as it stages it, with plain FMA.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
-#include <type_traits>
 
 namespace {
 
-constexpr int BM = 128;       // output pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 32;        // input channels per K step (within one tap)
-constexpr int NTHREADS = 256;
+// ---------------------------------------------------------------- shared
 
-struct Args {
-  const void* x;
+__device__ __forceinline__ float silu(float u) { return u / (1.f + expf(-u)); }
+// bf16 path: fast exp and reciprocal (a few fp32 ulps; the result is rounded to bf16)
+__device__ __forceinline__ float silu_fast(float u) { return __fdividef(u, 1.f + __expf(-u)); }
+
+// ---------------------------------------------------------------- bf16 kernel
+
+constexpr int BKC = 32;           // channels per K slice
+constexpr int TW = 8;             // tile width: one 8-pixel row is one wgmma core matrix
+
+struct TcArgs {
+  const __nv_bfloat16* x;
   const float* scale;
   const float* shift;
-  const void* w;
+  const __nv_bfloat16* wpk;      // packed weights, see the header
   const float* bias;
-  const void* res;
-  void* out;
+  const __nv_bfloat16* res;
+  __nv_bfloat16* out;
+  int B, H, W, C, Cout;
+  int slices, tiles_x, tiles_y, stages, vec;
+};
+
+__host__ __device__ constexpr int halo_pixels(int th) { return (th + 2) * (TW + 2); }
+
+// dynamic shared memory of one block: the weight ring, two normalised tiles,
+// two raw halos, two sets of scale/shift, one mbarrier per stage
+__host__ __device__ constexpr int tc_smem_bytes(int th, int nb, int stages) {
+  return stages * BKC * nb * 2 + 4 * halo_pixels(th) * BKC * 2 + 4 * BKC * 4 + stages * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Spins until the barrier's phase `parity` completes; traps (a launch error
+// instead of a hung card) if a copy never lands.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    if (spins > (1LL << 30)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// TMA bulk copy global -> shared, completion reported to bar
+__device__ __forceinline__ void tma_bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// generic-proxy shared-memory stores made visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// K-major shared-memory matrix descriptors.
+// No swizzle: core matrices of 8 rows x 16 bytes stored as 128 contiguous
+// bytes; lbo = byte stride between core matrices along K, sbo = along M/N.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+// 64-byte swizzle: rows of 64 bytes (32 bf16 of K), 8-row atoms of 512 bytes
+// in which the 16-byte chunk c of row n sits at c ^ ((n >> 1) & 3); sbo =
+// 512 between atoms along N. The address advances by 32 bytes per k16 step.
+__device__ __forceinline__ uint64_t make_desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+
+// wgmma m64nNk16, f32 += bf16 * bf16, A and B from shared memory by descriptor
+template <int N> struct Wgmma;
+template <> struct Wgmma<8> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <> struct Wgmma<64> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <> struct Wgmma<128> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <> struct Wgmma<256> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// One persistent block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// of TH x 8 pixels (one image each) for the N block blockIdx.y of NB output
+// channels. Warpgroup w owns the 8 x 8 pixels of tile rows
+// 8w .. 8w+7, one wgmma m64 tile whose row m is pixel (8w + m/8, m%8). The
+// block's work is a flat sequence of units (tile, 32-channel slice), each of
+// nine steps (taps):
+//  * the weight ring streams step after step, tile after tile, `stages` ahead;
+//  * unit u multiplies the normalised tile anorm[u&1]; its steps 1.. also
+//    normalise unit u+1's raw halo into anorm[(u+1)&1] (the SiLU work
+//    overlaps the asynchronous wgmmas, one step of which stays in flight),
+//    and unit u+2's raw halo and scale/shift are in flight (cp.async);
+//  * the last unit of a tile stores it and clears the accumulators.
+// The normalised tile is [4][halo pixel][8 channels]: eight neighbouring halo
+// pixels of one row at one 8-channel chunk are one 128-byte core matrix, so
+// the tap (dy, dx) window of a warpgroup's 8 x 8 pixels is a plain matrix
+// descriptor (rows 160 bytes apart, chunks HP*16 bytes apart) whose start
+// moves with (dy, dx).
+template <int TH, int NB>
+__global__ void __launch_bounds__(TH * TW * 2, 1) fgc_tc_kernel(const TcArgs a) {
+  constexpr int NT = TH * TW * 2;
+  constexpr int HW2 = TW + 2;
+  constexpr int HP = halo_pixels(TH);
+  constexpr int ITEMS = HP * (BKC / 8);           // (pixel, 8-channel chunk) items per unit
+  constexpr int PARTS = (ITEMS + NT - 1) / NT;    // normalise items per thread per unit
+  static_assert(PARTS <= 8, "normalise work must fit in steps 1..8");
+  constexpr int NACC = NB / 2;
+  constexpr uint32_t STAGE_BYTES = BKC * NB * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ns = a.stages;
+  unsigned char* ring = smem;
+  __nv_bfloat16* anorm = reinterpret_cast<__nv_bfloat16*>(smem + ns * STAGE_BYTES);  // [2][4][HP][8]
+  __nv_bfloat16* raw = anorm + 2 * HP * BKC;                                          // [2][HP][BKC]
+  float* coef = reinterpret_cast<float*>(raw + 2 * HP * BKC);                         // [2][scale 32 | shift 32]
+  uint64_t* full = reinterpret_cast<uint64_t*>(coef + 4 * BKC);  // [ns] weights landed
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = a.slices;
+  const int steps_per_tile = 9 * S;
+  const int tiles_img = a.tiles_x * a.tiles_y;
+  const int my_tiles = (a.B * tiles_img - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int units = my_tiles * S;
+  const int total_steps = units * 9;
+  const int n0 = blockIdx.y * NB;
+  const __nv_bfloat16* wblk = a.wpk + (size_t)blockIdx.y * steps_per_tile * (BKC * NB);
+
+  struct Tile { int b, oy, ox; };
+  auto tile_of = [&](int u) {
+    const int t = (int)blockIdx.x + (u / S) * (int)gridDim.x;
+    const int b = t / tiles_img, r = t - b * tiles_img;
+    return Tile{b, (r / a.tiles_x) * TH, (r % a.tiles_x) * TW};
+  };
+
+  auto issue_weights = [&](int g) {  // global step g into stage g % ns
+    const int st = g % ns;
+    mbar_expect_tx(&full[st], STAGE_BYTES);
+    tma_bulk_g2s(ring + st * STAGE_BYTES, wblk + (size_t)(g % steps_per_tile) * (BKC * NB),
+                 STAGE_BYTES, &full[st]);
+  };
+
+  // unit u's raw halo ((TH+2) x (TW+2) pixels x 32 channels, 0 where the pixel
+  // or channel does not exist) and its scale/shift (0 past C) into buffer u&1
+  auto load_unit = [&](int u) {
+    const Tile tl = tile_of(u);
+    const int c0 = (u % S) * BKC;
+    __nv_bfloat16* dst0 = raw + (u & 1) * HP * BKC;
+    for (int i = tid; i < ITEMS; i += NT) {
+      const int p = i >> 2, q = i & 3;
+      const int gy = tl.oy - 1 + p / HW2, gx = tl.ox - 1 + p % HW2;
+      const int c = c0 + q * 8;
+      const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.C;
+      const size_t off = ok ? (((size_t)tl.b * a.H + gy) * a.W + gx) * a.C + c : 0;
+      __nv_bfloat16* dst = dst0 + p * BKC + q * 8;
+      if (a.vec) {
+        cp_async16(dst, a.x + off, ok ? 16 : 0);
+      } else {
+        const unsigned short* xs = reinterpret_cast<const unsigned short*>(a.x) + off;
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t lo = (ok && c + 2 * e < a.C) ? xs[2 * e] : 0u;
+          const uint32_t hi = (ok && c + 2 * e + 1 < a.C) ? xs[2 * e + 1] : 0u;
+          v[e] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if (tid < 2 * BKC) {
+      const int c = c0 + (tid & (BKC - 1));
+      const float* src = (tid < BKC ? a.scale : a.shift) + (size_t)tl.b * a.C;
+      cp_async4(coef + (u & 1) * 2 * BKC + tid, src + (c < a.C ? c : 0), c < a.C ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // normalise this thread's item `part` of unit u: round(SiLU(x*scale+shift))
+  // into anorm[u&1], exactly 0 outside the image (channels past C have
+  // scale = shift = 0, so SiLU gives 0 there); then make the stores visible
+  // to the wgmmas (async proxy)
+  auto normalize_part = [&](int u, const Tile& tl, int part) {
+    const int i = tid + part * NT;
+    if (i >= ITEMS) return;
+    const int q = i / HP, p = i - q * HP;
+    const int gy = tl.oy - 1 + p / HW2, gx = tl.ox - 1 + p % HW2;
+    const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+    const float* cf = coef + (u & 1) * 2 * BKC + q * 8;
+    const float4 s0 = *reinterpret_cast<const float4*>(cf);
+    const float4 s1 = *reinterpret_cast<const float4*>(cf + 4);
+    const float4 h0 = *reinterpret_cast<const float4*>(cf + BKC);
+    const float4 h1 = *reinterpret_cast<const float4*>(cf + BKC + 4);
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float sh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+    const uint4 rv = *reinterpret_cast<const uint4*>(raw + (u & 1) * HP * BKC + p * BKC + q * 8);
+    const uint32_t w4[4] = {rv.x, rv.y, rv.z, rv.w};
+    uint32_t o4[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lo = silu_fast(bf16_lo(w4[e]) * sc[2 * e] + sh[2 * e]);
+      const float hi = silu_fast(bf16_hi(w4[e]) * sc[2 * e + 1] + sh[2 * e + 1]);
+      o4[e] = in ? pack_bf16x2(lo, hi) : 0u;
+    }
+    *reinterpret_cast<uint4*>(anorm + (u & 1) * HP * BKC + (q * HP + p) * 8) =
+        make_uint4(o4[0], o4[1], o4[2], o4[3]);
+    fence_proxy_async();
+  };
+
+  if (tid == 0) {
+    if (smem_u32(ring) & 511) __trap();  // the 64-byte swizzle needs 512-byte atoms
+    for (int i = 0; i < ns; ++i) mbar_init(&full[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int g = 0; g < ns && g < total_steps; ++g) issue_weights(g);
+  load_unit(0);
+  if (units > 1) {
+    load_unit(1);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  {
+    const Tile t0 = tile_of(0);
+#pragma unroll
+    for (int part = 0; part < PARTS; ++part) normalize_part(0, t0, part);
+  }
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+  // this warpgroup's 8 x 8 pixels start at halo pixel (8w, 0)
+  const uint32_t a_wg = smem_u32(anorm) + (warp / 4) * (8 * HW2) * 16;
+
+  for (int u = 0; u < units; ++u) {
+    cp_async_wait_all();  // unit u+1's halo and coefficients have landed
+    __syncthreads();      // ... and unit u's normalised tile is complete
+    if (u + 2 < units) load_unit(u + 2);
+    const bool has_next = u + 1 < units;
+    const Tile next = tile_of(u + 1);
+    const uint32_t a_unit = a_wg + (u & 1) * HP * BKC * 2;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int g = u * 9 + t;
+      const int st = g % ns;
+      mbar_wait(&full[st], (uint32_t)((g / ns) & 1));
+      const uint32_t a_tap = a_unit + ((t / 3) * HW2 + t % 3) * 16;
+      const uint32_t b_st = smem_u32(ring + st * STAGE_BYTES);
+      fence_acc<NACC>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        Wgmma<NB>::run(acc, make_desc(a_tap + 2 * j * HP * 16, HP * 16, HW2 * 16),
+                       make_desc_sw64(b_st + j * 32));
+      wgmma_commit();
+      fence_acc<NACC>(acc);
+      // steps 1.. normalise the next unit while the wgmmas run; step 0's
+      // barrier below has retired unit u-1, the last reader of that buffer
+      if (t >= 1 && t <= PARTS && has_next) normalize_part(u + 1, next, t - 1);
+      wgmma_wait<1>();  // step g-1 retired in this warpgroup
+      fence_acc<NACC>(acc);
+      // every warpgroup has retired step g-1: refill its stage. (Per-stage
+      // "empty" mbarriers instead of this barrier, letting the warpgroups
+      // drift apart, ran slower on the H100.)
+      __syncthreads();
+      if (tid == 0 && g >= 1 && g - 1 + ns < total_steps) issue_weights(g - 1 + ns);
+    }
+    if (u % S != S - 1) continue;
+
+    // the tile is done: + bias[b,co] (+ residual) in fp32, one rounding, masked store
+    wgmma_wait<0>();
+    fence_acc<NACC>(acc);
+    const Tile tl = tile_of(u);
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const float* bias = a.bias + (size_t)tl.b * a.Cout;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pp = warp * 16 + g8 + 8 * h;
+      const int gy = tl.oy + pp / TW, gx = tl.ox + pp % TW;
+      if (gy >= a.H || gx >= a.W) continue;
+      const size_t obase = (((size_t)tl.b * a.H + gy) * a.W + gx) * a.Cout;
+#pragma unroll
+      for (int c = 0; c < NB / 8; ++c) {
+        const int co = n0 + c * 8 + t4 * 2;
+        float v0 = acc[c * 4 + 2 * h], v1 = acc[c * 4 + 2 * h + 1];
+        if (co + 1 < a.Cout && !(a.Cout & 1)) {
+          v0 += bias[co];
+          v1 += bias[co + 1];
+          if (a.res != nullptr) {
+            const uint32_t rw = *reinterpret_cast<const uint32_t*>(a.res + obase + co);
+            v0 += bf16_lo(rw);
+            v1 += bf16_hi(rw);
+          }
+          *reinterpret_cast<uint32_t*>(a.out + obase + co) = pack_bf16x2(v0, v1);
+        } else {
+          if (co < a.Cout) {
+            v0 += bias[co] + (a.res != nullptr ? __bfloat162float(a.res[obase + co]) : 0.f);
+            a.out[obase + co] = __float2bfloat16(v0);
+          }
+          if (co + 1 < a.Cout) {
+            v1 += bias[co + 1] + (a.res != nullptr ? __bfloat162float(a.res[obase + co + 1]) : 0.f);
+            a.out[obase + co + 1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  }
+}
+
+// ---------------------------------------------------------------- fp32 kernel
+
+constexpr int FBM = 128;   // output pixels per block
+constexpr int FBN = 64;    // output channels per block
+constexpr int FBK = 32;    // input channels per K step (within one tap)
+constexpr int FNT = 256;
+constexpr int FLDS = FBK + 1;
+
+struct FmaArgs {
+  const float* x;
+  const float* scale;
+  const float* shift;
+  const float* w;
+  const float* bias;
+  const float* res;
+  float* out;
   int B, H, W, C, Cout;
 };
 
-// Pixel coordinates of the block's BM output rows; b = -1 past M.
-struct RowInfo {
-  int b[BM];
-  int y[BM];
-  int x[BM];
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T> __host__ __device__ constexpr int row_stride() {
-  // bf16: 40 halves = 20 words, conflict-free fragment loads; fp32: 33 words
-  return std::is_same<T, float>::value ? BK + 1 : BK + 8;
-}
-
-// Stage the activation slice [BM x BK] (normalize + SiLU on load) and the
-// weight slice transposed to [BN x BK] for tap (dy, dx), channels c0.., and
-// output channels n0...
-template <typename T>
-__device__ __forceinline__ void stage(const Args& a, const RowInfo& ri, int dy, int dx,
-                                      int c0, int n0, T* As, T* Bs) {
-  constexpr int LDS = row_stride<T>();
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  const int kk = threadIdx.x & (BK - 1);
-  const int c = c0 + kk;
-  const bool c_ok = c < a.C;
-  // one warp loads one pixel's 32 consecutive channels per iteration
-#pragma unroll 4
-  for (int r = threadIdx.x / BK; r < BM; r += NTHREADS / BK) {
-    float v = 0.f;
-    const int b = ri.b[r];
-    if (b >= 0 && c_ok) {
-      const int yy = ri.y[r] + dy - 1;
-      const int xx = ri.x[r] + dx - 1;
-      if (yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
-        const size_t idx = (((size_t)b * a.H + yy) * a.W + xx) * a.C + c;
-        const float u = to_f(x[idx]) * a.scale[b * a.C + c] + a.shift[b * a.C + c];
-        v = u / (1.f + expf(-u));
-      }
-    }
-    As[r * LDS + kk] = from_f<T>(v);
-  }
-  const int tap = dy * 3 + dx;
-  for (int i = threadIdx.x; i < BN * BK; i += NTHREADS) {
-    const int n = i % BN;
-    const int k = i / BN;
-    const int cc = c0 + k;
-    const int nn = n0 + n;
-    float v = 0.f;
-    if (cc < a.C && nn < a.Cout) v = to_f(w[((size_t)tap * a.C + cc) * a.Cout + nn]);
-    Bs[n * LDS + k] = from_f<T>(v);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* af, const uint32_t* bf) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "r"(bf[0]), "r"(bf[1]));
-}
-
-template <typename T>
-__device__ __forceinline__ void epilogue_store(const Args& a, const RowInfo& ri, int m0,
-                                               int n0, int r, int col, float v) {
-  const int b = ri.b[r];
-  const int n = n0 + col;
-  if (b < 0 || n >= a.Cout) return;
-  const size_t o = (size_t)(m0 + r) * a.Cout + n;
-  v += a.bias[b * a.Cout + n];
-  if (a.res != nullptr) v += to_f(static_cast<const T*>(a.res)[o]);
-  static_cast<T*>(a.out)[o] = from_f<T>(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS) fgc_kernel(Args a) {
-  constexpr int LDS = row_stride<T>();
-  __shared__ __align__(16) T As[BM * LDS];
-  __shared__ __align__(16) T Bs[BN * LDS];
-  __shared__ RowInfo ri;
+__global__ void __launch_bounds__(FNT) fgc_fma_kernel(FmaArgs a) {
+  __shared__ float As[FBM * FLDS];
+  __shared__ float Bs[FBN * FLDS];
+  __shared__ int rb[FBM], ry[FBM], rx[FBM];
 
   const int HW = a.H * a.W;
   const long long M = (long long)a.B * HW;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
+  const int m0 = blockIdx.x * FBM;
+  const int n0 = blockIdx.y * FBN;
+  for (int r = threadIdx.x; r < FBM; r += FNT) {
     const long long m = (long long)m0 + r;
-    if (m < M) {
-      const int b = (int)(m / HW);
-      const int rem = (int)(m - (long long)b * HW);
-      ri.b[r] = b;
-      ri.y[r] = rem / a.W;
-      ri.x[r] = rem % a.W;
-    } else {
-      ri.b[r] = -1;
-      ri.y[r] = 0;
-      ri.x[r] = 0;
-    }
+    const int b = m < M ? (int)(m / HW) : -1;
+    const int rem = m < M ? (int)(m - (long long)b * HW) : 0;
+    rb[r] = b;
+    ry[r] = rem / a.W;
+    rx[r] = rem % a.W;
   }
-
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int kk = threadIdx.x & (FBK - 1);
 
   for (int tap = 0; tap < 9; ++tap) {
-    for (int c0 = 0; c0 < a.C; c0 += BK) {
-      __syncthreads();  // previous step's reads done (and ri written)
-      stage<T>(a, ri, tap / 3, tap % 3, c0, n0, As, Bs);
+    const int dy = tap / 3, dx = tap % 3;
+    for (int c0 = 0; c0 < a.C; c0 += FBK) {
+      __syncthreads();  // previous step's reads done (and the row table written)
+      const int c = c0 + kk;
+      for (int r = threadIdx.x / FBK; r < FBM; r += FNT / FBK) {
+        float v = 0.f;
+        const int b = rb[r];
+        const int yy = ry[r] + dy - 1, xx = rx[r] + dx - 1;
+        if (b >= 0 && c < a.C && yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
+          v = silu(a.x[(((size_t)b * a.H + yy) * a.W + xx) * a.C + c] * a.scale[b * a.C + c] +
+                   a.shift[b * a.C + c]);
+        }
+        As[r * FLDS + kk] = v;
+      }
+      for (int i = threadIdx.x; i < FBN * FBK; i += FNT) {
+        const int n = i % FBN, k = i / FBN;
+        const int cc = c0 + k, nn = n0 + n;
+        Bs[n * FLDS + k] =
+            (cc < a.C && nn < a.Cout) ? a.w[((size_t)tap * a.C + cc) * a.Cout + nn] : 0.f;
+      }
       __syncthreads();
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        const int g = lane >> 2, t4 = lane & 3;
-        const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-        for (int ks = 0; ks < BK; ks += 16) {
-          uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const __nv_bfloat16* p = As + (wm + mt * 16 + g) * LDS + ks + t4 * 2;
-            af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-            af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-            af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-            af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 8);
-          }
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const __nv_bfloat16* p = Bs + (wn + nt * 8 + g) * LDS + ks + t4 * 2;
-            bfr[nt][0] = *reinterpret_cast<const uint32_t*>(p);
-            bfr[nt][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-          }
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_bf16(acc + (mt * 4 + nt) * 4, af[mt], bfr[nt]);
-        }
-      } else {
-        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll 4
-        for (int k = 0; k < BK; ++k) {
-          float av[8], bv[4];
+      for (int k = 0; k < FBK; ++k) {
+        float av[8], bv[4];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) av[i] = As[(ty + 16 * i) * LDS + k];
+        for (int i = 0; i < 8; ++i) av[i] = As[(ty + 16 * i) * FLDS + k];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * LDS + k];
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * FLDS + k];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i * 4 + j] = fmaf(av[i], bv[j], acc[i * 4 + j]);
-        }
+          for (int j = 0; j < 4; ++j) acc[i * 4 + j] = fmaf(av[i], bv[j], acc[i * 4 + j]);
       }
     }
   }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 16 * i;
+    const int b = rb[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (b < 0 || n >= a.Cout) continue;
+      const size_t o = (size_t)(m0 + r) * a.Cout + n;
+      float v = acc[i * 4 + j] + a.bias[b * a.Cout + n];
+      if (a.res != nullptr) v += a.res[o];
+      a.out[o] = v;
+    }
+  }
+}
 
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int g = lane >> 2, t4 = lane & 3;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          epilogue_store<T>(a, ri, m0, n0, wm + mt * 16 + g + (i >= 2 ? 8 : 0),
-                            wn + nt * 8 + t4 * 2 + (i & 1), acc[(mt * 4 + nt) * 4 + i]);
-  } else {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        epilogue_store<T>(a, ri, m0, n0, ty + 16 * i, tx + 16 * j, acc[i * 4 + j]);
+// ---------------------------------------------------------------- launch
+
+// Per instantiation and device: the shared memory the kernel was allowed so
+// far and the blocks per SM at the last stage count. Queried once, not per
+// launch: the CUDA runtime queries cost more host time than a small launch takes.
+struct LaunchCache {
+  int smem_allowed = 0, occ_smem = -1, per_sm = 0, sms = 0;
+};
+constexpr int kMaxDevices = 16;
+
+template <int TH, int NB>
+cudaError_t launch_tc(const TcArgs& a, int n_blocks, cudaStream_t s) {
+  static LaunchCache cache[kMaxDevices];
+  const int smem = tc_smem_bytes(TH, NB, a.stages);
+  auto kern = fgc_tc_kernel<TH, NB>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  LaunchCache& c = cache[dev];
+  if (c.sms == 0 &&
+      (e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if (smem > c.smem_allowed) {
+    if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return e;
+    c.smem_allowed = smem;
+  }
+  // persistent: as many blocks as fit on the card at once, at most one per tile
+  if (smem != c.occ_smem) {
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kern, TH * TW * 2, smem)) !=
+        cudaSuccess)
+      return e;
+    c.occ_smem = smem;
+  }
+  if (c.per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)a.B * a.tiles_x * a.tiles_y;
+  const long long resident = ((long long)c.per_sm * c.sms + n_blocks - 1) / n_blocks;
+  const dim3 grid((unsigned)(tiles < resident ? tiles : resident), (unsigned)n_blocks);
+  kern<<<grid, TH * TW * 2, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int TH>
+cudaError_t launch_nb(const TcArgs& a, int nb, int n_blocks, cudaStream_t s) {
+  switch (nb) {
+    case 8: return launch_tc<TH, 8>(a, n_blocks, s);
+    case 64: return launch_tc<TH, 64>(a, n_blocks, s);
+    case 128: return launch_tc<TH, 128>(a, n_blocks, s);
+    case 256: return launch_tc<TH, 256>(a, n_blocks, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. res may be NULL. Returns cudaGetLastError().
-extern "C" int fgc_forward(const void* x, const void* scale, const void* shift, const void* w,
-                           const void* bias, const void* res, void* out, int B, int H, int W,
-                           int C, int Cout, int dtype, void* stream) {
-  Args a{x, static_cast<const float*>(scale), static_cast<const float*>(shift), w,
-         static_cast<const float*>(bias), res, out, B, H, W, C, Cout};
+// Shared memory (bytes) of one bf16 block for a tile height, N block and stage count.
+extern "C" int fgc_tc_smem_bytes(int th, int nb, int stages) {
+  return tc_smem_bytes(th, nb, stages);
+}
+
+// bf16 on the tensor cores. wpk: the packed weights of the plan
+// ([ceil(Cout/nb)][ceil(C/32)][9][4][nb][8] bf16); tile th x 8 with th 8 or
+// 16; nb: 8, 64, 128 or 256. res may be NULL. Returns cudaGetLastError().
+extern "C" int fgc_tc_forward(const void* x, const void* scale, const void* shift, const void* wpk,
+                              const void* bias, const void* res, void* out, int B, int H, int W,
+                              int C, int Cout, int th, int nb, int stages, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 || stages < 2 || (th != 8 && th != 16))
+    return (int)cudaErrorInvalidValue;
+  if (tc_smem_bytes(th, nb, stages) > 232448) return (int)cudaErrorInvalidValue;
+  TcArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+           static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(wpk),
+           static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res),
+           static_cast<__nv_bfloat16*>(out), B, H, W, C, Cout,
+           (C + BKC - 1) / BKC, (W + TW - 1) / TW, (H + th - 1) / th, stages, C % 8 == 0};
+  if ((long long)B * a.tiles_x * a.tiles_y > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int n_blocks = (Cout + nb - 1) / nb;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(th == 8 ? launch_nb<8>(a, nb, n_blocks, s) : launch_nb<16>(a, nb, n_blocks, s));
+}
+
+// fp32 in full fp32 on the FMA units. res may be NULL. Returns cudaGetLastError().
+extern "C" int fgc_fma_forward(const void* x, const void* scale, const void* shift, const void* w,
+                               const void* bias, const void* res, void* out, int B, int H, int W,
+                               int C, int Cout, void* stream) {
   const long long M = (long long)B * H * W;
   if (M <= 0 || C <= 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
-  const long long blocks_m = (M + BM - 1) / BM;
+  const long long blocks_m = (M + FBM - 1) / FBM;
   if (blocks_m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks_m, (unsigned)((Cout + BN - 1) / BN));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    fgc_kernel<float><<<grid, NTHREADS, 0, s>>>(a);
-  } else if (dtype == 1) {
-    fgc_kernel<__nv_bfloat16><<<grid, NTHREADS, 0, s>>>(a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  FmaArgs a{static_cast<const float*>(x), static_cast<const float*>(scale),
+            static_cast<const float*>(shift), static_cast<const float*>(w),
+            static_cast<const float*>(bias), static_cast<const float*>(res),
+            static_cast<float*>(out), B, H, W, C, Cout};
+  const dim3 grid((unsigned)blocks_m, (unsigned)((Cout + FBN - 1) / FBN));
+  fgc_fma_kernel<<<grid, FNT, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

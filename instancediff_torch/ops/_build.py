@@ -22,8 +22,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fused_gn_silu_conv3x3": {
-        # x, scale, shift, w, bias, residual|NULL, out, B, H, W, C, Cout, dtype, stream
-        "fgc_forward": ([_VP] * 7 + [_I] * 6 + [_VP], _I),
+        # x, scale, shift, packed w, bias, residual|NULL, out, B, H, W, C, Cout,
+        # th, nb, stages, stream
+        "fgc_tc_forward": ([_VP] * 7 + [_I] * 8 + [_VP], _I),
+        # x, scale, shift, w, bias, residual|NULL, out, B, H, W, C, Cout, stream
+        "fgc_fma_forward": ([_VP] * 7 + [_I] * 5 + [_VP], _I),
+        # th, nb, stages
+        "fgc_tc_smem_bytes": ([_I] * 3, _I),
     },
     "flash_attention": {
         # q, k, v, out, BH, N, Nk, D, scale, dtype, stream

@@ -1,10 +1,12 @@
 """Blockwise-softmax attention for the UNet bottleneck.
 
 Port of ``instancediff_tpu/ops/pallas_kernels.py:flash_attention`` (Pallas
-kernel ``_flash_kernel``). The CUDA kernel is ``csrc/flash_attention.cu``;
-``flash_attention_plain`` is the same function in plain PyTorch. The wrapper
-uses the plain version only for CPU tensors: for a CUDA tensor it launches the
-kernel or raises."""
+kernel ``_flash_kernel``). The CUDA kernels are in ``csrc/flash_attention.cu``:
+bf16 on the tensor cores (mma.sync; the softmax weights are rounded to bf16
+before they multiply V, the one departure from the all-fp32 Pallas kernel)
+and fp32 on the FMA units. ``flash_attention_plain`` is the same function in
+plain PyTorch. The wrapper uses the plain version only for CPU tensors: for a
+CUDA tensor it launches a kernel or raises."""
 
 from __future__ import annotations
 

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from instancediff_torch.ops import _build
 from instancediff_torch.ops.fused_gn_conv import (
     fused_gn_silu_conv3x3,
     fused_gn_silu_conv3x3_plain,
+    tc_smem_bytes,
 )
 from instancediff_torch.ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
 
@@ -60,10 +62,59 @@ def test_fused_conv_kernel_matches_plain(cuda, dtype, tol, C, Cout, residual):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _conv_case(gen, B, H, W, C, Cout, residual, dtype):
+    x = _randn(gen, B, H, W, C).to(dtype)
+    scale = 1 + _randn(gen, B, C, scale=0.2)
+    shift = _randn(gen, B, C, scale=0.3)
+    w = _randn(gen, 3, 3, C, Cout, scale=(9 * C) ** -0.5)
+    bias = _randn(gen, B, Cout, scale=0.1)
+    res = _randn(gen, B, H, W, Cout).to(dtype) if residual else None
+    return x, scale, shift, w, bias, res
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("H,W,C,Cout,residual", [(28, 28, 272, 128, False), (30, 17, 64, 5, False),
+                                                 (5, 7, 64, 5, True), (3, 9, 20, 130, False),
+                                                 (96, 96, 64, 160, True)])
+def test_fused_conv_kernel_tile_edges(cuda, dtype, tol, H, W, C, Cout, residual):
+    """The bf16 kernel's 16x8 and 8x8 tiles, cut by the image edge: a 28x28
+    decoder level at C=272 (a ragged last 32-channel slice), the Cout=5 head
+    (an 8-wide N block), images smaller than one tile, C=20 (the scalar
+    halo path) with Cout=130 (several N blocks), and Cout=160 (one 256-wide
+    N block)."""
+    gen = torch.Generator(device=cuda).manual_seed(H * W + C)
+    x, scale, shift, w, bias, res = _conv_case(gen, 2, H, W, C, Cout, residual, dtype)
+    got = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
+    torch.cuda.synchronize()
+    want = fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias, residual=res)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_repeat_bit_for_bit(cuda, dtype):
+    """No atomics and no split-K: the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, scale, shift, w, bias, res = _conv_case(gen, 4, 40, 40, 144, 64, True, dtype)
+    a = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
+    b = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
+    assert torch.equal(a, b)
+    q, k, v = (_randn(gen, 2, 4, 784, 64).to(dtype) for _ in range(3))
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+
+
+def test_conv_plan_matches_kernel_shared_memory(cuda):
+    """The Python plan's shared-memory count is the kernel's own."""
+    lib = _build.load("fused_gn_silu_conv3x3")
+    for th in (8, 16):
+        for nb in (8, 64, 128, 256):
+            for stages in (2, 4):
+                assert lib.fgc_tc_smem_bytes(th, nb, stages) == tc_smem_bytes(th, nb, stages)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("N", [256, 200, 784])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, N):
-    """N = 200 and 784 are ragged for the 64-row query and 32-key tiles."""
+    """N = 200 and 784 are ragged for the 64-row query and 64-key tiles."""
     gen = torch.Generator(device=cuda).manual_seed(N)
     q, k, v = (_randn(gen, 2, 4, N, 64).to(dtype) for _ in range(3))
     before = flash_attention.launches
