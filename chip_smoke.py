@@ -2,9 +2,11 @@
 plain PyTorch versions.
 
 Run from the repository root:  python3 chip_smoke.py
-(``python3 chip_smoke.py --sweep`` builds the kernels and only times the bf16
-fused conv at each flagship launch shape under each tile / N-block choice of
-its plan, beside cuDNN.)
+(``python3 chip_smoke.py --sweep [conv|gn]`` builds the kernels and only times
+plan choices at each flagship launch shape: the bf16 fused conv under each
+tile / N-block choice beside cuDNN, and the GroupNorm kernels on the
+two-launch path and the cluster path (8 blocks per image) beside
+``F.group_norm`` + ``F.silu``; both without an argument.)
 
 Phases, one JSON line each, in order:
   1. build   -- nvcc builds every kernel of ``instancediff_torch/csrc`` for
@@ -14,9 +16,11 @@ Phases, one JSON line each, in order:
   2. check   -- each kernel against its plain version on the card at the main
                 paths' shapes and at the edges of the conv kernel's tiling,
                 in bf16 and fp32: max abs error (with the stated tolerance),
-                kernel ms (and the conv's achieved TFLOP/s), plain ms, one
-                library call's ms (a yardstick only: the port never calls
-                it) and the bound;
+                kernel ms (CUDA events around one call, the wrapper's host
+                time included) and device_ms (the kernel's own device time
+                per call, summed by torch.profiler), the conv's achieved
+                TFLOP/s, plain ms, one library call's ms (a yardstick only:
+                the port never calls it) and the bound;
   3. main    -- three paths at full width, each answering two requests
                 through ``Restorer.restore`` (8 images, then 3, which pads)
                 with seeded random weights, 256 px, batch 8, bf16, 4 of T=100
@@ -26,10 +30,13 @@ Phases, one JSON line each, in order:
                                   flagship: nf 64, ch_mult [1,2,4,4], 2
                                   ResBlocks per level, 12-layer CLIP text
                                   tower) on the fused ResBlock body: 90
-                                  fused-conv, 2 flash, 0 GroupNorm launches;
+                                  fused-conv, 2 flash, 90 gn_channel_affine
+                                  (GroupNorm statistics), 0 GroupNorm
+                                  launches;
                   drift_unfused -- the same engine with
                                   ``engine_opts={"fused_gnconv": False}``: 90
-                                  GroupNorm, 0 fused-conv, 2 flash launches;
+                                  GroupNorm, 0 fused-conv, 0 statistics, 2
+                                  flash launches;
                   ddpm         -- the DDPM baseline at
                                   Configurations/flagship_ddpm_tpu.yml's widths
                                   (single score map, T=100, max_sigma 1): 45
@@ -42,10 +49,11 @@ Phases, one JSON line each, in order:
                 the fused one on the same weights, and the DDPM net;
   5. per_forward -- every kernel each main path launches, held against its
                 plain version and timed at that path's own launch shapes
-                (bf16, batch 8), summed over one UNet forward; then the
-                ``{"kernels": [...]}`` line (each kernel's times from the
-                first path that launches it: fused-conv and flash from drift,
-                GroupNorm from drift_unfused; max_abs_err over every shape),
+                (bf16, batch 8), summed over one UNet forward (ms and
+                device_ms); then the ``{"kernels": [...]}`` line (each
+                kernel's times from the first path that launches it:
+                fused-conv, flash and gn_channel_affine from drift, GroupNorm
+                from drift_unfused; max_abs_err over every shape),
                 the card's name and power limit, and last
                 ``{"ok": true, "device": {...}}``.
 
@@ -75,8 +83,12 @@ from instancediff_torch.models.layers import ConvParams
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from instancediff_torch.ops.fused_gn_conv import (conv_plan, fused_gn_silu_conv3x3,
-                                                  fused_gn_silu_conv3x3_plain, pack_weights)
-from instancediff_torch.ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
+                                                  fused_gn_silu_conv3x3_plain, gn_channel_affine,
+                                                  gn_channel_affine_plain, pack_weights)
+from instancediff_torch.ops.group_norm_silu import (CLUSTER, SMEM_LIMIT, cluster_smem_bytes,
+                                                    gn_plan, group_norm_affine_cuda,
+                                                    group_norm_silu, group_norm_silu_cuda,
+                                                    group_norm_silu_plain)
 from instancediff_torch.sde import DDPMSDE, DriftSDE
 from instancediff_torch.sde.schedules import strided_sampling_grid
 from instancediff_torch.serving import Restorer
@@ -113,19 +125,33 @@ FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64)]
 GN_SHAPES = [  # (B, H, W, C, groups, silu)
     (8, 256, 256, 64, 32, True), (8, 256, 256, 144, 24, True), (8, 128, 128, 272, 17, True),
     (8, 64, 64, 528, 24, True), (8, 32, 32, 512, 32, True)]
+AFFINE_SHAPES = [  # (B, H, W, C, groups); C = 20 with odd H and W: the one-element path
+    (8, 256, 256, 64, 32), (8, 256, 256, 144, 24), (8, 128, 128, 272, 17), (8, 64, 64, 528, 24),
+    (8, 32, 32, 256, 32), (3, 19, 23, 20, 5)]
 # per kernel: its CUDA source and the TPU kernel it replaces
 SOURCES = {"conv": ("instancediff_torch/csrc/fused_gn_silu_conv3x3.cu",
                     "instancediff_tpu/ops/pallas_kernels.py:373"),
            "flash": ("instancediff_torch/csrc/flash_attention.cu",
                      "instancediff_tpu/ops/pallas_kernels.py:221"),
            "gn": ("instancediff_torch/csrc/group_norm_silu.cu",
-                  "instancediff_tpu/ops/pallas_kernels.py:134")}
+                  "instancediff_tpu/ops/pallas_kernels.py:134"),
+           # the jnp statistics pass of the fused body (not a pallas_call)
+           "affine": ("instancediff_torch/csrc/group_norm_silu.cu",
+                      "instancediff_tpu/ops/pallas_kernels.py:279")}
+NAMES = {"conv": "fused_gn_silu_conv3x3", "flash": "flash_attention", "gn": "group_norm_silu",
+         "affine": "gn_channel_affine"}
+# the one PyTorch call timed beside each kernel (a yardstick; the port never calls it)
+LIBRARY = {"conv": "F.conv2d (cuDNN) on the normalised input",
+           "flash": "F.scaled_dot_product_attention", "gn": "F.group_norm + F.silu",
+           "affine": "torch.var_mean over the [B, HW, G, Cg] view: the nearest call (group "
+                     "mean and variance, not per-channel scale and shift)"}
 # the kernels' wrappers, whose ``launches`` count their launches
-WRAPPERS = {"conv": fused_gn_silu_conv3x3, "flash": flash_attention, "gn": group_norm_silu}
+WRAPPERS = {"conv": fused_gn_silu_conv3x3, "flash": flash_attention, "gn": group_norm_silu,
+            "affine": gn_channel_affine}
 # launches per sampler step on each main path
-PATHS = {"drift": {"conv": 90, "flash": 2, "gn": 0},
-         "drift_unfused": {"conv": 0, "flash": 2, "gn": 90},
-         "ddpm": {"conv": 0, "flash": 1, "gn": 45}}
+PATHS = {"drift": {"conv": 90, "flash": 2, "gn": 0, "affine": 90},
+         "drift_unfused": {"conv": 0, "flash": 2, "gn": 90, "affine": 0},
+         "ddpm": {"conv": 0, "flash": 1, "gn": 45, "affine": 0}}
 
 
 # kernels whose registers must not spill: a wgmma accumulator spilled while
@@ -133,10 +159,11 @@ PATHS = {"drift": {"conv": 90, "flash": 2, "gn": 0},
 NO_SPILL = ("fgc_tc_kernel", "flash_tc_kernel")
 
 
-def ptxas_spills(logs) -> dict:
-    """Spill stores + loads in bytes per compiled entry (the start of its
-    mangled name), from nvcc's ``-Xptxas -v`` output."""
-    out, entry = {}, None
+def ptxas_report(logs) -> tuple:
+    """({entry: spill stores + loads in bytes}, {entry: registers}) per
+    compiled entry (the start of its mangled name), from nvcc's ``-Xptxas
+    -v`` output."""
+    spills, regs, entry = {}, {}, None
     for log in logs.values():
         for ln in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -145,8 +172,11 @@ def ptxas_spills(logs) -> dict:
                 entry = name[re.search(r"(fgc|flash|gns)_", name).start():][:48]
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             if m and entry:
-                out[entry] = int(m.group(1)) + int(m.group(2))
-    return out
+                spills[entry] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and entry:
+                regs[entry] = int(m.group(1))
+    return spills, regs
 
 
 def emit(obj) -> None:
@@ -173,6 +203,30 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kname: str, reps: int = 10, attempts: int = 3) -> float:
+    """Device time per call of ``fn`` spent in kernel ``kname``'s own CUDA
+    kernels (names in ``KERNEL_CLASSES``), summed by torch.profiler over
+    ``reps`` calls after a warm-up: the kernel time without the host's. A
+    profiling window that records no kernel at all (it happens, rarely, on
+    the card's machine) is taken again, up to ``attempts`` windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = dict(KERNEL_CLASSES)[CLASS_OF[kname]]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(evt.time_range.elapsed_us() for evt in prof.events()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA
+                 and any(k in evt.name.lower() for k in keys))
+        if us > 0:
+            return us / reps / 1e3
+    raise AssertionError(f"torch.profiler recorded no {kname} kernel in {attempts} windows")
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -229,6 +283,8 @@ def measure_conv(shape, dtype, gen):
     B, H, W, C, Cout, _ = shape
     return dict(
         max_abs_err=err, ms=ms, tflops=2.0 * B * H * W * 9 * C * Cout / (ms * 1e-3) / 1e12,
+        device_ms=device_ms(lambda: fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res),
+                            "conv"),
         plain_ms=cuda_ms(lambda: fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias,
                                                              residual=res)),
         library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(xn, wk, padding=1)),
@@ -246,26 +302,37 @@ def measure_flash(shape, dtype, gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return dict(
         max_abs_err=err, ms=cuda_ms(lambda: flash_attention(q, k, v)),
+        device_ms=device_ms(lambda: flash_attention(q, k, v), "flash"),
         plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v)),
         library_ms=cuda_ms(lambda: sdpa(q, k, v)), bound_ms=bound_ms, bound_by=bound_by)
 
 
-def measure_gn(shape, dtype, gen):
-    B, H, W, C, G, silu = shape
+def gn_case(B, H, W, C, dtype, gen):
     dev = "cuda"
     x = (0.5 + torch.randn(B, H, W, C, generator=gen, device=dev)).to(dtype)
     gamma = 1 + 0.2 * torch.randn(C, generator=gen, device=dev)
     beta = 0.3 * torch.randn(C, generator=gen, device=dev)
-    got = group_norm_silu(x, gamma, beta, G, silu=silu)
-    torch.cuda.synchronize()
-    want = group_norm_silu_plain(x, gamma, beta, G, silu=silu)
-    err = check_err(f"group_norm_silu {shape} {dtype}", got, want, dtype)
+    return x, gamma, beta
+
+
+def gn_cost(shape, dtype):
+    B, H, W, C, G, silu = shape
     n = B * H * W * C
     # read x once, write y once; ~10 fp32 operations per element with SiLU
     # (sum, square-add, subtract, 2 multiplies, add, exp, add, divide), 7
     # without, on the fp32 units whatever x's dtype
-    bound_ms, bound_by = bound(2 * n * (torch.finfo(dtype).bits // 8) + 2 * C * 4,
-                               (10 if silu else 7) * n, torch.float32)
+    return bound(2 * n * (torch.finfo(dtype).bits // 8) + 2 * C * 4,
+                 (10 if silu else 7) * n, torch.float32)
+
+
+def measure_gn(shape, dtype, gen):
+    B, H, W, C, G, silu = shape
+    x, gamma, beta = gn_case(B, H, W, C, dtype, gen)
+    got = group_norm_silu(x, gamma, beta, G, silu=silu)
+    torch.cuda.synchronize()
+    want = group_norm_silu_plain(x, gamma, beta, G, silu=silu)
+    err = check_err(f"group_norm_silu {shape} {dtype}", got, want, dtype)
+    bound_ms, bound_by = gn_cost(shape, dtype)
     # library yardstick: torch's GroupNorm then SiLU on the NCHW view
     # (channels-last) of the same tensor
     xn, g, b = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
@@ -276,11 +343,42 @@ def measure_gn(shape, dtype, gen):
 
     return dict(
         max_abs_err=err, ms=cuda_ms(lambda: group_norm_silu(x, gamma, beta, G, silu=silu)),
+        device_ms=device_ms(lambda: group_norm_silu(x, gamma, beta, G, silu=silu), "gn"),
+        path=gn_plan(B, H * W, C, G, x.element_size())["path"],
         plain_ms=cuda_ms(lambda: group_norm_silu_plain(x, gamma, beta, G, silu=silu)),
         library_ms=cuda_ms(library), bound_ms=bound_ms, bound_by=bound_by)
 
 
-MEASURE = {"conv": measure_conv, "flash": measure_flash, "gn": measure_gn}
+def affine_cost(shape, dtype):
+    B, H, W, C, G = shape
+    n = B * H * W * C
+    # read x (and gamma, beta) once, write scale and shift [B, C] fp32 once;
+    # an add and a fused multiply-add per element on the fp32 units
+    return bound(n * (torch.finfo(dtype).bits // 8) + 2 * C * 4 + 2 * B * C * 4, 2.0 * n,
+                 torch.float32)
+
+
+def measure_gn_affine(shape, dtype, gen):
+    B, H, W, C, G = shape
+    x, gamma, beta = gn_case(B, H, W, C, dtype, gen)
+    got = gn_channel_affine(x, gamma, beta, G)
+    torch.cuda.synchronize()
+    want = gn_channel_affine_plain(x, gamma, beta, G)
+    # float32 outputs of the same inputs in both versions: the fp32 tolerance
+    err = max(check_err(f"gn_channel_affine {what} {shape} {dtype}", g, w, torch.float32)
+              for what, g, w in zip(("scale", "shift"), got, want))
+    bound_ms, bound_by = affine_cost(shape, dtype)
+    xv = x.view(B, H * W, G, C // G)  # torch accumulates a bf16 reduction in fp32
+    return dict(
+        max_abs_err=err, ms=cuda_ms(lambda: gn_channel_affine(x, gamma, beta, G)),
+        device_ms=device_ms(lambda: gn_channel_affine(x, gamma, beta, G), "affine"),
+        plain_ms=cuda_ms(lambda: gn_channel_affine_plain(x, gamma, beta, G)),
+        library_ms=cuda_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0)),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+MEASURE = {"conv": measure_conv, "flash": measure_flash, "gn": measure_gn,
+           "affine": measure_gn_affine}
 
 
 # ---------------------------------------------------------------- the models
@@ -352,9 +450,14 @@ def record_launch_shapes(net, args) -> dict:
         seen["gn"][((*x.shape, num_groups, silu), x.dtype)] += 1
         return group_norm_silu(x, gamma, beta, num_groups, eps, silu)
 
+    def affine_rec(x, gamma, beta, num_groups, eps=1e-5):
+        seen["affine"][((*x.shape, num_groups), x.dtype)] += 1
+        return gn_channel_affine(x, gamma, beta, num_groups, eps)
+
     with mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", conv_rec), \
             mock.patch.object(unet_mod, "flash_attention", flash_rec), \
-            mock.patch.object(unet_mod, "group_norm_silu", gn_rec), torch.inference_mode():
+            mock.patch.object(unet_mod, "group_norm_silu", gn_rec), \
+            mock.patch.object(unet_mod, "gn_channel_affine", affine_rec), torch.inference_mode():
         net(*args)
     return seen
 
@@ -363,15 +466,18 @@ def plain_kernels():
     """Patch the UNet module's kernel wrappers with the plain versions."""
     return (mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", fused_gn_silu_conv3x3_plain),
             mock.patch.object(unet_mod, "flash_attention", flash_attention_plain),
-            mock.patch.object(unet_mod, "group_norm_silu", group_norm_silu_plain))
+            mock.patch.object(unet_mod, "group_norm_silu", group_norm_silu_plain),
+            mock.patch.object(unet_mod, "gn_channel_affine", gn_channel_affine_plain))
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
     ("fused_conv", ("fgc_tc_kernel", "fgc_fma_kernel")),
     ("flash", ("flash_tc_kernel", "flash_fma_kernel")),
-    ("group_norm", ("gns_stats_kernel", "gns_apply_kernel")),
+    ("gn_affine", ("gns_affine_kernel",)),
+    ("group_norm", ("gns_stats_kernel", "gns_apply_kernel", "gns_cluster_kernel")),
     ("library_conv", ("fprop", "conv", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "matmul")), ("reduce", ("reduce",)))
+CLASS_OF = {"conv": "fused_conv", "flash": "flash", "gn": "group_norm", "affine": "gn_affine"}
 
 
 def profile_step(eng, gen, path) -> dict:
@@ -486,7 +592,7 @@ SWEEP_SHAPES = [(256, 256, 64, 64), (256, 256, 64, 5), (256, 256, 144, 64), (128
                 (64, 64, 256, 256), (64, 64, 528, 256), (32, 32, 256, 256), (32, 32, 528, 256)]
 
 
-def sweep(gpu) -> None:
+def sweep_conv(gpu) -> None:
     """Time the bf16 conv kernel at each flagship launch shape (batch 8) under
     every tile / N-block choice its plan picks from, beside cuDNN's conv on
     the normalised input; one JSON line per shape (ms, median of 10)."""
@@ -522,6 +628,74 @@ def sweep(gpu) -> None:
         emit(dict(row, gpu=gpu))
 
 
+# GroupNorm launch shapes (H, W, C, G) of the flagship drift and DDPM forwards
+GN_SWEEP_SHAPES = [(256, 256, 64, 32), (256, 256, 144, 24), (128, 128, 64, 32),
+                   (128, 128, 128, 32), (128, 128, 256, 32), (128, 128, 272, 17),
+                   (64, 64, 128, 32), (64, 64, 256, 32), (64, 64, 512, 32), (64, 64, 528, 24),
+                   (32, 32, 256, 32), (32, 32, 512, 32), (32, 32, 528, 24)]
+
+
+def sweep_gn(gpu) -> None:
+    """Time the bf16 GroupNorm kernels at each flagship launch shape (batch 8)
+    on both paths: the two launches, and the cluster launch where an image
+    fits; beside ``F.group_norm`` + ``F.silu``; and the statistics launch
+    alone (``gn_channel_affine``). One JSON line per shape: ms (CUDA events
+    around one call, host time included) and device ms (profiler). Then the
+    host time per call of the two wrappers beside one small aten launch."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = torch.bfloat16
+    for H, W, C, G in GN_SWEEP_SHAPES:
+        HW = H * W
+        x, gamma, beta = gn_case(BATCH, H, W, C, dt, gen)
+        want = group_norm_silu_plain(x, gamma, beta, G)
+        want_affine = gn_channel_affine_plain(x, gamma, beta, G)
+        xn = x.permute(0, 3, 1, 2)
+        plan = gn_plan(BATCH, HW, C, G)
+        row = {"phase": "sweep_gn", "shape": [BATCH, H, W, C, G],
+               "plan": f"{plan['path']} cs{plan['cluster']}",
+               "bound_ms": gn_cost((BATCH, H, W, C, G, True), dt)[0],
+               "affine_bound_ms": affine_cost((BATCH, H, W, C, G), dt)[0],
+               "library_ms": cuda_ms(lambda: torch.nn.functional.silu(
+                   torch.nn.functional.group_norm(xn, G, gamma.to(dt), beta.to(dt), 1e-5)))}
+        choices = ["two_launch"]
+        if cluster_smem_bytes(-(-HW // CLUSTER), C, G, 8, 2) <= SMEM_LIMIT:
+            choices.append("cluster")
+        for name in choices:
+            p = gn_plan(BATCH, HW, C, G, 2, cluster=CLUSTER if name == "cluster" else 0)
+
+            def run():
+                return group_norm_silu_cuda(x, gamma, beta, G, plan=p)
+
+            check_err(f"sweep_gn {row['shape']} {name}", run(), want, dt)
+            row[name] = [cuda_ms(run), device_ms(run, "gn")]
+
+        def run_affine():
+            return group_norm_affine_cuda(x, gamma, beta, G)
+
+        for got, w in zip(run_affine(), want_affine):
+            check_err(f"sweep_gn affine {row['shape']}", got, w, torch.float32)
+        row["affine"] = [cuda_ms(run_affine), device_ms(run_affine, "affine")]
+        emit(dict(row, gpu=gpu))
+    # host time per call (microseconds, 200 calls back to back at a small
+    # shape whose kernels take less time than the host needs to launch them)
+    x, gamma, beta = gn_case(1, 8, 8, 64, dt, gen)
+
+    def host_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
+
+    emit({"phase": "sweep_gn_host", "shape": [1, 8, 8, 64, 32], "us_per_call": {
+        "group_norm_silu": host_us(lambda: group_norm_silu(x, gamma, beta, 32)),
+        "gn_channel_affine": host_us(lambda: gn_channel_affine(x, gamma, beta, 32)),
+        "x.add(1) (one small aten launch)": host_us(lambda: x.add(1))}, "gpu": gpu})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -540,30 +714,34 @@ def main() -> int:
         _build.load(name)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    spills = ptxas_spills(logs)
+    spills, regs = ptxas_report(logs)
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "gpu": gpu,
-          "kernels": list(_build.SIGNATURES), "ptxas": ptxas, "spill_bytes": spills})
+          "kernels": list(_build.SIGNATURES), "ptxas": ptxas, "spill_bytes": spills,
+          "registers": regs})
     spilled = {k: v for k, v in spills.items() if v and any(t in k for t in NO_SPILL)}
     if spilled:
         raise AssertionError(f"tensor-core kernels spill registers: {spilled}")
 
-    if "--sweep" in sys.argv[1:]:
-        sweep(gpu)
+    args = sys.argv[1:]
+    if "--sweep" in args:
+        which = set(args) & {"conv", "gn"} or {"conv", "gn"}
+        if "gn" in which:
+            sweep_gn(gpu)
+        if "conv" in which:
+            sweep_conv(gpu)
         return 0
 
     # 2. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = Counter()
-    names = {"conv": "fused_gn_silu_conv3x3", "flash": "flash_attention",
-             "gn": "group_norm_silu"}
     for dtype in (torch.bfloat16, torch.float32):
         for kname, shapes in (("conv", CONV_SHAPES), ("flash", FLASH_SHAPES),
-                              ("gn", GN_SHAPES)):
+                              ("gn", GN_SHAPES), ("affine", AFFINE_SHAPES)):
             for shape in shapes:
                 m = MEASURE[kname](shape, dtype, gen)
                 if dtype == torch.bfloat16:
                     worst[kname] = max(worst[kname], m["max_abs_err"])
-                emit({"phase": "check", "kernel": names[kname], "shape": shape,
+                emit({"phase": "check", "kernel": NAMES[kname], "shape": shape,
                       "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
 
     # 3. the main paths at full width: two requests each through Restorer.restore
@@ -628,23 +806,26 @@ def main() -> int:
             for (shape, dtype), count in shapes[path][kname].items():
                 m = MEASURE[kname](shape, dtype, gen)
                 per_shape.append([list(shape), count, round(m["ms"], 4),
-                                  round(m["bound_ms"], 4), round(m["library_ms"], 4)]
-                                 + ([round(m["tflops"], 2)] if "tflops" in m else []))
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                                  round(m["device_ms"], 4), round(m["bound_ms"], 4),
+                                  round(m["library_ms"], 4)]
+                                 + ([round(m["tflops"], 2)] if "tflops" in m else [])
+                                 + ([m["path"]] if "path" in m else []))
+                for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
                     tot[key] += m[key] * count
                 bound_by[m["bound_by"]] += m["bound_ms"] * count
                 tot["max_abs_err"] = max(tot["max_abs_err"], m["max_abs_err"])
             emit({"phase": "per_forward", "kernel": kname, "path": path,
                   "launches_per_forward": sum(shapes[path][kname].values()),
                   "distinct_shapes": len(per_shape), **{k: round(v, 4) for k, v in tot.items()},
-                  "shapes_count_ms_bound_library" + ("_tflops" if kname == "conv" else ""):
-                  per_shape, "gpu": gpu})
+                  "shapes_count_ms_device_bound_library"
+                  + {"conv": "_tflops", "gn": "_path"}.get(kname, ""): per_shape, "gpu": gpu})
             worst[kname] = max(worst[kname], tot["max_abs_err"])
             entries.setdefault(kname, {
-                "name": names[kname], "route": "cuda", "source": SOURCES[kname][0],
+                "name": NAMES[kname], "route": "cuda", "source": SOURCES[kname][0],
                 "replaces": SOURCES[kname][1], "launches": launches[kname],
-                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-                "bound_by": bound_by.most_common(1)[0][0], "library_ms": tot["library_ms"]})
+                "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
+                "bound_ms": tot["bound_ms"], "bound_by": bound_by.most_common(1)[0][0],
+                "library_ms": tot["library_ms"], "library": LIBRARY[kname]})
     entries = [dict(e, max_abs_err=worst[k]) for k, e in entries.items()]
     emit({"kernels": entries})
     print(gpu, flush=True)

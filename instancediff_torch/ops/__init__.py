@@ -1,2 +1,2 @@
-"""Compute ops: plain attention, and the two hand-written CUDA kernels of the
-sampler path with their plain PyTorch versions."""
+"""Compute ops: plain attention, and the hand-written CUDA kernels of the
+sampler paths with their plain PyTorch versions."""

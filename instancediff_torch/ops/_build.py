@@ -35,10 +35,14 @@ SIGNATURES = {
         "flash_forward": ([_VP] * 4 + [_I] * 4 + [_F, _I, _VP], _I),
     },
     "group_norm_silu": {
-        # x, partials, B, HW, C, chunks, dtype, stream
-        "gns_stats": ([_VP] * 2 + [_I] * 5 + [_VP], _I),
-        # x, partials, gamma, beta, out, B, HW, C, G, chunks, eps, silu, dtype, stream
-        "gns_apply": ([_VP] * 5 + [_I] * 5 + [_F, _I, _I, _VP], _I),
+        # x, gamma, beta, out, partials, gstat, tickets, B, HW, C, G, eps, silu,
+        # dtype, vec, rows, cluster, stream
+        "gns_forward": ([_VP] * 7 + [_I] * 4 + [_F] + [_I] * 5 + [_VP], _I),
+        # x, gamma, beta, scale_shift, partials, tickets, B, HW, C, G, eps, dtype,
+        # vec, rows, stream
+        "gns_affine": ([_VP] * 6 + [_I] * 4 + [_F] + [_I] * 3 + [_VP], _I),
+        # kind, C, G, vec, rows, tsize
+        "gns_smem_bytes": ([_I] * 6, _I),
     },
 }
 
@@ -91,6 +95,9 @@ def build_all(names=tuple(SIGNATURES)) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
+    lib = _libs.get(name)  # loaded: no lock needed on every launch
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

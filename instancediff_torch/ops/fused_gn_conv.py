@@ -2,13 +2,16 @@
 
 Port of ``instancediff_tpu/ops/pallas_kernels.py:fused_gn_silu_conv3x3``
 (Pallas kernel ``_fgc_kernel``) and of its statistics pass
-``gn_channel_affine``. The statistics stay plain PyTorch (they are jnp in the
-JAX package too). The CUDA kernels are in ``csrc/fused_gn_silu_conv3x3.cu``:
+``gn_channel_affine`` (jnp in the JAX package), whose CUDA path is the
+GroupNorm statistics kernel of ``csrc/group_norm_silu.cu``
+(``group_norm_silu.group_norm_affine_cuda``). The conv's CUDA kernels are in
+``csrc/fused_gn_silu_conv3x3.cu``:
 bf16 on the tensor cores (``fgc_tc_forward``, launched with the plan of
 ``conv_plan`` on weights packed by ``pack_weights`` once per parameter) and
-fp32 in full fp32 (``fgc_fma_forward``). ``fused_gn_silu_conv3x3_plain`` is
-the same function in plain PyTorch. The wrapper uses the plain version only
-for CPU tensors: for a CUDA tensor it launches a kernel or raises."""
+fp32 in full fp32 (``fgc_fma_forward``). ``fused_gn_silu_conv3x3_plain`` and
+``gn_channel_affine_plain`` are the same functions in plain PyTorch. The
+wrappers use the plain versions only for CPU tensors: for a CUDA tensor they
+launch a kernel or raise."""
 
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .group_norm_silu import group_mean_rstd
+from .group_norm_silu import group_mean_rstd, group_norm_affine_cuda
 
 # The bf16 kernel's launch plan, mirrored from csrc/fused_gn_silu_conv3x3.cu:
 # TH x 8 pixel tiles (16x8 or 8x8: two warpgroups or one), 32-channel K
@@ -112,13 +115,26 @@ def packed_weights(w, nb):
     return hit[1]
 
 
-def gn_channel_affine(x, gamma, beta, num_groups, eps=1e-5):
+def gn_channel_affine_plain(x, gamma, beta, num_groups, eps=1e-5):
     """Per-(B,C) coefficients with GN(x)*gamma+beta == x*scale + shift.
     x: [B,H,W,C]; float32 sum/sumsq over (H,W), then the group fold."""
     mean_c, rstd_c = group_mean_rstd(x, num_groups, eps)
     scale = rstd_c * gamma.float()[None]
     shift = beta.float()[None] - mean_c * scale
     return scale, shift
+
+
+def gn_channel_affine(x, gamma, beta, num_groups, eps=1e-5):
+    """(scale, shift), float32 [B, C] each, with GN(x)*gamma+beta ==
+    x*scale + shift; x [B,H,W,C] float32 or bfloat16, C % num_groups == 0."""
+    if x.device.type == "cpu":
+        return gn_channel_affine_plain(x, gamma, beta, num_groups, eps)
+    out = group_norm_affine_cuda(x, gamma, beta, num_groups, eps)
+    gn_channel_affine.launches += 1
+    return out
+
+
+gn_channel_affine.launches = 0
 
 
 def fused_gn_silu_conv3x3_plain(x, scale_c, shift_c, w, bias_bc, residual=None):

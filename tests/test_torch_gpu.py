@@ -16,9 +16,19 @@ from instancediff_torch.ops import _build
 from instancediff_torch.ops.fused_gn_conv import (
     fused_gn_silu_conv3x3,
     fused_gn_silu_conv3x3_plain,
+    gn_channel_affine,
+    gn_channel_affine_plain,
     tc_smem_bytes,
 )
-from instancediff_torch.ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
+from instancediff_torch.ops.group_norm_silu import (
+    CLUSTER,
+    cluster_smem_bytes,
+    gn_plan,
+    group_norm_silu,
+    group_norm_silu_cuda,
+    group_norm_silu_plain,
+    stats_smem_bytes,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -149,6 +159,94 @@ def test_gn_kernel_matches_plain(cuda, dtype, tol, C, G, silu):
     assert torch.equal(got, again)  # no atomics: bit for bit
 
 
+def _gn_case(gen, B, H, W, C, dtype):
+    x = (0.5 + _randn(gen, B, H, W, C)).to(dtype)
+    return x, 1 + _randn(gen, C, scale=0.2), _randn(gen, C, scale=0.3)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("path", ["two_launch", "cluster"])
+@pytest.mark.parametrize("B,H,W,C,G", [(3, 19, 23, 144, 24), (2, 24, 24, 528, 24),
+                                       (1, 17, 9, 20, 5)])
+def test_gn_kernel_paths_match_plain(cuda, dtype, tol, path, B, H, W, C, G):
+    """Both designs at the same shapes: the statistics + apply launches and
+    the one cluster launch (8 blocks per image), odd H and W, C = 20
+    on the one-element vector path."""
+    gen = torch.Generator(device=cuda).manual_seed(C + B)
+    x, gamma, beta = _gn_case(gen, B, H, W, C, dtype)
+    plan = gn_plan(B, H * W, C, G, x.element_size(), cluster=CLUSTER if path == "cluster" else 0)
+    assert plan["path"] == path
+    got = group_norm_silu_cuda(x, gamma, beta, G, plan=plan)
+    torch.cuda.synchronize()
+    want = group_norm_silu_plain(x, gamma, beta, G)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(group_norm_silu_cuda(x, gamma, beta, G, plan=plan), got)
+
+
+def test_gn_calls_share_one_scratch(cuda):
+    """Two-launch calls of different batch sizes and shapes, and statistics
+    launches between them, on one stream's scratch: each call's tickets
+    start at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for B, H, C, G in ((3, 20, 144, 24), (2, 24, 528, 24), (5, 16, 64, 32), (2, 24, 528, 24)):
+        x, gamma, beta = _gn_case(gen, B, H, H + 3, C, torch.float32)
+        plan = gn_plan(B, H * (H + 3), C, G, 4, cluster=0)
+        got = group_norm_silu_cuda(x, gamma, beta, G, plan=plan)
+        gn_channel_affine(x, gamma, beta, G)
+        want = group_norm_silu_plain(x, gamma, beta, G)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# the outputs are fp32 in both versions, from the same inputs: summation order only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("C,G", [(144, 24), (272, 17), (528, 24), (64, 32), (20, 5)])
+def test_gn_affine_kernel_matches_plain(cuda, dtype, B, C, G):
+    """gn_channel_affine's statistics kernel: groups of 6, 16, 22 and 4
+    channels, C = 20 on the one-element path in bf16, odd H and W."""
+    gen = torch.Generator(device=cuda).manual_seed(C + B)
+    x, gamma, beta = _gn_case(gen, B, 19, 23, C, dtype)
+    before = gn_channel_affine.launches
+    scale, shift = gn_channel_affine(x, gamma, beta, G)
+    torch.cuda.synchronize()
+    assert gn_channel_affine.launches == before + 1
+    want = gn_channel_affine_plain(x, gamma, beta, G)
+    for got, w in zip((scale, shift), want):
+        assert got.dtype == torch.float32 and got.shape == (B, C)
+        torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_kernels_repeat_bit_for_bit(cuda, dtype):
+    """Many statistics blocks per image, folded by whichever block takes the
+    last ticket, and the cluster's DSMEM fold: the same inputs give the same
+    bits on every call."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, gamma, beta = _gn_case(gen, 8, 32, 32, 256, dtype)
+    a = gn_channel_affine(x, gamma, beta, 32)
+    for _ in range(3):
+        b = gn_channel_affine(x, gamma, beta, 32)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for cluster in (0, CLUSTER):
+        plan = gn_plan(8, 32 * 32, 256, 32, x.element_size(), cluster=cluster)
+        y = group_norm_silu_cuda(x, gamma, beta, 32, plan=plan)
+        for _ in range(3):
+            assert torch.equal(group_norm_silu_cuda(x, gamma, beta, 32, plan=plan), y)
+
+
+def test_gn_plan_matches_kernel_shared_memory(cuda):
+    """The Python plan's shared-memory counts are the kernels' own."""
+    lib = _build.load("group_norm_silu")
+    for C, G in ((64, 32), (144, 24), (528, 24), (20, 5), (2048, 32)):
+        for vec, tsize in ((8, 2), (4, 4), (1, 2)):
+            if C % vec:
+                continue
+            assert lib.gns_smem_bytes(0, C, G, vec, 0, tsize) == stats_smem_bytes(C, G, vec)
+            for rows in (64, 257):
+                assert lib.gns_smem_bytes(1, C, G, vec, rows, tsize) == cluster_smem_bytes(
+                    rows, C, G, vec, tsize)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 16, 32, device=cuda)
     with pytest.raises(NotImplementedError, match="D=64"):
@@ -167,3 +265,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         group_norm_silu(x32, g[:4], g[:4], 4)
     with pytest.raises(ValueError, match="devices"):
         group_norm_silu(x32, g.cpu(), g.cpu(), 4)
+    with pytest.raises(TypeError):
+        gn_channel_affine(x, g, g, 4)
+    with pytest.raises(ValueError, match="groups"):
+        gn_channel_affine(x32, g, g, 3)
+    with pytest.raises(ValueError, match="devices"):
+        gn_channel_affine(x32, g.cpu(), g, 4)

@@ -137,7 +137,7 @@ def test_gn_channel_affine_matches_jax():
 
 
 def test_cpu_wrappers_do_not_count_launches():
-    wrappers = (fused_gn_silu_conv3x3, flash_attention, group_norm_silu)
+    wrappers = (fused_gn_silu_conv3x3, flash_attention, group_norm_silu, gn_channel_affine)
     before = [f.launches for f in wrappers]
     rng = np.random.default_rng(4)
     x, scale, shift, w, bias, _ = _fgc_inputs(rng, 1, 4, 4, 8, 8, False)
@@ -145,6 +145,7 @@ def test_cpu_wrappers_do_not_count_launches():
     q = _t(_rand(rng, 1, 1, 8, 4))
     flash_attention(q, q, q)
     group_norm_silu(_t(x), _t(scale[0]), _t(shift[0]), 4)
+    gn_channel_affine(_t(x), _t(scale[0]), _t(shift[0]), 4)
     assert [f.launches for f in wrappers] == before
 
 
