@@ -21,18 +21,34 @@ Phases, one JSON line each, in order:
                 per call, summed by torch.profiler), the conv's achieved
                 TFLOP/s, plain ms, one library call's ms (a yardstick only:
                 the port never calls it) and the bound;
-  3. main    -- three paths at full width, each answering two requests
-                through ``Restorer.restore`` (8 images, then 3, which pads)
-                with seeded random weights, 256 px, batch 8, bf16, 4 of T=100
-                steps, eta 1; each path's launch counts are zeroed before it
-                and checked after it, per sampler step:
+  3. main    -- three paths at full width, each answering requests through
+                ``Restorer.restore`` on the compiled sampler (one CUDA graph of
+                the sampler step, captured at the path's first call and
+                replayed once per step) with seeded random weights, 256 px,
+                batch 8, bf16, 4 of T=100 steps, eta 1: 8 images (captures),
+                3 (padded to 8: replays the same graph), 8 again (steady
+                state); then the first request's batch eagerly
+                (``compiled=False``, the same generator seed), held against
+                the graph's output (max abs error, bit-identical or not, ms
+                per step of both). Launch counts are zeroed before each
+                request and checked after it. A wrapper counts the kernels
+                it launches; under capture it records the kernel into the
+                graph instead, and each replay adds the per-step counts
+                recorded at capture (``CompiledStep.replay``). So a
+                capturing request counts its eager warm-up step and its
+                replays (steps + 1 times the per-step counts), a replaying
+                one its replays, the eager one every step; the replays are
+                read from the graph's own count, and the per-step counts
+                recorded at capture must equal:
                   drift        -- the flagship drift sampler (bench.py's
                                   flagship: nf 64, ch_mult [1,2,4,4], 2
                                   ResBlocks per level, 12-layer CLIP text
                                   tower) on the fused ResBlock body: 90
                                   fused-conv, 2 flash, 90 gn_channel_affine
                                   (GroupNorm statistics), 0 GroupNorm
-                                  launches;
+                                  launches; and one request of 8 images at
+                                  all T=100 steps (bench.py's flagship step
+                                  count), twice (capture, steady), with img/s;
                   drift_unfused -- the same engine with
                                   ``engine_opts={"fused_gnconv": False}``: 90
                                   GroupNorm, 0 fused-conv, 0 statistics, 2
@@ -41,12 +57,20 @@ Phases, one JSON line each, in order:
                                   Configurations/flagship_ddpm_tpu.yml's widths
                                   (single score map, T=100, max_sigma 1): 45
                                   GroupNorm, 1 flash launch;
-                then torch.profiler splits one sampler step's device time by
-                kernel class and gives the device's idle share, per path;
-  4. parity  -- full-width UNet forwards (fp32, batch 2) through the kernels
-                and through the plain versions, compared: the drift net on
-                the fused body, on the unfused body, the unfused body against
-                the fused one on the same weights, and the DDPM net;
+                then ``profile``: one request's replayed steps, each alone on
+                the device (a synchronise before and after each replay),
+                under torch.profiler: per replayed step the device time by
+                kernel class, the device's idle share, the launches of each
+                kernel counted by name against the per-step counts, and the
+                host's kernel and graph launches per step (the call's text
+                encodings counted apart); the SM clock before and after;
+  4. parity  -- full-width fp32 sampler calls (batch 2, 2 steps, eta 0)
+                replayed from the graph against the eager loop (1e-5 abs),
+                drift and DDPM; then UNet forwards (fp32, batch 2) through
+                the kernels and through the plain versions, compared: the
+                drift net on the fused body, on the unfused body, the
+                unfused body against the fused one on the same weights, and
+                the DDPM net;
   5. per_forward -- every kernel each main path launches, held against its
                 plain version and timed at that path's own launch shapes
                 (bf16, batch 8), summed over one UNet forward (ms and
@@ -55,10 +79,16 @@ Phases, one JSON line each, in order:
                 fused-conv, flash and gn_channel_affine from drift, GroupNorm
                 from drift_unfused; max_abs_err over every shape),
                 the card's name and power limit, and last
-                ``{"ok": true, "device": {...}}``.
+                ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are
+                its wrapper's counts over the graph-served main requests:
+                the warm-up steps' launches plus, per replay, the per-step
+                count recorded at capture (the eager comparison is counted
+                apart); ``profile`` counts the replayed kernels by name on
+                the device and holds them to the same per-step counts.
 
-Any failure raises and the script exits non-zero. Without CUDA it exits 1
-before doing anything."""
+Any failure raises and the script exits non-zero; a failed capture too (the
+engines never fall back to the eager loop). Without CUDA it exits 1 before
+doing anything."""
 
 from __future__ import annotations
 
@@ -78,7 +108,7 @@ import torch
 from instancediff_torch.models import unet as unet_mod
 from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
 from instancediff_torch.models.drift_model import CLIPDriftEngine
-from instancediff_torch.models.engine import ARTIFACT_PROMPTS
+from instancediff_torch.models.engine import ARTIFACT_PROMPTS, KERNELS
 from instancediff_torch.models.layers import ConvParams
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
@@ -146,8 +176,7 @@ LIBRARY = {"conv": "F.conv2d (cuDNN) on the normalised input",
            "affine": "torch.var_mean over the [B, HW, G, Cg] view: the nearest call (group "
                      "mean and variance, not per-channel scale and shift)"}
 # the kernels' wrappers, whose ``launches`` count their launches
-WRAPPERS = {"conv": fused_gn_silu_conv3x3, "flash": flash_attention, "gn": group_norm_silu,
-            "affine": gn_channel_affine}
+WRAPPERS = {k: KERNELS[name] for k, name in NAMES.items()}
 # launches per sampler step on each main path
 PATHS = {"drift": {"conv": 90, "flash": 2, "gn": 0, "affine": 90},
          "drift_unfused": {"conv": 0, "flash": 2, "gn": 90, "affine": 0},
@@ -480,42 +509,125 @@ KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match w
 CLASS_OF = {"conv": "fused_conv", "flash": "flash", "gn": "group_norm", "affine": "gn_affine"}
 
 
-def profile_step(eng, gen, path) -> dict:
-    """Device time by kernel class over one sampler call of one step at
-    flagship width (text encodings included), with torch.profiler; the idle
-    share is 1 - (summed kernel time) / (host wall time of the call). The
-    host ops with the most self CPU time show what the host spends the idle
-    share on (the profiler's own cost included)."""
-    from torch.profiler import ProfilerActivity, profile
+# the kernels each wrapper call launches, by name: one statistics or cluster
+# launch per GroupNorm call (the apply launch rides on the statistics one)
+LAUNCH_NAMES = {"conv": ("fgc_tc_kernel", "fgc_fma_kernel"),
+                "flash": ("flash_tc_kernel", "flash_fma_kernel"),
+                "gn": ("gns_stats_kernel", "gns_cluster_kernel"), "affine": ("gns_affine_kernel",)}
+# host runtime calls that put work on the device
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
 
-    batch = {"input": torch.rand(BATCH, RES, RES, 1, generator=gen, device=gen.device) * 2 - 1,
-             "type_idx": torch.arange(BATCH, device=gen.device) % len(ARTIFACT_PROMPTS)}
-    eng.test(batch, gen, sample_steps=1)
+
+def sm_clock() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def flagship_batch(gen) -> dict:
+    return {"input": torch.rand(BATCH, RES, RES, 1, generator=gen, device=gen.device) * 2 - 1,
+            "type_idx": torch.arange(BATCH, device=gen.device) % len(ARTIFACT_PROMPTS)}
+
+
+def profile_step(eng, gen, path) -> dict:
+    """One request of ``SAMPLE_STEPS`` steps on the compiled sampler under
+    torch.profiler, each replayed step alone on the device: a synchronise
+    before the replay, then the replay and a synchronise inside a profiler
+    range. Per replayed step: device time by kernel class (the kernels
+    that start inside its range), busy / range wall and the idle share, each
+    kernel's launches by name (checked against ``PATHS``), the top kernels;
+    per step of the request loop (the engine's ``sampler_step`` ranges:
+    the noise draw and the replay) the host's launch calls, and the same
+    for the call's inputs (``sampler_inputs``: the text encodings). The SM
+    clock is sampled before and after the window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    batch = flagship_batch(gen)
+    eng.test(batch, gen, sample_steps=SAMPLE_STEPS, eta=ETA)  # the graph exists: a warm call
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    entry = eng.last_graph
+    replay = entry.replay
+
+    def alone():
+        torch.cuda.synchronize()
+        with record_function("chip_smoke.replayed_step"):
+            replay()
+            torch.cuda.synchronize()
+
+    clock_before = sm_clock()
+    with mock.patch.object(entry, "replay", alone), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        eng.test(batch, gen, sample_steps=1)
+        eng.test(batch, gen, sample_steps=SAMPLE_STEPS, eta=ETA)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    by_class, by_name = Counter(), Counter()
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = evt.time_range.elapsed_us() / 1e3
-        name = evt.name.lower()
-        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
-                   "elementwise_other")
-        by_class[cls] += ms
-        by_name[evt.name[:80]] += ms
-    busy = sum(by_class.values())
-    if busy <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
+    clock_after = sm_clock()
+    events = list(prof.events())
+
+    def ranges(name):
+        return [(e.time_range.start, e.time_range.end) for e in events
+                if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+
+    windows = ranges("chip_smoke.replayed_step")
+    if len(windows) != SAMPLE_STEPS:
+        raise AssertionError(f"{path}: {len(windows)} replayed-step ranges, want {SAMPLE_STEPS}")
+    # device kernels; the profiler also puts the CPU ranges on the device's
+    # timeline (user annotations), which are no kernels
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in ("chip_smoke.replayed_step", "sampler_step", "sampler_inputs")]
+    steps = []
+    for ws, we in windows:
+        by_class, by_name, n_name, launched = Counter(), Counter(), Counter(), Counter()
+        for evt in kernels:
+            if not ws <= evt.time_range.start <= we:
+                continue
+            ms = evt.time_range.elapsed_us() / 1e3
+            name = evt.name.lower()
+            cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
+                       "elementwise_other")
+            by_class[cls] += ms
+            by_name[evt.name[:200]] += ms
+            n_name[evt.name[:200]] += 1
+            for k, names in LAUNCH_NAMES.items():
+                launched[k] += any(n in name for n in names)
+        busy = sum(by_class.values())
+        if busy <= 0:
+            raise AssertionError(f"{path}: torch.profiler recorded no kernel in a replayed step")
+        launched = {k: launched[k] for k in PATHS[path]}
+        if launched != PATHS[path]:
+            raise AssertionError(f"{path}: kernels launched by name in a replayed step "
+                                 f"{launched}, want {PATHS[path]}")
+        steps.append((busy, (we - ws) / 1e3, by_class, by_name, n_name))
+
+    def host_calls(spans):
+        n = Counter()
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CPU and any(
+                    e.name.startswith(h) for h in HOST_LAUNCHES) and any(
+                    s <= e.time_range.start <= t for s, t in spans):
+                n[e.name] += 1
+        return dict(n)
+
+    per_step = {k: v / SAMPLE_STEPS for k, v in host_calls(ranges("sampler_step")).items()}
+    kernel_calls = sum(v for k, v in per_step.items() if "LaunchKernel" in k)
+    if kernel_calls >= 20 or not any("GraphLaunch" in k for k in per_step):
+        raise AssertionError(f"{path}: host launch calls per replayed step {per_step}")
+    busy, step_wall, by_class, by_name, n_name = steps[-1]
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
-    return {"path": path, "what": "one sampler step, batch 8, 256 px, bf16",
-            "wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy, 3),
-            "idle_share": round(1 - busy / wall_ms, 4),
+    return {"path": path, "what": f"one replayed sampler step of a {SAMPLE_STEPS}-step request, "
+                                  "batch 8, 256 px, bf16, alone on the device",
+            "device_busy_ms_per_step": [round(s[0], 3) for s in steps],
+            "step_wall_ms": [round(s[1], 3) for s in steps],
+            "idle_share_per_step": [round(1 - s[0] / s[1], 4) for s in steps],
+            "launches_per_step_by_name": PATHS[path],
+            "host_calls_per_step": per_step,
+            "host_calls_sampler_inputs": host_calls(ranges("sampler_inputs")),
+            "call_wall_ms": round(wall_ms, 3),
+            "sm_clock_before_after": [clock_before, clock_after],
             "ms_by_class": {k: round(v, 3) for k, v in by_class.most_common()},
-            "top_kernels_ms": {k: round(v, 3) for k, v in by_name.most_common(8)},
+            "top_kernels_ms_launches": {k: [round(v, 3), n_name[k]]
+                                        for k, v in by_name.most_common(12)},
             "top_host_ops_self_ms_calls": {e.key[:60]: [round(e.self_cpu_time_total / 1e3, 3),
                                                         e.count] for e in host[:8]}}
 
@@ -532,42 +644,136 @@ def unet_args(B, gen, n_text=len(FLAGSHIP["ch_mult"])):
             torch.randn(B, 1, 512, generator=gen, device=dev))
 
 
-def serve(path, eng, build_s, gpu) -> Counter:
-    """Two requests through ``Restorer.restore``; each request's launches are
-    counted from 0 and checked against ``PATHS[path]`` per sampler step.
-    Returns the launches of both requests."""
+def zero_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: wrapper.launches for k, wrapper in WRAPPERS.items()}
+
+
+def check_graph_vs_eager(what, got, want, dtype) -> dict:
+    """Graph against eager on the same inputs and generator seed: within
+    1e-5 abs in fp32, ``TOL`` relative to the largest eager output in bf16."""
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    err = (got - want).abs().max().item()
+    limit = 1e-5 if dtype == torch.float32 else TOL[dtype] * max(1.0, want.abs().max().item())
+    if not (err <= limit and torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: graph vs eager max abs err {err} > {limit}")
+    return {"graph_vs_eager_max_abs_err": err, "tol": limit,
+            "bit_identical": bool(torch.equal(got, want))}
+
+
+def serve(path, eng, build_s, gpu) -> tuple:
+    """Requests through ``Restorer.restore`` on the compiled sampler: 8
+    images (the first call: warm-up and capture), 3 (padded to 8: the same
+    graph), 8 again (steady state); then the first request's batch eagerly
+    with the same generator seed, held against the graph's output. Each
+    request's launches are counted from 0 (see the module docstring).
+    Returns the launches of the graph-served requests."""
     restorer = Restorer(eng, batch_size=BATCH, sample_steps=SAMPLE_STEPS, eta=ETA, seed=0,
                         device="cuda")
     n_steps = len(strided_sampling_grid(T, SAMPLE_STEPS)[0])
     rng = np.random.default_rng(0)
     total = Counter()
     torch.cuda.reset_peak_memory_stats()
-    for n_img in (8, 3):
+    first = None
+    for n_img in (8, 3, 8):
         images = rng.uniform(-1, 1, (n_img, RES, RES, 1)).astype(np.float32)
         types = [ARTIFACT_PROMPTS[i % len(ARTIFACT_PROMPTS)] for i in range(n_img)]
-        for wrapper in WRAPPERS.values():
-            wrapper.launches = 0
+        captures = eng.captures
+        replays = eng.last_graph.replays if eng.last_graph else 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.time()
         out = restorer.restore(images, types)
         seconds = time.time() - t0
-        got = {k: wrapper.launches for k, wrapper in WRAPPERS.items()}
-        total.update(got)
+        got = read_launches()
+        captured = eng.captures - captures
+        entry = eng.last_graph
+        replayed = entry.replays - (0 if captured else replays)
+        per_step = {k: entry.launches[NAMES[k]] for k in PATHS[path]}
         calls = -(-n_img // BATCH)  # sampler calls: the request is chunked to the batch
-        want = {k: per_step * n_steps * calls for k, per_step in PATHS[path].items()}
+        want = {k: n * (replayed + captured) for k, n in per_step.items()}
         if out.shape != images.shape or not np.isfinite(out).all():
             raise AssertionError(f"{path}, request of {n_img}: bad output {out.shape}, "
                                  f"finite={np.isfinite(out).all()}")
-        if got != want:
-            raise AssertionError(f"{path}, request of {n_img}: launches {got}, want {want}")
+        if (per_step != PATHS[path] or got != want or captured != (first is None)
+                or replayed != n_steps * calls):
+            raise AssertionError(f"{path}, request of {n_img}: launches {got} (want {want}), "
+                                 f"per step at capture {per_step} (want {PATHS[path]}), "
+                                 f"{captured} captures, {replayed} replays")
+        total.update(got)
+        if first is None:
+            first = (images, types, out)
         emit({"phase": "main", "path": path, "images": n_img, "batch": BATCH, "res": RES,
               "T": T, "sampler_steps": n_steps, "eta": ETA, "dtype": "bfloat16",
-              "seconds": round(seconds, 4), "ms_per_step": round(seconds / n_steps * 1e3, 3),
+              "compiled": True, "captured": bool(captured), "seconds": round(seconds, 4),
+              "ms_per_step": round(seconds / n_steps / calls * 1e3, 3),
               "img_per_s": round(n_img / seconds, 4), "launches": got,
-              "launches_per_step": PATHS[path], "out_min": float(out.min()),
+              "launches_per_step_at_capture": per_step, "graph_calls": entry.calls,
+              "replays": replayed, "out_min": float(out.min()),
               "out_max": float(out.max()), "engine_build_s": round(build_s, 2),
               "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
               "gpu": gpu})
+        steady_ms = seconds / n_steps / calls * 1e3
+    # the first request's batch, eagerly, from the Restorer's seed
+    images, types, graph_out = first
+    batch = {"input": images, "type_idx": np.asarray([eng.type_map[t] for t in types]),
+             "A_emb": np.zeros((BATCH, 1, eng.context_dim), np.float32)}
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eager = eng.test(batch, torch.Generator(device="cuda").manual_seed(0), sample_steps=SAMPLE_STEPS,
+                     eta=ETA, compiled=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = read_launches()
+    want = {k: n * n_steps for k, n in PATHS[path].items()}
+    if got != want:
+        raise AssertionError(f"{path}, eager request: launches {got}, want {want}")
+    emit({"phase": "main", "path": path, "what": "graph vs eager, the first request's batch, "
+                                                 "same generator seed",
+          **check_graph_vs_eager(f"{path} request", graph_out, eager, torch.bfloat16),
+          "graph_ms_per_step_steady": round(steady_ms, 3),
+          "eager_ms_per_step": round(seconds / n_steps * 1e3, 3), "eager_launches": got,
+          "gpu": gpu})
+    return total
+
+
+def serve_full_steps(eng, gpu) -> Counter:
+    """Two 8-image requests at all T=100 steps (bench.py's flagship count):
+    the first captures that step count's graph, the second is steady; their
+    launches, checked as ``serve`` checks them."""
+    restorer = Restorer(eng, batch_size=BATCH, sample_steps=None, eta=ETA, seed=1,
+                        device="cuda")
+    rng = np.random.default_rng(1)
+    total = Counter()
+    for _ in range(2):
+        images = rng.uniform(-1, 1, (BATCH, RES, RES, 1)).astype(np.float32)
+        captures = eng.captures
+        replays = eng.last_graph.replays
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = restorer.restore(images, "speckle in OCT")
+        seconds = time.time() - t0
+        if out.shape != images.shape or not np.isfinite(out).all():
+            raise AssertionError(f"T={T} request: bad output")
+        got, captured, entry = read_launches(), eng.captures - captures, eng.last_graph
+        replayed = entry.replays - (0 if captured else replays)
+        want = {k: entry.launches[NAMES[k]] * (replayed + captured) for k in PATHS["drift"]}
+        if (got != want or replayed != T
+                or any(entry.launches[NAMES[k]] != n for k, n in PATHS["drift"].items())):
+            raise AssertionError(f"T={T} request: launches {got} (want {want}), "
+                                 f"{replayed} replays")
+        total.update(got)
+        emit({"phase": "main", "path": "drift", "images": BATCH, "res": RES, "T": T,
+              "sampler_steps": T, "eta": ETA, "dtype": "bfloat16", "compiled": True,
+              "captured": bool(captured), "seconds": round(seconds, 4),
+              "ms_per_step": round(seconds / T * 1e3, 3),
+              "img_per_s": round(BATCH / seconds, 4), "launches": got, "gpu": gpu})
     return total
 
 
@@ -744,7 +950,8 @@ def main() -> int:
                 emit({"phase": "check", "kernel": NAMES[kname], "shape": shape,
                       "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
 
-    # 3. the main paths at full width: two requests each through Restorer.restore
+    # 3. the main paths at full width: requests through Restorer.restore on
+    # the compiled sampler, against the eager loop
     launches = Counter()
     shapes = {}
     for path, make in (("drift", lambda: flagship_engine(torch.bfloat16)),
@@ -758,12 +965,38 @@ def main() -> int:
         net_key, n_text = ("n_ema", 1) if path == "ddpm" else ("d_ema", len(FLAGSHIP["ch_mult"]))
         shapes[path] = record_launch_shapes(eng.nets[net_key], unet_args(BATCH, gen, n_text))
         launches.update(serve(path, eng, build_s, gpu))
+        if path == "drift":
+            launches.update(serve_full_steps(eng, gpu))
         emit({"phase": "profile", **profile_step(eng, gen, path), "gpu": gpu})
         del eng
         torch.cuda.empty_cache()
 
-    # 4. full-width fp32 UNet forwards: kernels vs plain versions, both bodies
+    # 4. full-width fp32: sampler calls replayed from the graph against the
+    # eager loop; UNet forwards, kernels vs plain versions, both bodies
+    def fp32_graph_vs_eager(what, eng):
+        # cuDNN's default algorithm for the decoder's transposed convs is not
+        # deterministic in fp32, so the eager loop differs from itself (the
+        # DDPM step at t=T divides by sqrt(abar_T) = 1e-4); the comparison
+        # holds every op to a deterministic algorithm, and the eager loop's
+        # own spread without that is printed beside it
+        batch = {"input": np.random.default_rng(2).uniform(-1, 1, (2, RES, RES, 1)).astype(
+            np.float32), "type_idx": np.array([0, 3])}
+
+        def run(compiled):
+            return eng.test(batch, torch.Generator(device="cuda").manual_seed(3),
+                            sample_steps=2, eta=0.0, compiled=compiled)
+
+        spread = (run(False) - run(False)).abs().max().item()
+        torch.backends.cudnn.deterministic = True
+        got, want = run(True), run(False)
+        torch.backends.cudnn.deterministic = False
+        emit({"phase": "parity", "what": what + " (cudnn.deterministic)",
+              "captures": eng.captures, **check_graph_vs_eager(what, got, want, torch.float32),
+              "eager_vs_eager_default_cudnn_max_abs_diff": spread, "gpu": gpu})
+
     eng32 = flagship_engine(torch.float32)
+    fp32_graph_vs_eager("drift sampler, fused body, fp32, batch 2, 2 steps, eta 0: graph vs "
+                        "eager", eng32)
     net = eng32.nets["d_ema"]
     args = unet_args(2, gen)
     out = {}
@@ -784,6 +1017,7 @@ def main() -> int:
     del eng32, net, out
     torch.cuda.empty_cache()
     eng32 = ddpm_engine(torch.float32)
+    fp32_graph_vs_eager("DDPM sampler, fp32, batch 2, 2 steps, eta 0: graph vs eager", eng32)
     args = unet_args(2, gen, n_text=1)
     with torch.inference_mode():
         got = eng32.nets["n_ema"](*args)

@@ -53,30 +53,26 @@ class CLIPDDPMEngine(SamplingEngine):
             use_image_context=use_image_context, use_degra_context=use_degra_context,
             use_fused_gnconv=False) for k in NET_KEYS})
 
-    @torch.inference_mode()
-    def test(self, batch, generator: Optional[torch.Generator] = None, use_ema: bool = True,
-             sample_steps: Optional[int] = None, eta: Optional[float] = None,
-             init_noise: Optional[torch.Tensor] = None,
-             step_noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        """Restore a batch: ``batch["input"]`` [B,H,W,1] in [-1,1] (the
-        condition mu), ``batch["type_idx"]`` [B], optional ``batch["A_emb"]``
-        [B,1,context_dim] (zeros when absent; used with image context).
-        Returns x0_hat [B,H,W,1] float32 on the engine's device. Noise comes
-        from ``generator`` unless ``init_noise`` and ``step_noise`` are given
-        (see ``DDPMSDE.reverse_ddpm``)."""
-        if self.sde is None:
-            raise ValueError("engine has no SDE; pass sde= to the constructor")
+    def _step_nets(self, use_ema: bool):
+        return (self.nets["n_ema" if use_ema else "noise"],)
+
+    def _inputs(self, batch, use_ema: bool):
+        """The call's tensors: mu (the condition), type ids, the image
+        context and the net's text encoding."""
         mu = self._tensor(batch["input"], torch.float32)
-        type_idx = self._tensor(batch["type_idx"], torch.int64)
+        return {"mu": mu, "type_idx": self._tensor(batch["type_idx"], torch.int64),
+                "img_ctx": self._image_context(batch, mu.shape[0]),
+                "text": self._encode_prompts(self._step_nets(use_ema)[0])}
+
+    def _predictor(self, inputs, use_ema: bool):
+        """``predict(x, row)``: the noise net at the row's timestep, reading
+        the call's tensors from ``inputs``."""
+        net, = self._step_nets(use_ema)
+        mu, type_idx, img_ctx = inputs["mu"], inputs["type_idx"], inputs["img_ctx"]
         B = mu.shape[0]
-        img_ctx = self._image_context(batch, B)
-        net = self.nets["n_ema" if use_ema else "noise"]
-        text = self._encode_prompts(net)
 
-        def predict(x, t: int):
-            t_b = torch.full((B,), t, dtype=torch.int32, device=self.device)
-            return net(x, mu, t_b, type_idx, text, img_ctx)[0]
+        def predict(x, row):
+            t_b = row[0].to(torch.int32).expand(B)
+            return net(x, mu, t_b, type_idx, inputs["text"], img_ctx)[0]
 
-        return self.sde.reverse_ddpm(mu, predict, sample_steps=sample_steps, eta=eta,
-                                     generator=generator, init_noise=init_noise,
-                                     step_noise=step_noise)
+        return predict

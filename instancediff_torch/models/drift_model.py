@@ -4,9 +4,10 @@
 The engine owns the frozen CLIP text tower, the prompt ids and the dual UNets
 (drift and noise net, raw and EMA weights, as the JAX engine's ``state``
 keys name them); ``engine.SamplingEngine`` holds what it shares with the
-DDPM engine (``ddpm_model.py``). A sampler call encodes the prompts with each net's
-per-scale SMM contexts once, outside the step loop, then runs the two nets
-one after the other at every step of ``DriftSDE.reverse_ddpm``."""
+DDPM engine (``ddpm_model.py``), the sampler call ``test`` among it. A
+sampler call encodes the prompts with each net's per-scale SMM contexts
+once, outside the step loop, then runs the two nets one after the other at
+every step of ``DriftSDE.step``: eagerly, or replayed from a CUDA graph."""
 
 from __future__ import annotations
 
@@ -79,52 +80,50 @@ class CLIPDriftEngine(SamplingEngine):
             return (x - mu, mu), (x - mu, x)
         return (x, mu), (x, mu)
 
-    def _to_drift_eps(self, x, t: int, pd_raw, pn_raw):
-        """Raw net outputs -> (full drift D_hat, eps_hat) for the step."""
+    def _to_drift_eps(self, x, row, pd_raw, pn_raw):
+        """Raw net outputs -> (full drift D_hat, eps_hat) for the step whose
+        coefficient row is ``row`` (``DriftSDE.COLUMNS``)."""
         if self.optimize_type in ("inputRes", "predict_noise", ""):
             return pd_raw, pn_raw
-        sd = float(self.sde.drift_schedule[t])
+        _, _, sd, _, sig, _, _ = row.unbind()
         if self.optimize_type == "predict_std_noise_scale_drift":
-            return pd_raw.to(x.dtype) / max(sd, 1e-6), pn_raw
+            return pd_raw.to(x.dtype) / torch.clamp(sd, min=1e-6), pn_raw
         # predict_x0: the noise net emits x0 directly
-        sig = float(self.sde.sigmas[t])
         d_full = pd_raw.to(x.dtype)
-        eps_hat = (x - pn_raw.to(x.dtype) - sd * d_full) / max(sig, 1e-6)
+        eps_hat = (x - pn_raw.to(x.dtype) - sd * d_full) / torch.clamp(sig, min=1e-6)
         return d_full, eps_hat
 
-    @torch.inference_mode()
-    def test(self, batch, generator: Optional[torch.Generator] = None, use_ema: bool = True,
-             sample_steps: Optional[int] = None, eta: Optional[float] = None,
-             init_noise: Optional[torch.Tensor] = None,
-             step_noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        """Restore a batch: ``batch["input"]`` [B,H,W,1] in [-1,1],
-        ``batch["type_idx"]`` [B], optional ``batch["A_emb"]`` [B,1,context_dim]
-        (zeros when absent; used with image context). Returns x0_hat
-        [B,H,W,1] float32 on the engine's device. Noise comes from
-        ``generator`` unless ``init_noise`` and ``step_noise`` are given (see
-        ``DriftSDE.reverse_ddpm``)."""
-        if self.sde is None:
-            raise ValueError("engine has no SDE; pass sde= to the constructor")
+    def _step_nets(self, use_ema: bool):
+        return (self.nets["d_ema" if use_ema else "drift"],
+                self.nets["n_ema" if use_ema else "noise"])
+
+    def _inputs(self, batch, use_ema: bool):
+        """The call's tensors: mu, type ids, the image context and (with
+        ``use_degra_context``) the prompt's encoding without learnable
+        context as one token, and each net's per-SMM text encodings."""
         mu = self._tensor(batch["input"], torch.float32)
         type_idx = self._tensor(batch["type_idx"], torch.int64)
-        B = mu.shape[0]
-        img_ctx = self._image_context(batch, B)
         degra_ctx = None
         if self.use_degra_context:
-            # the prompt's encoding without learnable context, one token
             degra_ctx = self.text_encoder(self.prompt_ids, None)[type_idx][:, None, :]
-        dnet = self.nets["d_ema" if use_ema else "drift"]
-        nnet = self.nets["n_ema" if use_ema else "noise"]
-        d_text = self._encode_prompts(dnet)
-        n_text = self._encode_prompts(nnet)
+        dnet, nnet = self._step_nets(use_ema)
+        return {"mu": mu, "type_idx": type_idx, "img_ctx": self._image_context(batch, mu.shape[0]),
+                "degra_ctx": degra_ctx, "d_text": self._encode_prompts(dnet),
+                "n_text": self._encode_prompts(nnet)}
 
-        def predict(x, t: int):
-            t_b = torch.full((B,), t, dtype=torch.int32, device=self.device)
+    def _predictor(self, inputs, use_ema: bool):
+        """``predict(x, row)``: the drift net, then the noise net, at the
+        row's timestep, reading the call's tensors from ``inputs``."""
+        dnet, nnet = self._step_nets(use_ema)
+        mu, type_idx = inputs["mu"], inputs["type_idx"]
+        img_ctx, degra_ctx = inputs["img_ctx"], inputs["degra_ctx"]
+        B = mu.shape[0]
+
+        def predict(x, row):
+            t_b = row[0].to(torch.int32).expand(B)
             d_in, n_in = self._net_inputs(x, mu)
-            pd, _ = dnet(d_in[0], d_in[1], t_b, type_idx, d_text, img_ctx, degra_ctx)
-            pn, _ = nnet(n_in[0], n_in[1], t_b, type_idx, n_text, img_ctx, degra_ctx)
-            return self._to_drift_eps(x, t, pd, pn)
+            pd, _ = dnet(d_in[0], d_in[1], t_b, type_idx, inputs["d_text"], img_ctx, degra_ctx)
+            pn, _ = nnet(n_in[0], n_in[1], t_b, type_idx, inputs["n_text"], img_ctx, degra_ctx)
+            return self._to_drift_eps(x, row, pd, pn)
 
-        return self.sde.reverse_ddpm(mu, predict, eta=eta, sample_steps=sample_steps,
-                                     generator=generator, init_noise=init_noise,
-                                     step_noise=step_noise)
+        return predict

@@ -2,7 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` alone (no PyTorch headers) into ``instancediff_torch/_build/``,
-then loaded with ``ctypes``. Nothing here runs at import time."""
+then loaded with ``ctypes``. Nothing here runs at import time.
+
+Each library links the CUDA runtime statically (nvcc's default), so it has
+a runtime of its own beside PyTorch's. Both use the same device context,
+and stream capture belongs to the stream itself, below either runtime, so
+a launch a library issues on PyTorch's capturing stream is captured like
+PyTorch's own; only first-call work (loading a library, a kernel's first
+launch, the shared-memory limits) has to happen before the capture."""
 
 from __future__ import annotations
 
@@ -11,6 +18,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -94,10 +103,15 @@ def build_all(names=tuple(SIGNATURES)) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed. Not while a CUDA
+    graph is being captured: loading registers the library's kernels with
+    its CUDA runtime, which is first-call work for a warm-up to do."""
     lib = _libs.get(name)  # loaded: no lock needed on every launch
     if lib is not None:
         return lib
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"kernel library {name} first loaded during a CUDA graph "
+                           "capture; run one step eagerly on the capture stream first")
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -113,3 +127,16 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def count_launch(wrapper) -> None:
+    """Count one call of ``wrapper`` into its kernel library. Outside a CUDA
+    graph capture the call launched its kernel: ``wrapper.launches`` += 1.
+    Under capture it only recorded the kernel into the graph:
+    ``wrapper.captured`` += 1, and the graph's owner adds the captured counts
+    to ``launches`` at every replay (``models/engine.py:CompiledStep``), so
+    ``launches`` counts the kernels the device ran either way."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1

@@ -54,8 +54,8 @@ def flash_attention(q, k, v, scale=None):
                            B * H, N, k.shape[2], D, scale, _DTYPES[q.dtype],
                            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.captured = 0

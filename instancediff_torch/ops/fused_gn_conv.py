@@ -103,8 +103,13 @@ def packed_weights(w, nb):
     on the weight tensor itself (attribute ``_fgc_packed``, freed with it) and
     repacked when the tensor is updated in place. Inference tensors (made
     inside ``torch.inference_mode``, e.g. a cast of the caller's weight) keep
-    no copy."""
+    no copy, so a CUDA graph capturing one would repack at every replay: that
+    raises. The engines pass the parameter itself, already in the compute
+    dtype, and pack it in the warm-up step before the capture."""
     if w.is_inference():
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_gn_silu_conv3x3: an inference-mode weight would be "
+                               "repacked at every replay of the captured graph")
         return pack_weights(w, nb)
     key = (nb, w._version, w.data_ptr())
     hit = getattr(w, "_fgc_packed", None)
@@ -113,6 +118,14 @@ def packed_weights(w, nb):
             hit = (key, pack_weights(w.detach(), nb))
         w._fgc_packed = hit
     return hit[1]
+
+
+def packed_copies(params) -> list:
+    """The packed copies ``packed_weights`` holds for ``params`` (those packed
+    so far). A CUDA graph reads its copies by address, and a repack after an
+    in-place update drops the parameter's reference, so the graph's owner
+    keeps this list."""
+    return [p._fgc_packed[1] for p in params if getattr(p, "_fgc_packed", None) is not None]
 
 
 def gn_channel_affine_plain(x, gamma, beta, num_groups, eps=1e-5):
@@ -130,11 +143,11 @@ def gn_channel_affine(x, gamma, beta, num_groups, eps=1e-5):
     if x.device.type == "cpu":
         return gn_channel_affine_plain(x, gamma, beta, num_groups, eps)
     out = group_norm_affine_cuda(x, gamma, beta, num_groups, eps)
-    gn_channel_affine.launches += 1
+    _build.count_launch(gn_channel_affine)
     return out
 
 
-gn_channel_affine.launches = 0
+gn_channel_affine.launches = gn_channel_affine.captured = 0
 
 
 def fused_gn_silu_conv3x3_plain(x, scale_c, shift_c, w, bias_bc, residual=None):
@@ -201,8 +214,8 @@ def fused_gn_silu_conv3x3(x, scale_c, shift_c, w, bias_bc, residual=None):
                                  w.data_ptr(), bias_bc.data_ptr(), res_ptr, out.data_ptr(),
                                  B, H, W, C, Cout, stream)
     _build.check(rc, "fused_gn_silu_conv3x3")
-    fused_gn_silu_conv3x3.launches += 1
+    _build.count_launch(fused_gn_silu_conv3x3)
     return out
 
 
-fused_gn_silu_conv3x3.launches = 0
+fused_gn_silu_conv3x3.launches = fused_gn_silu_conv3x3.captured = 0

@@ -159,18 +159,28 @@ def _current_stream(x):
 # per (device, stream): fp32 scratch words (group partials, group mean /
 # rstd) and the int32 per-image tickets (zero at first, left zero by every
 # call). Calls on one stream run in order, so they can share them.
+#
+# A CUDA graph keeps the addresses its launches were captured with. The
+# engines capture on a stream of their own after one eager warm-up step on
+# that stream (``models/engine.py:SamplingEngine._capture``), so the capture
+# finds its stream's scratch already allocated and allocates nothing; a
+# replay then reads that scratch from whatever stream it runs on, in order
+# with the engine's other replays. A buffer outgrown later may still be
+# read by a graph, so it is kept in ``_outgrown``, never freed.
 _scratch: dict = {}
+_outgrown: list = []
 
 
 def _scratch_for(x, stream, floats, B):
     key = (x.device.index, stream)
-    buf, tickets = _scratch.get(key, (None, None))
+    old = buf, tickets = _scratch.get(key, (None, None))
     if buf is None or buf.numel() < floats:
         n = 0 if buf is None else buf.numel()
         buf = torch.empty(max(floats, 2 * n, 1 << 16), dtype=torch.float32, device=x.device)
-        _scratch[key] = (buf, tickets)
     if tickets is None or tickets.numel() < B:
         tickets = torch.zeros(max(B, 64), dtype=torch.int32, device=x.device)
+    if buf is not old[0] or tickets is not old[1]:
+        _outgrown.append(old)
         _scratch[key] = (buf, tickets)
     return buf, tickets
 
@@ -220,8 +230,8 @@ def group_norm_silu(x, gamma, beta, num_groups, eps=1e-5, silu=True):
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, gamma, beta, num_groups, eps, silu)
     out = group_norm_silu_cuda(x, gamma, beta, num_groups, eps, silu)
-    group_norm_silu.launches += 1
+    _build.count_launch(group_norm_silu)
     return out
 
 
-group_norm_silu.launches = 0
+group_norm_silu.launches = group_norm_silu.captured = 0

@@ -1,10 +1,13 @@
 """Instance-wise drift SDE reverse sampler (port of
 ``instancediff_tpu/sde/drift_sde.py``).
 
-The JAX sampler is one ``lax.scan``; here it is a Python loop over the
-strided grid. Torch cannot reproduce JAX's threefry bits, so every random
-draw is injectable: ``reverse_ddpm`` takes the initial noise and the per-step
-noise as tensors, or draws them from an explicit ``torch.Generator``."""
+The JAX sampler is one ``lax.scan`` whose body takes the timestep as data.
+Here the body is ``DriftSDE.step``: it reads its coefficients from a
+per-call table on the device (``coeff_table``), so a Python loop and a
+captured CUDA graph run the same step (``stepping.py``). Torch cannot
+reproduce JAX's threefry bits, so every random draw is injectable:
+``reverse_ddpm`` takes the initial noise and the per-step noise as tensors,
+or draws them from an explicit ``torch.Generator``."""
 
 from __future__ import annotations
 
@@ -13,14 +16,20 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .schedules import make_schedule, strided_sampling_grid
+from .stepping import SamplerState, run_steps
 
-# predict_fn(x_t, t) -> (pred_drift, pred_noise); t is a Python int
-PredictFn = Callable[[torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
+# predict_fn(x_t, row) -> (pred_drift, pred_noise); row is the step's
+# coefficient row, row[0] its timestep t
+PredictFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
 class DriftSDE:
-    """Schedule tables plus the ancestral reverse step. Tables stay on the
-    CPU in float32; a step reads its scalars from them as Python floats."""
+    """Schedule tables plus the ancestral reverse step. The schedule tables
+    stay on the CPU in float32; a sampler call turns the ones its grid needs
+    into a coefficient table on its device."""
+
+    # the columns of ``coeff_table``
+    COLUMNS = ("t", "t_prev", "sd_t", "sd_p", "sig_t", "carry", "c")
 
     def __init__(self, T: int = 100, max_sigma: float = 0.4,
                  drift_schedule: str = "sigmoid", noise_schedule: str = "sigmoid",
@@ -32,55 +41,63 @@ class DriftSDE:
         self.noise_schedule = make_schedule(noise_schedule, self.T)
         self.sigmas = self.max_sigma * torch.sqrt(self.noise_schedule)
 
-    def init_state(self, mu: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-        """x_T = mu + sigma_T * eps (the exact t=T marginal)."""
-        return mu + float(self.sigmas[self.T]) * eps
-
     @staticmethod
     def posterior_coeffs(sig_t: torch.Tensor, sig_p: torch.Tensor, eta: float):
         """``(carry, c)`` with carry^2 + c^2 = sig_p^2: the coefficient on the
-        carried noise prediction and the fresh-noise std (float32 scalars)."""
+        carried noise prediction and the fresh-noise std (float32, elementwise)."""
         ratio = torch.where(sig_t > 0, sig_p / torch.clamp(sig_t, min=1e-12),
                             torch.zeros_like(sig_t))
         c = eta * sig_p * torch.sqrt(torch.clamp(1.0 - ratio**2, 0.0, 1.0))
         carry = torch.sqrt(torch.clamp(sig_p**2 - c**2, min=0.0))
         return carry, c
 
-    def reverse_step(self, x_t: torch.Tensor, t: int, t_prev: int, pred_drift,
-                     pred_noise, z: torch.Tensor, eta: float) -> torch.Tensor:
-        """One ancestral step t -> t_prev (any t_prev < t). eta=1 is the DDPM
-        posterior, eta=0 the deterministic DDIM-style step."""
-        sd_t = float(self.drift_schedule[t])
-        sd_p = float(self.drift_schedule[t_prev])
-        sig_t, sig_p = self.sigmas[t], self.sigmas[t_prev]
-        carry, c = self.posterior_coeffs(sig_t, sig_p, eta)
+    def coeff_table(self, sample_steps: Optional[int] = None, eta: Optional[float] = None,
+                    device="cpu") -> torch.Tensor:
+        """[n_steps, 7] float32 on ``device``, one row per step of the strided
+        grid in sampling order, columns ``COLUMNS``: the step t -> t_prev,
+        the drift levels at both ends, sigma_t, and ``posterior_coeffs`` at
+        ``eta`` (default the SDE's), all in float32 arithmetic."""
+        eta_v = self.eta if eta is None else float(eta)
+        t_hi, t_lo = strided_sampling_grid(self.T, sample_steps)
+        t, tp = torch.tensor(t_hi), torch.tensor(t_lo)
+        sig_t, sig_p = self.sigmas[t], self.sigmas[tp]
+        carry, c = self.posterior_coeffs(sig_t, sig_p, eta_v)
+        table = torch.stack([t.float(), tp.float(), self.drift_schedule[t],
+                             self.drift_schedule[tp], sig_t, carry, c], dim=1)
+        return table.to(device)
+
+    def init_state(self, mu: torch.Tensor, eps: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        """x_T = mu + sigma_T * eps (the exact t=T marginal); every grid
+        starts at T, so sigma_T is the first row's sig_t."""
+        return mu + table[0, self.COLUMNS.index("sig_t")] * eps
+
+    def reverse_step(self, x_t: torch.Tensor, row: torch.Tensor, pred_drift,
+                     pred_noise, z: torch.Tensor) -> torch.Tensor:
+        """One ancestral step t -> t_prev with the coefficients of ``row``.
+        eta=1 is the DDPM posterior, eta=0 the deterministic DDIM-style step."""
+        _, _, sd_t, sd_p, sig_t, carry, c = row.unbind()
         # nets may compute in bf16; the sampler state keeps its own dtype
         pd = pred_drift.to(x_t.dtype)
         pn = pred_noise.to(x_t.dtype)
-        x0_hat = x_t - sd_t * pd - float(sig_t) * pn
-        return x0_hat + sd_p * pd + float(carry) * pn + float(c) * z
+        x0_hat = x_t - sd_t * pd - sig_t * pn
+        return x0_hat + sd_p * pd + carry * pn + c * z
+
+    def step(self, state: SamplerState, predict_fn: PredictFn) -> None:
+        """One sampler step, the scan body: the row at the state's step
+        index, the nets, the reverse step into ``state.x``, index + 1."""
+        row = state.row()
+        pred_drift, pred_noise = predict_fn(state.x, row)
+        state.advance(self.reverse_step(state.x, row, pred_drift, pred_noise, state.z))
 
     def reverse_ddpm(self, mu: torch.Tensor, predict_fn: PredictFn,
                      eta: Optional[float] = None, sample_steps: Optional[int] = None,
                      generator: Optional[torch.Generator] = None,
                      init_noise: Optional[torch.Tensor] = None,
                      step_noise: Optional[Sequence[torch.Tensor]] = None):
-        """Reverse sampler over the strided grid. ``init_noise`` ([B,H,W,1])
-        and ``step_noise`` (one tensor per step) replace draws from
-        ``generator``; the draw order is init first, then one per step."""
-        eta_v = self.eta if eta is None else eta
-        t_hi, t_lo = strided_sampling_grid(self.T, sample_steps)
-        if step_noise is not None and len(step_noise) != len(t_hi):
-            raise ValueError(f"step_noise has {len(step_noise)} entries for "
-                             f"{len(t_hi)} sampler steps")
-
-        def draw():
-            return torch.randn(mu.shape, generator=generator, device=mu.device,
-                               dtype=mu.dtype)
-
-        x = self.init_state(mu, draw() if init_noise is None else init_noise)
-        for i, (t, tp) in enumerate(zip(t_hi, t_lo)):
-            pred_drift, pred_noise = predict_fn(x, t)
-            z = draw() if step_noise is None else step_noise[i]
-            x = self.reverse_step(x, t, tp, pred_drift, pred_noise, z, eta_v)
-        return x
+        """Reverse sampler over the strided grid, one eager ``step`` per row.
+        ``init_noise`` ([B,H,W,1]) and ``step_noise`` (one tensor per step)
+        replace draws from ``generator``; the draw order is init first, then
+        one per step."""
+        state = SamplerState(mu, self.coeff_table(sample_steps, eta, mu.device))
+        return run_steps(self, state, mu, lambda: self.step(state, predict_fn), generator,
+                         init_noise, step_noise)

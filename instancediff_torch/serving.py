@@ -3,8 +3,10 @@
 
 A ``Restorer`` holds an engine and a fixed batch size; ragged requests are
 padded to that batch (edge mode) and chunked, so every sampler call sees one
-shape. Noise comes from one seeded ``torch.Generator`` on the device, which
-advances from chunk to chunk.
+shape: on CUDA every chunk replays the engine's one captured sampler step
+(``SamplingEngine.test``), with no new capture in steady state. Noise comes
+from one seeded ``torch.Generator`` on the device, which advances from chunk
+to chunk.
 
 Usage:
     r = Restorer(engine, batch_size=8, sample_steps=4, seed=0)

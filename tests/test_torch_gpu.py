@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+compiled sampler (one CUDA graph per sampler step) against the eager loop,
+on the card.
 
 Every test here needs a CUDA card and skips without one: the kernels have no
 CPU mode. This file imports neither JAX nor the JAX package, so it runs on a
@@ -11,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
+from instancediff_torch.models.drift_model import CLIPDriftEngine
+from instancediff_torch.models.engine import kernel_launches
+from instancediff_torch.models.layers import ConvParams
 from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.fused_gn_conv import (
@@ -29,6 +35,8 @@ from instancediff_torch.ops.group_norm_silu import (
     group_norm_silu_plain,
     stats_smem_bytes,
 )
+from instancediff_torch.sde import DDPMSDE, DriftSDE, strided_sampling_grid
+from instancediff_torch.serving import Restorer
 
 pytestmark = pytest.mark.gpu
 
@@ -271,3 +279,163 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         gn_channel_affine(x32, g, g, 3)
     with pytest.raises(ValueError, match="devices"):
         gn_channel_affine(x32, g.cpu(), g, 4)
+
+
+# ---------------------------------------------------------------- the compiled sampler
+
+# a tiny UNet whose bottleneck self-attention has the flash kernel's head
+# width (256 channels, 4 heads of 64), at 32 px; the tiny text tower; T=10
+GRAPH_NET = dict(in_nc=2, out_nc=5, nf=64, ch_mult=[1, 4], context_dim=32,
+                 text_module="scoremap", score_map_chan=4, score_map_ngf=8, num_res_blocks=1)
+GRAPH_T, GRAPH_RES, GRAPH_B = 10, 32, 2
+GRAPH_PATHS = ("drift", "drift_unfused", "ddpm")
+
+
+def _randomize_(module, seed):
+    """Seeded random values for every parameter (conv2, conv_out and the
+    attention out projections start at zero, which would hide branches)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if p.dim() >= 2:
+                r = r * (p.numel() / max(p.shape)) ** -0.5
+            elif name.endswith("weight"):
+                r = 1 + 0.1 * r
+            else:
+                r = 0.1 * r
+            p.copy_(r)
+
+
+def _graph_engine(path, dtype):
+    if path == "ddpm":
+        eng = CLIPDDPMEngine(GRAPH_NET, sde=DDPMSDE(T=GRAPH_T), dtype=dtype,
+                             tiny_text_encoder=True, device="cuda")
+    else:
+        eng = CLIPDriftEngine(
+            GRAPH_NET, GRAPH_NET, score_map_ch_mult=(1, 1), score_map_ngf=8,
+            sde=DriftSDE(T=GRAPH_T, max_sigma=0.4), dtype=dtype, tiny_text_encoder=True,
+            engine_opts={"fused_gnconv": path == "drift"}, device="cuda")
+    _randomize_(eng.nets, seed=1)
+    _randomize_(eng.text_encoder, seed=2)
+    return eng
+
+
+def _graph_batch(seed):
+    rng = np.random.default_rng(seed)
+    return {"input": rng.uniform(-1, 1, (GRAPH_B, GRAPH_RES, GRAPH_RES, 1)).astype(np.float32),
+            "type_idx": rng.integers(0, 5, GRAPH_B),
+            "A_emb": rng.standard_normal((GRAPH_B, 1, 32)).astype(np.float32)}
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """cuDNN's default algorithm for the decoder's transposed convs sums with
+    atomics in fp32: the eager loop differs from itself by up to ~4e-6 per
+    UNet forward. Graph against eager compares the capture, so every op is
+    held to a deterministic algorithm (then the two are bit-identical)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = before
+
+
+def _assert_graph_matches_eager(got, want, dtype):
+    """fp32: the same kernels on the same inputs, 1e-5 abs; bf16: TOL 1e-2
+    relative to the largest output, as chip_smoke.py holds the flagship."""
+    limit = 1e-5 if dtype == torch.float32 else 1e-2 * max(1.0, want.abs().max().item())
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("eta", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graph_matches_eager(deterministic, path, dtype, eta):
+    """A request of 3 strided steps of T=10 (each step its own coefficients)
+    replayed from the captured step against the eager loop, same generator
+    seed; the launches per step recorded at capture are the eager loop's,
+    and the compiled call counts the warm-up step's launches and each
+    replay's."""
+    eng = _graph_engine(path, dtype)
+    batch = _graph_batch(0)
+    n_steps = len(strided_sampling_grid(GRAPH_T, 3)[0])
+    before = kernel_launches()
+    want = eng.test(batch, torch.Generator(device="cuda").manual_seed(7), sample_steps=3,
+                    eta=eta, compiled=False)
+    eager = {k: v - before[k] for k, v in kernel_launches().items()}
+    before = kernel_launches()
+    got = eng.test(batch, torch.Generator(device="cuda").manual_seed(7), sample_steps=3, eta=eta)
+    torch.cuda.synchronize()
+    compiled = {k: v - before[k] for k, v in kernel_launches().items()}
+    assert eng.captures == 1 and len(eng.graphs) == 1
+    entry = next(iter(eng.graphs.values()))
+    assert eng.last_graph is entry and entry.replays == n_steps and entry.calls == 1
+    assert {k: v * n_steps for k, v in entry.launches.items()} == eager
+    assert {k: v * (n_steps + 1) for k, v in entry.launches.items()} == compiled
+    assert entry.launches["flash_attention"] == (1 if path == "ddpm" else 2)
+    assert (entry.launches["fused_gn_silu_conv3x3"] > 0) == (path == "drift")
+    assert (entry.launches["group_norm_silu"] > 0) == (path != "drift")
+    _assert_graph_matches_eager(got, want, dtype)
+    if path == "drift" and dtype == torch.bfloat16:  # packed in the warm-up, not per replay
+        assert all(hasattr(m.weight, "_fgc_packed") for m in eng.nets["d_ema"].modules()
+                   if isinstance(m, ConvParams))
+
+
+def test_graph_is_reused_and_recaptured_per_key(cuda):
+    """A second call of the same key copies its own inputs into the graph's
+    buffers and replays it (no capture); injected noise is honoured; a
+    padded Restorer request replays the same graph; a new sample_steps
+    captures anew, into the same memory pool."""
+    eng = _graph_engine("drift", torch.bfloat16)
+    gen = torch.Generator(device=cuda)
+    eng.test(_graph_batch(0), gen.manual_seed(1), sample_steps=2)
+    batch = _graph_batch(1)
+    got = eng.test(batch, gen.manual_seed(2), sample_steps=2)
+    want = eng.test(batch, gen.manual_seed(2), sample_steps=2, compiled=False)
+    _assert_graph_matches_eager(got, want, torch.bfloat16)
+    assert eng.captures == 1 and len(eng.graphs) == 1
+    entry = next(iter(eng.graphs.values()))
+    assert entry.calls == 2 and entry.replays == 4
+    noise = torch.randn(3, GRAPH_B, GRAPH_RES, GRAPH_RES, 1, generator=gen.manual_seed(3),
+                        device=cuda)
+    got = eng.test(batch, sample_steps=2, init_noise=noise[0], step_noise=noise[1:])
+    want = eng.test(batch, sample_steps=2, init_noise=noise[0], step_noise=noise[1:],
+                    compiled=False)
+    _assert_graph_matches_eager(got, want, torch.bfloat16)
+    images = _graph_batch(2)["input"][:1].repeat(3, axis=0)
+    out = Restorer(eng, batch_size=GRAPH_B, sample_steps=2, device="cuda").restore(
+        images, "speckle in OCT")
+    assert out.shape == images.shape and np.isfinite(out).all()
+    assert eng.captures == 1 and entry.calls == 5
+    eng.test(batch, gen.manual_seed(4), sample_steps=3)
+    assert eng.captures == 2 and len(eng.graphs) == 2
+
+
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graph_is_recaptured_after_an_in_place_weight_update(cuda, path):
+    """Weights loaded in place after a capture (``load_engine``'s
+    ``copy_``, an EMA step): the next compiled call captures anew and
+    matches the eager loop on the new weights; an eager call in between
+    repacks the conv weights while the old graph still holds its copies."""
+    eng = _graph_engine(path, torch.bfloat16)
+    batch = _graph_batch(0)
+    eng.test(batch, torch.Generator(device="cuda").manual_seed(1), sample_steps=2)
+    old = eng.last_graph
+    assert eng.captures == 1 and (len(old.keep) > 0) == (path == "drift")
+    _randomize_(eng.nets, seed=5)
+    eager = eng.test(batch, torch.Generator(device="cuda").manual_seed(2), sample_steps=2,
+                     compiled=False)
+    got = eng.test(batch, torch.Generator(device="cuda").manual_seed(2), sample_steps=2)
+    assert eng.captures == 2 and len(eng.graphs) == 1 and eng.last_graph is not old
+    _assert_graph_matches_eager(got, eager, torch.bfloat16)
+    again = eng.test(batch, torch.Generator(device="cuda").manual_seed(2), sample_steps=2)
+    assert eng.captures == 2
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_compiled_needs_a_cuda_engine(cuda):
+    eng = CLIPDDPMEngine(dict(GRAPH_NET, nf=8, ch_mult=[1, 2]), sde=DDPMSDE(T=GRAPH_T),
+                         tiny_text_encoder=True, device="cpu")
+    with pytest.raises(ValueError, match="compiled=True captures a CUDA graph"):
+        eng.test(_graph_batch(0), compiled=True)
