@@ -71,7 +71,25 @@ Phases, one JSON line each, in order:
                 drift net on the fused body, on the unfused body, the
                 unfused body against the fused one on the same weights, and
                 the DDPM net;
-  5. per_forward -- every kernel each main path launches, held against its
+  5. bundle  -- the path config -> bundle -> compiled sampler -> metrics at
+                Configurations/flagship_test.yml's width (224 px, bf16, in a
+                temporary directory): a seeded engine of the config is saved
+                (``engine.save``: the bundle and the text tower's sidecar;
+                bytes and seconds), served by ``Restorer.from_config`` (load
+                seconds) with one 8-image request of 4 steps that must be
+                bit-identical to the in-memory engine's on the same
+                generator seed, with (steps + 1) x ``PATHS["drift"]``
+                launches; then the golden of tests/data_torch/tiny_bundle:
+                its bundle rebuilt from the seed by the port's codec must
+                hash as the files JAX wrote, and served through
+                ``from_config`` in fp32 (cuDNN deterministic) with the
+                golden's noise it must give JAX's output within
+                ``TOL[fp32]``, its launches checked in its own line; then
+                ``tools/testUM`` over a SpeckleMed dataset of numpy
+                phantoms (2 per artifact type, batch 5): per-type
+                RMSE/SSIM/PSNR and each batch's sampler seconds (a smoke
+                reading: the first batch captures the step);
+  6. per_forward -- every kernel each main path launches, held against its
                 plain version and timed at that path's own launch shapes
                 (bf16, batch 8), summed over one UNet forward (ms and
                 device_ms); then the ``{"kernels": [...]}`` line (each
@@ -80,11 +98,14 @@ Phases, one JSON line each, in order:
                 from drift_unfused; max_abs_err over every shape),
                 the card's name and power limit, and last
                 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are
-                its wrapper's counts over the graph-served main requests:
-                the warm-up steps' launches plus, per replay, the per-step
-                count recorded at capture (the eager comparison is counted
-                apart); ``profile`` counts the replayed kernels by name on
-                the device and holds them to the same per-step counts.
+                its wrapper's counts over the graph-served main requests
+                and the bundle phase's flagship-width runs (the
+                ``from_config`` request and testUM; not the golden, whose
+                config and fp32 are not a main path's): the warm-up
+                steps' launches plus, per replay, the per-step count recorded at capture
+                (the eager comparison is counted apart); ``profile`` counts
+                the replayed kernels by name on the device and holds them to
+                the same per-step counts.
 
 Any failure raises and the script exits non-zero; a failed capture too (the
 engines never fall back to the eager loop). Without CUDA it exits 1 before
@@ -93,22 +114,28 @@ doing anything."""
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from unittest import mock
 
 import numpy as np
 import torch
+import yaml
 
+from instancediff_torch.config import load_options
+from instancediff_torch.models import create_model
 from instancediff_torch.models import unet as unet_mod
 from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
 from instancediff_torch.models.drift_model import CLIPDriftEngine
-from instancediff_torch.models.engine import ARTIFACT_PROMPTS, KERNELS
+from instancediff_torch.models.engine import ARTIFACT_PROMPTS, KERNELS, TEXT_SIDECAR
 from instancediff_torch.models.layers import ConvParams
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
@@ -119,9 +146,12 @@ from instancediff_torch.ops.group_norm_silu import (CLUSTER, SMEM_LIMIT, cluster
                                                     gn_plan, group_norm_affine_cuda,
                                                     group_norm_silu, group_norm_silu_cuda,
                                                     group_norm_silu_plain)
-from instancediff_torch.sde import DDPMSDE, DriftSDE
+from instancediff_torch.sde import DDPMSDE, DriftSDE, create_sde
 from instancediff_torch.sde.schedules import strided_sampling_grid
 from instancediff_torch.serving import Restorer
+from instancediff_torch.tools import testUM
+from instancediff_torch.utils import checkpoint as ckpt
+from instancediff_torch.utils.convert import flax_params
 
 # H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by operand type
 # (bf16 on the tensor cores; fp32 on the FMA units, which the fp32 kernels use)
@@ -461,6 +491,108 @@ def ddpm_engine(dtype) -> CLIPDDPMEngine:
     return eng
 
 
+# ---------------------------------------------------------------- the golden
+
+# tests/data_torch/tiny_bundle: the config, JAX's fp32 output on the bundle
+# written from GOLDEN_SEED (io.ckpt), and the sha256 of each file of that
+# bundle as JAX wrote it (sha256.json); tests/test_torch_bundle.py writes
+# them with JAX and checks them against the committed files
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch",
+                          "tiny_bundle")
+GOLDEN_SEED, GOLDEN_ITER, GOLDEN_STEPS = 0, 100, 4  # the request: 4 of the config's T=8
+GOLDEN_TREES = ("drift", "noise", "d_ema", "n_ema", "text")
+
+
+def seeded_tree(tree, rng) -> dict:
+    """A flax tree of the same paths and shapes as ``tree``, each leaf drawn
+    from ``rng`` in sorted-key order: kernels ~ N(0, 1/fan_in), embeddings ~
+    N(0, 1), norm scales ~ 1 + 0.1 N, everything else ~ 0.1 N (no leaf
+    stays at its init: conv2, conv_out and the attention out projections
+    start at zero)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out[k] = seeded_tree(v, rng)
+            continue
+        shape = tuple(v.shape)
+        r = rng.standard_normal(shape)
+        if k == "kernel":
+            r = r / np.sqrt(np.prod(shape[:-1]))
+        elif k == "scale":
+            r = 1 + 0.1 * r
+        elif k != "embedding":
+            r = 0.1 * r
+        out[k] = np.asarray(r, dtype=np.float32)
+    return out
+
+
+def golden_trees(templates: dict, seed: int = GOLDEN_SEED) -> dict:
+    """The golden's weights: ``seeded_tree`` of each of ``GOLDEN_TREES``
+    (the drift engine's four nets and its text tower, as flax trees), in
+    that order from one generator."""
+    rng = np.random.default_rng(seed)
+    return {k: seeded_tree(templates[k], rng) for k in GOLDEN_TREES}
+
+
+def sha256_files(models_dir) -> dict:
+    out = {}
+    for name in sorted(os.listdir(models_dir)):
+        with open(os.path.join(models_dir, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def load_golden() -> tuple:
+    """(the golden's request, noise and JAX output as numpy arrays; its
+    sha256.json)."""
+    with open(os.path.join(GOLDEN_DIR, "sha256.json")) as f:
+        shas = json.load(f)
+    io = {k: np.array(v) for k, v in ckpt.load_pytree(os.path.join(GOLDEN_DIR, "io.ckpt")).items()}
+    return io, shas
+
+
+def write_golden_bundle(engine, models_dir) -> dict:
+    """The golden bundle of a drift engine built from the golden's config,
+    written with the port's codec (the engine's weights are not read, only
+    its trees' paths and shapes); returns each file's sha256."""
+    templates = {k: flax_params(engine.nets[k]) for k in GOLDEN_TREES[:4]}
+    templates["text"] = flax_params(engine.text_encoder)
+    trees = golden_trees(templates)
+    ckpt.save_bundle(models_dir, GOLDEN_ITER, *(trees[k] for k in GOLDEN_TREES[:4]))
+    ckpt.save_pytree(trees["text"], os.path.join(models_dir, TEXT_SIDECAR))
+    return sha256_files(models_dir)
+
+
+def write_speckle_med(root, n_per_name, res, emb_dim, names, seed=0) -> str:
+    """A SpeckleMed-layout dataset of numpy phantoms (throwaway test data): per
+    image a raw float32 clean disc-and-ramp phantom (B), the phantom under
+    multiplicative gamma speckle and additive Gaussian noise (A), both in the
+    modality's range (CT to 2400, cryo-EM to 300, else [0, 1]), and an
+    embedding; ``dataset_file.json`` holds the records under test and val.
+    Returns its path."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    scale = {"scatter artifact in CT": 2400.0, "noise in cryo-EM image": 300.0}
+    yy, xx = np.mgrid[:res, :res] / res
+    records = []
+    for i in range(n_per_name * len(names)):
+        name = names[i % len(names)]
+        cx, cy, r = rng.uniform(0.3, 0.7, 2).tolist() + [rng.uniform(0.15, 0.3)]
+        clean = (((xx - cx) ** 2 + (yy - cy) ** 2) < r * r) * 0.7 + 0.15 * xx
+        noisy = clean * rng.gamma(4.0, 0.25, clean.shape) + 0.05 * rng.standard_normal(clean.shape)
+        s = scale.get(name, 1.0)
+        paths = {k: os.path.join(root, f"{k}_{i}.raw") for k in ("A", "B", "emb_A")}
+        (noisy * s).astype(np.float32).tofile(paths["A"])
+        (clean * s).astype(np.float32).tofile(paths["B"])
+        rng.standard_normal(emb_dim).astype(np.float32).tofile(paths["emb_A"])
+        records.append(dict(paths, name=name))
+    index = os.path.join(root, "dataset_file.json")
+    with open(index, "w") as f:
+        json.dump({"test": records, "val": records}, f)
+    return index
+
+
 def record_launch_shapes(net, args) -> dict:
     """Run one UNet forward and return, per kernel, the (shape, dtype)
     Counter of its launches (the calls go through the real wrappers)."""
@@ -798,6 +930,187 @@ SWEEP_SHAPES = [(256, 256, 64, 64), (256, 256, 64, 5), (256, 256, 144, 64), (128
                 (64, 64, 256, 256), (64, 64, 528, 256), (32, 32, 256, 256), (32, 32, 528, 256)]
 
 
+# the bundle phase: Configurations/flagship_test.yml (224 px, T=100), served
+# in bf16 from a bundle written by engine.save; testUM over 2 images per
+# artifact type in batches of 5
+BUNDLE_CONFIG = "Configurations/flagship_test.yml"
+BUNDLE_STEPS, TESTUM_PER_TYPE = 4, 2
+
+
+def bundle_config(tmp) -> tuple:
+    """A copy of ``BUNDLE_CONFIG`` in ``tmp``: bf16, the bundle in
+    ``tmp/models``, results in ``tmp/results``, and its test set a SpeckleMed
+    dataset of numpy phantoms written in ``tmp/data``. Returns (path, options)."""
+    with open(BUNDLE_CONFIG) as f:
+        opt = yaml.safe_load(f)
+    opt["models"]["DriftNoise"]["dtype"] = "bfloat16"
+    opt["test"].update(pth_dir=os.path.join(tmp, "models"),
+                       result_dir=os.path.join(tmp, "results"))
+    ds = opt["datasets"]["test"]
+    ds["dataset_file"] = write_speckle_med(os.path.join(tmp, "data"), TESTUM_PER_TYPE,
+                                           opt["resolution"], ds["emb_dim"],
+                                           opt["artifact_type"])
+    ds["max_dataset_size"] = TESTUM_PER_TYPE * len(opt["artifact_type"])
+    path = os.path.join(tmp, os.path.basename(BUNDLE_CONFIG))
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path, opt
+
+
+def serve_golden(gpu) -> None:
+    """The golden (``GOLDEN_DIR``): its bundle rebuilt from the seed with the
+    port's codec, checked file by file against the sha256 of the files JAX
+    wrote, then served on the card through ``Restorer.from_config`` in fp32
+    with cuDNN deterministic and the golden's noise, and held to JAX's output
+    within ``TOL[fp32]``. Its launches are held to its own per-step counts
+    here and kept out of the kernels line: its config is not a main path's."""
+    io, shas = load_golden()
+    cfg = os.path.join(GOLDEN_DIR, "config.yml")
+    opt = load_options(cfg)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_golden_") as models:
+        # a CPU engine of the golden's config gives the trees' paths and shapes
+        template = create_model(None, opt["models"]["DriftNoise"], phase="test", device="cpu")
+        files = write_golden_bundle(template, models)
+        if files != shas["files"]:
+            raise AssertionError(f"golden bundle rebuilt by the port: sha256 {files}, JAX "
+                                 f"wrote {shas['files']}")
+        torch.backends.cudnn.deterministic = True
+        try:
+            r = Restorer.from_config(cfg, pth_dir=models, iteration=shas["iteration"],
+                                     device="cuda")
+            noise = torch.tensor(io["step_noise"], device="cuda")
+            zero_launches()
+            out = r.engine.test(io, sample_steps=GOLDEN_STEPS,
+                                init_noise=torch.tensor(io["init_noise"], device="cuda"),
+                                step_noise=list(noise))
+            torch.cuda.synchronize()
+            got = read_launches()
+        finally:
+            torch.backends.cudnn.deterministic = False
+    want = torch.tensor(io["output"])
+    out = out.float().cpu()
+    err = (out - want).abs().max().item()
+    limit = TOL[torch.float32] * max(1.0, want.abs().max().item())
+    per_step = {k: r.engine.last_graph.launches[NAMES[k]] for k in WRAPPERS}
+    expect = {k: n * (len(noise) + 1) for k, n in per_step.items()}
+    if not (err <= limit and torch.isfinite(out).all()) or got != expect or not all(
+            got[k] for k in ("conv", "flash", "affine")):
+        raise AssertionError(f"golden on the card: max abs err {err} (limit {limit}), "
+                             f"launches {got} (want {expect})")
+    emit({"phase": "bundle", "what": "the golden (tests/data_torch/tiny_bundle), rebuilt by "
+                                     "the port and served through from_config, fp32, against "
+                                     "JAX's output", "files_match_jax_sha256": True,
+          "max_abs_err_vs_jax": err, "tol": limit, "launches": got, "gpu": gpu})
+    del r
+
+
+def bundle_phase(gpu) -> Counter:
+    """This slice's path at flagship width: a seeded engine of a bf16 copy of
+    ``BUNDLE_CONFIG``, ``engine.save``d (bundle and text sidecar) into a
+    temporary directory; ``Restorer.from_config`` on it; one 8-image request
+    of ``BUNDLE_STEPS`` steps on the compiled sampler, bit-identical to the
+    in-memory engine's on the same generator seed; the golden; then
+    ``tools/testUM`` over the config's test set (2 phantoms per artifact
+    type, batch 5). Launches are counted from 0 around each run and held to
+    the per-step counts. Returns the launches of the flagship-width runs
+    (the request and testUM)."""
+    total = Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as tmp:
+        cfg, opt = bundle_config(tmp)
+        model_opt, sde_opt = opt["models"]["DriftNoise"], opt["sdes"]["driftSDE"]
+        res, types = opt["resolution"], opt["artifact_type"]
+        eng = create_model(None, model_opt, phase="test", sde=create_sde(sde_opt), device="cuda")
+        for i, key in enumerate(("drift", "noise", "d_ema", "n_ema")):
+            randomize_(eng.nets[key], seed=40 + i)
+        randomize_(eng.text_encoder, seed=44)
+        t0 = time.time()
+        nbytes = eng.save(opt["test"]["pth_dir"], "latest")
+        save_s = time.time() - t0
+        files = sorted(os.listdir(opt["test"]["pth_dir"]))
+        images = np.random.default_rng(4).uniform(-1, 1, (BATCH, res, res, 1)).astype(np.float32)
+        names = [types[i % len(types)] for i in range(BATCH)]
+        want = Restorer(eng, batch_size=BATCH, sample_steps=BUNDLE_STEPS, seed=0,
+                        device="cuda").restore(images, names)
+        del eng
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r = Restorer.from_config(cfg, batch_size=BATCH, sample_steps=BUNDLE_STEPS, seed=0,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        n_steps = len(strided_sampling_grid(sde_opt["T"], BUNDLE_STEPS)[0])
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = r.restore(images, names)
+        first_s = time.time() - t0
+        got = read_launches()
+        per_step = {k: r.engine.last_graph.launches[NAMES[k]] for k in PATHS["drift"]}
+        if per_step != PATHS["drift"] or got != {k: n * (n_steps + 1)  # its warm-up step
+                                                 for k, n in PATHS["drift"].items()}:
+            raise AssertionError(f"bundle request: launches {got}, per step at capture "
+                                 f"{per_step} (want {PATHS['drift']} x {n_steps + 1})")
+        total.update(got)
+        if not np.array_equal(out, want):
+            raise AssertionError("the request served from the bundle differs from the "
+                                 "in-memory engine's: max abs diff "
+                                 f"{float(np.abs(out - want).max())}")
+        emit({"phase": "bundle", "what": f"{os.path.basename(BUNDLE_CONFIG)} (bf16) saved by "
+                                         "engine.save and served by Restorer.from_config",
+              "files": files, "bundle_bytes": nbytes, "save_s": round(save_s, 3),
+              "from_config_s": round(load_s, 3), "text_weights": r.engine.text_weights,
+              "first_request": {"images": BATCH, "res": res, "sampler_steps": n_steps,
+                                "seconds": round(first_s, 4),
+                                "img_per_s": round(BATCH / first_s, 4), "captured": True},
+              "bit_identical_to_in_memory_engine": True, "launches": got, "gpu": gpu})
+        del r
+        torch.cuda.empty_cache()
+
+        serve_golden(gpu)
+
+        batch_s = []  # each batch's sampler seconds, the device drained
+        real_test = CLIPDriftEngine.test
+
+        def timed_test(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = real_test(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            batch_s.append(time.time() - t)
+            return out
+
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with mock.patch.object(CLIPDriftEngine, "test", timed_test):
+            results = testUM.main(["-opt", cfg, "--sample-steps", str(BUNDLE_STEPS)])
+        wall_s = time.time() - t0
+        got = read_launches()
+        n_img = sum(v["num"] for v in results.values())
+        batches = -(-n_img // opt["test"]["batch_size"])
+        if got != {k: n * (n_steps * batches + 1) for k, n in PATHS["drift"].items()}:
+            raise AssertionError(f"testUM: launches {got} over {batches} batches")
+        total.update(got)
+        means = {name: {k: float(np.mean(v[k])) for k in ("RMSE", "SSIM", "PSNR")}
+                 for name, v in results.items() if v["num"]}
+        if sorted(means) != sorted(types) or not all(
+                np.isfinite(list(m.values())).all() for m in means.values()):
+            raise AssertionError(f"testUM: bad results {means}")
+        if len(batch_s) != batches:
+            raise AssertionError(f"testUM: {len(batch_s)} sampler calls, {batches} batches")
+        emit({"phase": "bundle", "what": "testUM on the bundle: SpeckleMed phantoms, 2 per "
+                                         f"artifact type, batch {opt['test']['batch_size']}, "
+                                         f"{res} px, {n_steps} steps, bf16; a smoke reading, "
+                                         "not a throughput: the first batch captures the step",
+              "images": n_img, "per_type_mean": means, "seconds_with_setup": round(wall_s, 3),
+              "batch_sampler_s": [round(t, 4) for t in batch_s],
+              "replayed_batch_img_per_s": [round(opt["test"]["batch_size"] / t, 4)
+                                           for t in batch_s[1:]],
+              "launches": got, "gpu": gpu})
+    return total
+
+
 def sweep_conv(gpu) -> None:
     """Time the bf16 conv kernel at each flagship launch shape (batch 8) under
     every tile / N-block choice its plan picks from, beside cuDNN's conv on
@@ -1029,7 +1342,10 @@ def main() -> int:
     del eng32, got, want
     torch.cuda.empty_cache()
 
-    # 5. every kernel of every path, per UNet forward at that path's own
+    # 5. config -> bundle -> compiled sampler -> metrics, and the golden
+    launches.update(bundle_phase(gpu))
+
+    # 6. every kernel of every path, per UNet forward at that path's own
     # launch shapes; the kernels line takes the first path that launches it
     entries = {}
     for path, per_step in PATHS.items():

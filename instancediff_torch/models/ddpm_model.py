@@ -1,6 +1,6 @@
 """The sampling half of ``CLIPDDPMEngine``, the conditional-DDPM baseline
-(port of ``instancediff_tpu/models/ddpm_model.py``: ``build_sample_fn`` and
-``test``).
+(port of ``instancediff_tpu/models/ddpm_model.py``: ``build_sample_fn``,
+``test``, ``load``, ``save`` and the factory ``create_CLIPDDPMModel``).
 
 One noise net, the single-score-map UNet (``if_MultiScoreMap=False``), raw
 and EMA weights under the JAX engine's ``state`` keys ``noise`` / ``n_ema``.
@@ -11,13 +11,16 @@ GroupNorm + SiLU kernel."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..sde.ddpm_sde import DDPMSDE
-from .engine import ARTIFACT_PROMPTS, SamplingEngine
+from ..utils import checkpoint as ckpt
+from ..utils.convert import flax_params, load_flax_params
+from .engine import ARTIFACT_PROMPTS, SamplingEngine, factory_kwargs
 
 NET_KEYS = ("noise", "n_ema")
 
@@ -30,8 +33,8 @@ class CLIPDDPMEngine(SamplingEngine):
     ``engine_opts`` knob is accepted and changes nothing (see
     ``engine.SamplingEngine``). As in the JAX sampler, the net gets no degradation
     token at sampling time, even with ``use_degra_context``.
-    Parameters start at PyTorch's default init; load trained or reference
-    weights with ``utils.convert.load_engine``."""
+    Parameters start at PyTorch's default init; load a bundle with ``load``
+    or a JAX engine's weights with ``utils.convert.load_engine``."""
 
     def __init__(self, net_settings: Dict, use_image_context: bool = True,
                  use_degra_context: bool = False, CLIP_Type: str = "CLIP",
@@ -40,11 +43,11 @@ class CLIPDDPMEngine(SamplingEngine):
                  sde: Optional[DDPMSDE] = None, dtype: torch.dtype = torch.float32,
                  tokenizer_vocab_path: Optional[str] = None,
                  tiny_text_encoder: bool = False, engine_opts: Optional[Dict] = None,
-                 device="cuda"):
+                 text_encoder_pretrain_path: Optional[str] = None, device="cuda"):
         settings = dict(net_settings)
         super().__init__(settings.get("context_dim", 512), CLIP_Type, artifact_prompts,
                          type_map_ind, engine_opts, dtype, tokenizer_vocab_path,
-                         tiny_text_encoder, device)
+                         tiny_text_encoder, device, text_encoder_pretrain_path)
         self.use_image_context = use_image_context
         self.sde = sde
         self.nets = nn.ModuleDict({k: self._build_unet(
@@ -52,6 +55,42 @@ class CLIPDDPMEngine(SamplingEngine):
             score_map_ngf=settings.get("score_map_ngf", 64),
             use_image_context=use_image_context, use_degra_context=use_degra_context,
             use_fused_gnconv=False) for k in NET_KEYS})
+
+    def _load_nets(self, models_dir: str, iteration, load_ema: bool) -> None:
+        """The JAX engine's ``load``: ``{iter}_NN`` (and ``{iter}_NP``, else the
+        net keeps its prompts), then ``lastest_NN_ema`` (and its prompts, else
+        the online net's prompts from before this load), or a copy of the
+        online net without it."""
+        np_t = ckpt.split_smm(flax_params(self.nets["noise"]))[1]
+
+        def read(path, prompt_path):
+            net = ckpt.load_pytree(path)
+            prompts = (ckpt.load_pytree(prompt_path) if np_t and os.path.isfile(prompt_path)
+                       else np_t)
+            return ckpt.merge_smm(net, prompts)
+
+        load_flax_params(self.nets["noise"], read(f"{models_dir}/{iteration}_NN.ckpt",
+                                                  f"{models_dir}/{iteration}_NP.ckpt"))
+        if not load_ema:
+            return
+        ema_path = f"{models_dir}/lastest_NN_ema.ckpt"
+        if os.path.isfile(ema_path):
+            load_flax_params(self.nets["n_ema"],
+                             read(ema_path, f"{models_dir}/lastest_NP_ema.ckpt"))
+        else:
+            self.nets["n_ema"].load_state_dict(self.nets["noise"].state_dict())
+
+    def _save_nets(self, models_dir: str, iteration) -> int:
+        """``{iter}_NN`` (``{iter}_NP``) and ``lastest_NN_ema`` (``lastest_NP_ema``)."""
+        n = 0
+        for key, net_name, prompt_name in (
+                ("noise", f"{iteration}_NN", f"{iteration}_NP"),
+                ("n_ema", "lastest_NN_ema", "lastest_NP_ema")):
+            net, prompts = ckpt.split_smm(flax_params(self.nets[key]))
+            n += ckpt.save_pytree(net, f"{models_dir}/{net_name}.ckpt")
+            if prompts:
+                n += ckpt.save_pytree(prompts, f"{models_dir}/{prompt_name}.ckpt")
+        return n
 
     def _step_nets(self, use_ema: bool):
         return (self.nets["n_ema" if use_ema else "noise"],)
@@ -76,3 +115,12 @@ class CLIPDDPMEngine(SamplingEngine):
             return net(x, mu, t_b, type_idx, inputs["text"], img_ctx)[0]
 
         return predict
+
+
+def create_CLIPDDPMModel(train_opt, model_opt, phase="train", **kwargs) -> CLIPDDPMEngine:
+    """The engine of a ``models.DDPM`` option block, read with the JAX
+    factory's defaults (``create_CLIPDDPMModel`` in
+    ``instancediff_tpu/models/ddpm_model.py``); see
+    ``drift_model.create_CLIPDriftModel``."""
+    return CLIPDDPMEngine(net_settings=dict(model_opt["net_settings"]),
+                          **factory_kwargs(model_opt, kwargs))

@@ -1,5 +1,6 @@
 """The sampling half of ``CLIPDriftEngine`` (port of
-``instancediff_tpu/models/drift_model.py``: ``build_sample_fn`` and ``test``).
+``instancediff_tpu/models/drift_model.py``: ``build_sample_fn``, ``test``,
+``load``, ``save`` and the factory ``create_CLIPDriftModel``).
 
 The engine owns the frozen CLIP text tower, the prompt ids and the dual UNets
 (drift and noise net, raw and EMA weights, as the JAX engine's ``state``
@@ -17,7 +18,9 @@ import torch
 import torch.nn as nn
 
 from ..sde.drift_sde import DriftSDE
-from .engine import ARTIFACT_PROMPTS, SamplingEngine
+from ..utils import checkpoint as ckpt
+from ..utils.convert import flax_params, load_flax_params
+from .engine import ARTIFACT_PROMPTS, SamplingEngine, factory_kwargs
 
 OPTIMIZE_TYPES = ("inputRes", "predict_noise", "", "predict_std_noise_scale_drift",
                   "predict_x0")
@@ -34,8 +37,8 @@ class CLIPDriftEngine(SamplingEngine):
     other knobs. With ``use_degra_context`` the context gains a second token,
     the prompt's text encoding without learnable context, and the ResBlocks
     run the unfused body with full cross-attention.
-    Parameters start at PyTorch's default init; load trained or reference
-    weights with ``utils.convert.load_engine``."""
+    Parameters start at PyTorch's default init; load a bundle with ``load``
+    or a JAX engine's weights with ``utils.convert.load_engine``."""
 
     def __init__(self, dnet_settings: Dict, nnet_settings: Dict,
                  optimize_type: str = "inputRes", optimize_target: str = "std",
@@ -47,10 +50,11 @@ class CLIPDriftEngine(SamplingEngine):
                  sde: Optional[DriftSDE] = None, dtype: torch.dtype = torch.float32,
                  tokenizer_vocab_path: Optional[str] = None,
                  tiny_text_encoder: bool = False, engine_opts: Optional[Dict] = None,
-                 device="cuda"):
+                 text_encoder_pretrain_path: Optional[str] = None, device="cuda"):
         super().__init__(dict(dnet_settings).get("context_dim", 512), CLIP_Type,
                          artifact_prompts, type_map_ind, engine_opts, dtype,
-                         tokenizer_vocab_path, tiny_text_encoder, device)
+                         tokenizer_vocab_path, tiny_text_encoder, device,
+                         text_encoder_pretrain_path)
         if optimize_type not in OPTIMIZE_TYPES:
             raise ValueError(f"optimize_type {optimize_type!r} cannot be sampled; "
                              f"choose from {OPTIMIZE_TYPES}")
@@ -73,6 +77,33 @@ class CLIPDriftEngine(SamplingEngine):
         settings = {"drift": dnet_settings, "noise": nnet_settings,
                     "d_ema": dnet_settings, "n_ema": nnet_settings}
         self.nets = nn.ModuleDict({k: build_unet(settings[k]) for k in NET_KEYS})
+
+    def _load_nets(self, models_dir: str, iteration, load_ema: bool) -> None:
+        """The JAX engine's ``load``: the iteration's nets; an absent prompt
+        file keeps the net's current prompts; the EMA shadows, or copies of
+        the online nets when an EMA file is absent."""
+        def fill(key, net_tree, prompts):
+            if prompts is None:
+                prompts = ckpt.split_smm(flax_params(self.nets[key]))[1]
+            load_flax_params(self.nets[key], ckpt.merge_smm(net_tree, prompts))
+
+        dn, dp, nn_, np_ = ckpt.load_bundle(models_dir, iteration)
+        fill("drift", dn, dp)
+        fill("noise", nn_, np_)
+        if not load_ema:
+            return
+        try:
+            edn, edp, enn, enp = ckpt.load_bundle(models_dir, iteration, use_ema=True)
+        except FileNotFoundError:
+            self.nets["d_ema"].load_state_dict(self.nets["drift"].state_dict())
+            self.nets["n_ema"].load_state_dict(self.nets["noise"].state_dict())
+            return
+        fill("d_ema", edn, edp)
+        fill("n_ema", enn, enp)
+
+    def _save_nets(self, models_dir: str, iteration) -> int:
+        return ckpt.save_bundle(models_dir, iteration,
+                                *(flax_params(self.nets[k]) for k in NET_KEYS))
 
     def _net_inputs(self, x, mu):
         """(x_a, x_b) of the drift net and of the noise net."""
@@ -127,3 +158,22 @@ class CLIPDriftEngine(SamplingEngine):
             return self._to_drift_eps(x, row, pd, pn)
 
         return predict
+
+
+def create_CLIPDriftModel(train_opt, model_opt, phase="train", **kwargs) -> CLIPDriftEngine:
+    """The engine of a ``models.DriftNoise`` option block, read with the JAX
+    factory's defaults (``create_CLIPDriftModel`` in
+    ``instancediff_tpu/models/drift_model.py``); ``kwargs`` (``device``,
+    ``sde``, ``type_map_ind``, ...) go to the engine, see
+    ``engine.factory_kwargs``. ``train_opt`` and ``phase`` are accepted for
+    the JAX signature."""
+    kwargs.setdefault("type_map_ind", model_opt.get("type_map_ind"))
+    return CLIPDriftEngine(
+        dnet_settings=dict(model_opt["dnet_settings"]),
+        nnet_settings=dict(model_opt["nnet_settings"]),
+        optimize_type=model_opt.get("optimize_type", "inputRes"),
+        optimize_target=model_opt.get("optimize_target", "std"),
+        if_MultiScoreMap=model_opt.get("if_MultiScoreMap", True),
+        score_map_ch_mult=tuple(model_opt.get("score_map_ch_mult", (1, 1, 2, 4))),
+        score_map_ngf=model_opt.get("score_map_ngf", 64),
+        **factory_kwargs(model_opt, kwargs))

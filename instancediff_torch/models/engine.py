@@ -1,7 +1,15 @@
 """What the sampling engines share (``drift_model.CLIPDriftEngine`` and
 ``ddpm_model.CLIPDDPMEngine``): the device, the engine knobs, the
-artifact-type map, the frozen CLIP text tower with the prompts' token ids,
-and the sampler call ``test`` with its compiled form.
+artifact-type map, the frozen CLIP text tower with the prompts' token ids
+and its weights, and the sampler call ``test`` with its compiled form.
+
+A weight bundle (``utils/checkpoint.py``) holds the nets but not the frozen
+text tower: the JAX engines draw it from their seed, or read a torch CLIP
+checkpoint (``text_encoder_pretrain_path``). The port reads the same
+checkpoint, or the tower's weights from a sidecar ``text_params.ckpt`` beside
+the bundle, which ``tools/export_text_params.py`` writes with JAX; it refuses
+to load a bundle with neither, since its own random tower is not the one the
+nets were trained with.
 
 The compiled sampler is the port's ``jax.jit`` of the JAX engines' ``lax.scan``
 (``instancediff_tpu/models/drift_model.py:794-804``): on CUDA, ``test``
@@ -16,6 +24,7 @@ they have been updated in place since its capture."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -27,8 +36,10 @@ from ..ops.fused_gn_conv import fused_gn_silu_conv3x3, gn_channel_affine, packed
 from ..ops.group_norm_silu import group_norm_silu
 from ..sde.schedules import strided_sampling_grid
 from ..sde.stepping import SamplerState, run_steps
+from ..utils.checkpoint import load_pytree, save_pytree
+from ..utils.convert import flax_params, load_flax_params
 from .layers import cast_compute_
-from .text_encoder import build_text_encoder
+from .text_encoder import build_text_encoder, load_torch_clip_text_weights
 from .tokenizer import ClipBPETokenizer
 from .unet import LearnableForwardUNetMultiScoreMap
 
@@ -53,6 +64,42 @@ ENGINE_KNOBS = frozenset(
 KERNELS = {"fused_gn_silu_conv3x3": fused_gn_silu_conv3x3,
            "gn_channel_affine": gn_channel_affine, "group_norm_silu": group_norm_silu,
            "flash_attention": flash_attention}
+
+
+# the frozen text tower's weights beside a bundle, and the script that
+# writes them from a JAX engine
+TEXT_SIDECAR = "text_params.ckpt"
+EXPORT_TOOL = "tools/export_text_params.py"
+
+
+def resolve_dtype(name) -> torch.dtype:
+    """A ``models.<name>.dtype`` option as the compute dtype."""
+    if name is None or name in ("float32", "fp32"):
+        return torch.float32
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"unsupported models.<name>.dtype {name!r}")
+
+
+def factory_kwargs(model_opt: Dict, kwargs: Dict) -> Dict:
+    """The engine arguments a ``create_*`` factory takes from its option block
+    and keyword arguments, shared by both engines. The block's training keys
+    (learning rates, losses, ``packed_train``, ...) are not read: the port
+    samples only. ``image_size`` and ``seed`` shape the JAX engines' random
+    init, which a bundle replaces, and are dropped."""
+    if model_opt.get("degrade_on_device"):
+        raise NotImplementedError(
+            "degrade_on_device synthesises the degraded input on the device "
+            "(ops/degradations.py), which comes with the training port")
+    kw = {k: v for k, v in kwargs.items() if k not in ("image_size", "seed")}
+    return dict(
+        use_image_context=model_opt.get("use_image_context", True),
+        use_degra_context=model_opt.get("use_degra_context", False),
+        CLIP_Type=model_opt.get("CLIP_Type", "CLIP"),
+        text_encoder_pretrain_path=model_opt.get("text_encoder_pretrain_path"),
+        tiny_text_encoder=bool(model_opt.get("tiny_text_encoder")),
+        tokenizer_vocab_path=model_opt.get("tokenizer_vocab_path"),
+        engine_opts=model_opt.get("engine"), dtype=resolve_dtype(model_opt.get("dtype")), **kw)
 
 
 def kernel_launches(counter: str = "launches") -> Dict[str, int]:
@@ -135,7 +182,7 @@ class SamplingEngine:
     def __init__(self, context_dim: int, CLIP_Type: str, artifact_prompts: Sequence[str],
                  type_map_ind: Optional[Dict[str, int]], engine_opts: Optional[Dict],
                  dtype: torch.dtype, tokenizer_vocab_path: Optional[str],
-                 tiny_text_encoder: bool, device):
+                 tiny_text_encoder: bool, device, text_encoder_pretrain_path=None):
         self.device = resolve_device(device)
         if CLIP_Type != "CLIP":
             raise NotImplementedError(f"CLIP_Type {CLIP_Type!r} is not ported "
@@ -154,6 +201,13 @@ class SamplingEngine:
                                vocab_size=text.vocab_size)
         self.prompt_ids = torch.from_numpy(tok(list(artifact_prompts))).to(self.device)
         self.text_encoder = cast_compute_(text.to(self.device), dtype).eval()
+        # where the tower's weights come from: "pretrained" (a torch CLIP
+        # checkpoint, as the JAX engines read it when the file exists),
+        # "sidecar" (a bundle's text_params.ckpt) or None (the random init)
+        self.text_weights = None
+        if text_encoder_pretrain_path and os.path.isfile(str(text_encoder_pretrain_path)):
+            load_torch_clip_text_weights(self.text_encoder, str(text_encoder_pretrain_path))
+            self.text_weights = "pretrained"
         # the compiled sampler: graphs by ``graph_key``, captures so far, the
         # graph the last compiled call replayed, and (made at the first
         # capture) the one memory pool all of the engine's graphs share and
@@ -163,6 +217,39 @@ class SamplingEngine:
         self.last_graph: Optional[CompiledStep] = None
         self._pool = None
         self._stream = None
+
+    # ------------------------------------------------------------ bundles
+    # An engine provides ``_load_nets(models_dir, iteration, load_ema)`` and
+    # ``_save_nets(models_dir, iteration)`` for its nets' files.
+
+    def load(self, models_dir: str, iteration, use_ema: bool = False,
+             load_ema: bool = True) -> None:
+        """Fill the nets from the bundle ``iteration`` in ``models_dir`` (the
+        JAX engines' ``load``: ``use_ema`` is accepted and, as there, unused;
+        ``load_ema`` reads the EMA shadows too, or copies the online weights
+        where they are absent) and the text tower from the sidecar, when the
+        tower was not loaded from a checkpoint. Parameters are updated in
+        place, so a captured sampler graph is captured anew at its next call."""
+        sidecar = os.path.join(models_dir, TEXT_SIDECAR)
+        if not os.path.isfile(sidecar) and self.text_weights != "pretrained":
+            raise FileNotFoundError(
+                f"{sidecar} is missing and the frozen text tower was not loaded from "
+                "text_encoder_pretrain_path: the bundle holds no text tower, and this "
+                "engine's random one is not the tower its nets were trained with. Write "
+                f"the sidecar with JAX: python {EXPORT_TOOL} -opt <config> --models-dir "
+                f"{models_dir} (with the training seed)")
+        self._load_nets(models_dir, iteration, load_ema)
+        if os.path.isfile(sidecar):
+            load_flax_params(self.text_encoder, load_pytree(sidecar))
+            self.text_weights = "sidecar"
+
+    def save(self, models_dir: str, iteration) -> int:
+        """Write the nets as the JAX engines' ``save`` does (flax layout, the
+        same file names) and the text tower's sidecar; returns the bytes
+        written."""
+        return (self._save_nets(models_dir, iteration)
+                + save_pytree(flax_params(self.text_encoder),
+                              os.path.join(models_dir, TEXT_SIDECAR)))
 
     def _build_unet(self, settings: Dict, **kw) -> LearnableForwardUNetMultiScoreMap:
         """One UNet from a ``net_settings`` block, in the compute dtype on the

@@ -1,5 +1,5 @@
-"""Serving API: load once, restore many (port of ``Restorer.__init__`` and
-``Restorer.restore`` in ``instancediff_tpu/serving.py``).
+"""Serving API: load once, restore many (port of ``Restorer`` in
+``instancediff_tpu/serving.py``).
 
 A ``Restorer`` holds an engine and a fixed batch size; ragged requests are
 padded to that batch (edge mode) and chunked, so every sampler call sees one
@@ -9,7 +9,8 @@ from one seeded ``torch.Generator`` on the device, which advances from chunk
 to chunk.
 
 Usage:
-    r = Restorer(engine, batch_size=8, sample_steps=4, seed=0)
+    r = Restorer.from_config("Configurations/flagship_test.yml",
+                             pth_dir="experiments/flagship_224/models")
     restored = r.restore(images, ["speckle in OCT", ...])   # [N,H,W,1] in [-1,1]
 """
 
@@ -21,6 +22,33 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+
+
+def engine_from_config(opt, device="cuda", pth_dir: Optional[str] = None, iteration="latest",
+                       use_ema: bool = True):
+    """The sampling engine of parsed options ``opt`` (``train.which_model``,
+    ``train.which_sde``; the top-level ``type_map_ind`` when the model block
+    has none), with the bundle ``iteration`` of ``pth_dir`` (none: the
+    engine's initial weights) loaded through ``engine.load``.
+    ``test.on_device_emb`` (the on-device image tower) is not ported and
+    raises."""
+    from .models import create_model
+    from .sde import create_sde
+
+    if (opt.get("test") or {}).get("on_device_emb"):
+        raise NotImplementedError(
+            "test.on_device_emb needs the CLIP image tower (models/clip_vit.py), not "
+            "ported yet (ROADMAP queue 1 item 5); without it a use_image_context "
+            "model would be served zero embeddings it never saw")
+    train_opt = opt.get("train") or {}
+    model_opt = opt["models"][train_opt.get("which_model") or "DriftNoise"]
+    if opt.get("type_map_ind") and not model_opt.get("type_map_ind"):
+        model_opt["type_map_ind"] = opt["type_map_ind"]
+    sde = create_sde(opt["sdes"][train_opt.get("which_sde") or "driftSDE"])
+    engine = create_model(None, model_opt, phase="test", sde=sde, device=device)
+    if pth_dir:
+        engine.load(pth_dir, iteration, use_ema=use_ema)
+    return engine
 
 
 class Restorer:
@@ -38,6 +66,31 @@ class Restorer:
         self.eta = eta
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.type_map = engine.type_map
+
+    @classmethod
+    def from_config(cls, opt_path: str, pth_dir: Optional[str] = None, iteration="latest",
+                    use_ema: bool = True, batch_size: int = 8,
+                    sample_steps: Optional[int] = None, device="cuda", seed: int = 0,
+                    eta: Optional[float] = None, spatial: int = 0) -> "Restorer":
+        """A Restorer for the model a YAML config names
+        (``engine_from_config``), with the bundle ``iteration`` of ``pth_dir``
+        (default ``test.pth_dir``). ``device`` takes the place of the JAX
+        version's ``platform``. ``spatial > 1`` (H-sharding over several
+        devices) is not ported and raises."""
+        from .config import load_options
+
+        if spatial and spatial > 1:
+            raise NotImplementedError("spatial > 1 shards H over several devices; the "
+                                      "port serves on one card")
+        opt = load_options(opt_path)
+        engine = engine_from_config(opt, device=device,
+                                    pth_dir=pth_dir or (opt.get("test") or {}).get("pth_dir"),
+                                    iteration=iteration, use_ema=use_ema)
+        r = cls(engine, batch_size=batch_size, use_ema=use_ema, sample_steps=sample_steps,
+                seed=seed, eta=eta, device=device)
+        if opt.get("type_map_ind"):
+            r.type_map = dict(opt["type_map_ind"])
+        return r
 
     def restore(self, images, artifact_types: Sequence[str],
                 emb: Optional[np.ndarray] = None) -> np.ndarray:

@@ -1,1 +1,1 @@
-"""Parameter conversion from the JAX package's trees."""
+"""Host utilities: weight bundles and their msgpack codec, parameter conversion, metrics and image output."""

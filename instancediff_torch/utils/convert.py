@@ -1,4 +1,5 @@
-"""Convert the JAX package's parameter trees into the port's state dicts.
+"""Convert the JAX package's parameter trees into the port's modules
+(``load_flax_params``) and back (``flax_params``).
 
 The trees are nested dicts of numpy arrays, as ``engine.state["d_ema"]``,
 ``engine.state["n_ema"]`` and ``engine.text_params`` hold them (an optional
@@ -40,25 +41,40 @@ def _flatten(tree, prefix=()) -> Dict[tuple, np.ndarray]:
         if hasattr(v, "items"):
             out.update(_flatten(v, prefix + (str(k),)))
         else:
-            out[prefix + (str(k),)] = np.asarray(v)
+            out[prefix + (str(k),)] = (v.float().numpy() if isinstance(v, torch.Tensor)
+                                       else np.asarray(v))
     return out
 
 
 def _leaf(owner: nn.Module, pname: str):
-    """(flax leaf name, numpy transform) for parameter ``pname`` of ``owner``."""
+    """(flax leaf name, flax -> torch layout, torch -> flax layout) for
+    parameter ``pname`` of ``owner``; the two transforms are inverses."""
     if pname != "weight":
-        return pname, lambda a: a
+        return pname, _same, _same
     if isinstance(owner, nn.Linear):
-        return "kernel", lambda a: a.T
+        return "kernel", _transpose, _transpose
     if isinstance(owner, nn.ConvTranspose2d):
-        return "kernel", lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)
+        return ("kernel", lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
+                lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1])
     if isinstance(owner, nn.Conv2d):
-        return "kernel", lambda a: a.transpose(3, 2, 0, 1)
+        return "kernel", lambda a: a.transpose(3, 2, 0, 1), lambda w: w.transpose(2, 3, 1, 0)
     if isinstance(owner, ConvParams):
-        return "kernel", lambda a: a
+        return "kernel", _same, _same
     if isinstance(owner, nn.Embedding):
-        return "embedding", lambda a: a
-    return "scale", lambda a: a  # GroupNorm / LayerNorm / FusedGroupNormSiLU
+        return "embedding", _same, _same
+    return "scale", _same, _same  # GroupNorm / LayerNorm / FusedGroupNormSiLU
+
+
+def _same(a):
+    return a
+
+
+def _transpose(a):
+    return a.T
+
+
+def _flax_key(module_path, owner, pname) -> tuple:
+    return tuple(_FLAX_MODULE_NAME.get(p, p) for p in module_path) + (_leaf(owner, pname)[0],)
 
 
 def load_flax_params(module: nn.Module, tree) -> nn.Module:
@@ -73,9 +89,8 @@ def load_flax_params(module: nn.Module, tree) -> nn.Module:
         for name, param in module.named_parameters():
             *mod_path, pname = name.split(".")
             owner = modules[".".join(mod_path)]
-            flax_mod = tuple(_FLAX_MODULE_NAME.get(p, p) for p in mod_path)
-            flax_leaf, transform = _leaf(owner, pname)
-            key = flax_mod + (flax_leaf,)
+            key = _flax_key(mod_path, owner, pname)
+            transform = _leaf(owner, pname)[1]
             if key not in flat:
                 raise KeyError(f"flax tree has no leaf {'/'.join(key)} for "
                                f"parameter {name}")
@@ -90,6 +105,23 @@ def load_flax_params(module: nn.Module, tree) -> nn.Module:
         raise KeyError(f"flax leaves not consumed by {type(module).__name__}: "
                        f"{leftover[:10]}{' ...' if len(leftover) > 10 else ''}")
     return module
+
+
+def flax_params(module: nn.Module) -> Dict:
+    """``module``'s parameters as a flax tree ``{"params": {...}}`` of float32
+    numpy arrays: the inverse of :func:`load_flax_params`."""
+    tree: Dict = {}
+    modules = dict(module.named_modules())
+    for name, param in module.named_parameters():
+        *mod_path, pname = name.split(".")
+        owner = modules[".".join(mod_path)]
+        *parents, leaf = _flax_key(mod_path, owner, pname)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        value = param.detach().float().cpu().numpy()
+        node[leaf] = np.array(_leaf(owner, pname)[2](value), order="C")
+    return {"params": tree}
 
 
 def load_engine(engine, state, text_params):

@@ -8,6 +8,8 @@ sides get the same inputs and, for the sampler, the same noise: JAX's own
 draws are fed to the port. On the CPU the JAX sampler runs the unfused
 graph (no fused conv, no Pallas GroupNorm, no packed level 0)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -17,13 +19,19 @@ import torch
 from instancediff_tpu.models.ddpm_model import CLIPDDPMEngine as JaxDDPMEngine
 from instancediff_tpu.sde.ddpm_sde import DDPMSDE as JaxDDPMSDE
 from instancediff_tpu.sde.schedules import make_cosine_alphas_bar as jax_cosine_abar
+from instancediff_tpu.utils import checkpoint as jax_ckpt
 
+from instancediff_torch.models import create_model
 from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
-from instancediff_torch.sde import DDPMSDE, make_cosine_alphas_bar, strided_sampling_grid
+from instancediff_torch.models.engine import TEXT_SIDECAR
+from instancediff_torch.sde import (DDPMSDE, create_sde, make_cosine_alphas_bar,
+                                    strided_sampling_grid)
 from instancediff_torch.serving import Restorer
-from instancediff_torch.utils.convert import load_engine
+from instancediff_torch.utils import checkpoint as ckpt
+from instancediff_torch.utils.convert import flax_params, load_engine
 
-from test_torch_engine import _jax_noise, randomize
+from test_torch_bundle import _assert_trees_equal, _flat
+from test_torch_engine import _jax_noise, one_torch_thread, randomize  # noqa: F401
 
 RES, B, T = 16, 2, 4
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,
@@ -128,3 +136,98 @@ def test_restorer_serves_the_ddpm_engine(port_engine):
     with pytest.raises(KeyError, match="engine knob"):
         CLIPDDPMEngine(SETTINGS, engine_opts={"no_such_knob": 1}, tiny_text_encoder=True,
                        device="cpu")
+
+
+# ---------------------------------------------------------------- bundles
+
+ITER = 7
+
+
+@pytest.fixture(scope="module")
+def jax_bundle(jax_engine, tmp_path_factory):
+    """JAX's ``save`` of the engine and its text tower's sidecar."""
+    d = str(tmp_path_factory.mktemp("ddpm_bundle"))
+    jax_engine.save(d, ITER)
+    jax_ckpt.save_pytree(jax_engine.text_params, os.path.join(d, TEXT_SIDECAR))
+    return d
+
+
+def _model_opt():
+    return {"module_name": "ddpm_model", "class_name": "CLIPDDPMModel",
+            "net_settings": SETTINGS, "tiny_text_encoder": True,
+            "noise_net_lr": 1e-3, "nepoch": 3}  # training keys: accepted, not read
+
+
+def test_create_model_builds_the_jax_ddpm_net(jax_engine):
+    eng = create_model(None, _model_opt(), phase="test", sde=create_sde(
+        {"class_name": "DDPM", "T": T}), device="cpu")
+    assert isinstance(eng, CLIPDDPMEngine) and isinstance(eng.sde, DDPMSDE)
+    for k in ("noise", "n_ema"):
+        assert ({p: v.shape for p, v in _flat(flax_params(eng.nets[k])).items()}
+                == {p: tuple(v.shape) for p, v in _flat(jax_engine.state[k]).items()})
+    np.testing.assert_array_equal(eng.sde.alphas_bar.numpy(),
+                                  np.asarray(jax_engine.sde.alphas_bar))
+
+
+@pytest.mark.parametrize("use_ema", [True, False], ids=["ema", "online"])
+def test_ddpm_bundle_from_jax_samples_as_in_jax(jax_engine, port_engine, jax_bundle, inputs,
+                                               use_ema):
+    """JAX's bundle loaded by the port: every net's weights equal JAX's, and
+    the sampler gives, bit for bit, what the port engine filled from JAX's
+    state in memory gives on the same noise (the engine the sampler tests
+    above hold within 1e-4 of JAX)."""
+    eng = create_model(None, _model_opt(), sde=DDPMSDE(T=T), device="cpu")
+    eng.load(jax_bundle, ITER)
+    for k in ("noise", "n_ema"):
+        _assert_trees_equal(flax_params(eng.nets[k]), jax_engine.state[k])
+    _assert_trees_equal(flax_params(eng.text_encoder), jax_engine.text_params)
+    batch = {"input": inputs["mu"], "type_idx": inputs["type_idx"], "A_emb": inputs["emb"]}
+    noise = torch.randn(T + 1, *inputs["mu"].shape, generator=torch.Generator().manual_seed(2))
+    got, want = (e.test(batch, use_ema=use_ema, init_noise=noise[0], step_noise=list(noise[1:]))
+                 for e in (eng, port_engine))
+    assert torch.equal(got, want)
+
+
+def test_ddpm_save_writes_jax_bytes(jax_bundle, tmp_path):
+    eng = create_model(None, _model_opt(), sde=DDPMSDE(T=T), device="cpu")
+    eng.load(jax_bundle, ITER)
+    eng.save(str(tmp_path), ITER)
+    assert sorted(os.listdir(tmp_path)) == sorted(os.listdir(jax_bundle))
+    for name in os.listdir(jax_bundle):
+        with open(tmp_path / name, "rb") as f, open(os.path.join(jax_bundle, name), "rb") as g:
+            assert f.read() == g.read(), name
+
+
+def test_ddpm_missing_prompt_and_ema_files_as_in_jax(jax_engine, jax_bundle, tmp_path):
+    """Without ``{iter}_NP`` the net keeps its prompts; without
+    ``lastest_NP_ema`` the EMA net takes the online net's prompts from before
+    the load; without ``lastest_NN_ema`` it is a copy of the online net: as
+    JAX's ``load`` does, checked on both."""
+    eng = create_model(None, _model_opt(), sde=DDPMSDE(T=T), device="cpu")
+    before = flax_params(eng.nets["noise"])
+    d = tmp_path / "no_prompts"
+    d.mkdir()
+    for name in os.listdir(jax_bundle):
+        if name not in (f"{ITER}_NP.ckpt", "lastest_NP_ema.ckpt"):
+            os.symlink(os.path.join(jax_bundle, name), d / name)
+    eng.load(str(d), ITER)
+    for k in ("noise", "n_ema"):
+        net, prompts = ckpt.split_smm(flax_params(eng.nets[k]))
+        _assert_trees_equal(net, ckpt.split_smm(jax_engine.state[k])[0])
+        _assert_trees_equal(prompts, ckpt.split_smm(before)[1])
+    saved, sample_fn = dict(jax_engine.state), jax_engine._sample_fn
+    try:
+        jax_engine.state["noise"] = jax_engine.state["n_ema"]  # a template to keep
+        jax_engine.load(str(d), ITER)
+        for k in ("noise", "n_ema"):
+            _assert_trees_equal(jax.device_get(ckpt.split_smm(jax_engine.state[k])[1]),
+                                ckpt.split_smm(saved["n_ema"])[1])
+        os.remove(d / "lastest_NN_ema.ckpt")
+        eng.load(str(d), ITER)
+        jax_engine.load(str(d), ITER)
+        _assert_trees_equal(flax_params(eng.nets["n_ema"]), flax_params(eng.nets["noise"]))
+        _assert_trees_equal(jax.device_get(jax_engine.state["n_ema"]),
+                            jax.device_get(jax_engine.state["noise"]))
+    finally:
+        jax_engine.state.update(saved)  # the compiled sampler takes the weights as arguments
+        jax_engine._sample_fn = sample_fn

@@ -20,7 +20,8 @@ from instancediff_torch.models.drift_model import CLIPDriftEngine
 from instancediff_torch.sde import DriftSDE, strided_sampling_grid
 from instancediff_torch.utils.convert import load_engine
 
-from test_torch_engine import ENGINE_KW, RES, SETTINGS, T, _jax_noise, randomize
+from test_torch_engine import (ENGINE_KW, RES, SETTINGS, T, _jax_noise,  # noqa: F401
+                               one_torch_thread, randomize, shapes_only_init)
 
 B = 2
 KW = dict(ENGINE_KW, use_degra_context=True)
@@ -28,8 +29,9 @@ KW = dict(ENGINE_KW, use_degra_context=True)
 
 @pytest.fixture(scope="module")
 def engines():
-    jeng = JaxEngine(dnet_settings=SETTINGS, nnet_settings=SETTINGS,
-                     sde=JaxSDE(T=T, max_sigma=0.4), if_train=False, image_size=RES, **KW)
+    with shapes_only_init():
+        jeng = JaxEngine(dnet_settings=SETTINGS, nnet_settings=SETTINGS,
+                         sde=JaxSDE(T=T, max_sigma=0.4), if_train=False, image_size=RES, **KW)
     rng = np.random.default_rng(0)
     for key in ("drift", "noise", "d_ema", "n_ema"):
         jeng.state[key] = randomize(jeng.state[key], rng)

@@ -7,6 +7,8 @@ Every JAX parameter leaf is randomised with numpy before it is converted
 which would hide whole branches), and both sides get the same inputs and,
 for the sampler, the same noise: JAX's own draws are fed to the port."""
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -58,12 +60,46 @@ def randomize(tree, rng):
     return out
 
 
+@contextlib.contextmanager
+def shapes_only_init():
+    """While open, JAX's engines trace their nets' jitted init (``init_net``)
+    for shapes only (``jax.eval_shape``, zeros) instead of compiling it: the
+    tests overwrite every leaf from a numpy seed, and the two compiles cost
+    about 20 s on the CPU. Every other ``jax.jit`` is JAX's own."""
+    real_jit = jax.jit
+
+    def jit(fun, *args, **kwargs):
+        if "init_net" not in getattr(fun, "__qualname__", ""):
+            return real_jit(fun, *args, **kwargs)
+
+        def shapes(*a):
+            return jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), jax.eval_shape(fun, *a))
+        return shapes
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", jit)
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny nets of the port's parity tests run faster on one thread,
+    and much faster when the test workers share the machine's cores (torch's
+    worker threads then wait on each other); restored afterwards. The files
+    that share this module's helpers import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_engine():
     """The tiny JAX engine with every parameter leaf randomised."""
-    eng = JaxEngine(dnet_settings=SETTINGS, nnet_settings=SETTINGS,
-                    sde=JaxSDE(T=T, max_sigma=0.4), if_train=False, image_size=RES,
-                    **ENGINE_KW)
+    with shapes_only_init():
+        eng = JaxEngine(dnet_settings=SETTINGS, nnet_settings=SETTINGS,
+                        sde=JaxSDE(T=T, max_sigma=0.4), if_train=False, image_size=RES,
+                        **ENGINE_KW)
     rng = np.random.default_rng(0)
     for key in ("drift", "noise", "d_ema", "n_ema"):
         eng.state[key] = randomize(eng.state[key], rng)

@@ -439,3 +439,82 @@ def test_compiled_needs_a_cuda_engine(cuda):
                          tiny_text_encoder=True, device="cpu")
     with pytest.raises(ValueError, match="compiled=True captures a CUDA graph"):
         eng.test(_graph_batch(0), compiled=True)
+
+
+# ---------------------------------------------------------------- bundles
+
+
+def _graph_engine_like(path, dtype):
+    """An engine of ``_graph_engine``'s configuration at PyTorch's init."""
+    if path == "ddpm":
+        return CLIPDDPMEngine(GRAPH_NET, sde=DDPMSDE(T=GRAPH_T), dtype=dtype,
+                              tiny_text_encoder=True, device="cuda")
+    return CLIPDriftEngine(GRAPH_NET, GRAPH_NET, score_map_ch_mult=(1, 1), score_map_ngf=8,
+                           sde=DriftSDE(T=GRAPH_T, max_sigma=0.4), dtype=dtype,
+                           tiny_text_encoder=True,
+                           engine_opts={"fused_gnconv": path == "drift"}, device="cuda")
+
+
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_bundle_serves_as_the_engine_it_came_from(cuda, path, tmp_path):
+    """bf16: an engine saved (bundle and text sidecar) and loaded into
+    another engine on the card, after that engine captured its sampler step
+    on its initial weights, answers the same request bit for bit: the load
+    made the next call capture anew."""
+    eng = _graph_engine(path, torch.bfloat16)
+    images = _graph_batch(0)["input"]
+
+    def request(engine):
+        return Restorer(engine, batch_size=GRAPH_B, sample_steps=3, seed=4,
+                        device="cuda").restore(images, "speckle in OCT")
+
+    want = request(eng)
+    eng.save(str(tmp_path), "latest")
+    other = _graph_engine_like(path, torch.bfloat16)
+    stale = request(other)
+    other.load(str(tmp_path), "latest")
+    assert other.text_weights == "sidecar" and other.captures == 1
+    got = request(other)
+    assert other.captures == 2 and not np.array_equal(stale, want)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_from_config_on_cuda(deterministic, tmp_path):
+    """``Restorer.from_config`` serves a saved bundle on the card, on the
+    compiled sampler, as the engine that saved it (fp32, cuDNN held
+    deterministic: bit for bit)."""
+    import yaml
+
+    eng = _graph_engine("drift", torch.float32)
+    models = tmp_path / "models"
+    eng.save(str(models), 3)
+    net = dict(GRAPH_NET, if_MultiScoreMap=True)
+    opt = {"resolution": GRAPH_RES, "train": {"which_model": "DriftNoise",
+                                              "which_sde": "driftSDE"},
+           "test": {"pth_dir": str(models), "iter": 3},
+           "models": {"DriftNoise": {"module_name": "drift_noise_model",
+                                     "class_name": "CLIPDriftModel", "dnet_settings": net,
+                                     "nnet_settings": net, "score_map_ch_mult": [1, 1],
+                                     "score_map_ngf": 8, "tiny_text_encoder": True}},
+           "sdes": {"driftSDE": {"class_name": "driftSDE", "T": GRAPH_T, "max_sigma": 0.4}}}
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(yaml.safe_dump(opt))
+    r = Restorer.from_config(str(cfg), iteration=3, batch_size=GRAPH_B, sample_steps=2, seed=1)
+    assert r.engine.device.type == "cuda" and r.engine.text_weights == "sidecar"
+    images = _graph_batch(1)["input"]
+    got = r.restore(images, "Gaussian noise in MRI")
+    want = Restorer(eng, batch_size=GRAPH_B, sample_steps=2, seed=1, device="cuda").restore(
+        images, "Gaussian noise in MRI")
+    assert r.engine.captures == 1 and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_msgpack_codec_on_a_cuda_bf16_tensor(cuda):
+    from instancediff_torch.utils import msgpack
+
+    t = torch.randn(5, 33, device=cuda).to(torch.bfloat16)
+    data = msgpack.to_bytes({"w": t, "n": 3})
+    assert data == msgpack.to_bytes({"w": t.cpu(), "n": 3})
+    back = msgpack.from_bytes(data)
+    assert back["n"] == 3 and back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"], t.cpu())

@@ -233,7 +233,8 @@ def test_decoder_layer_layernorm_eps_and_tanh_gelu():
 
 def test_port_imports_no_jax():
     """Every module of the package, and chip_smoke as a module, import
-    without pulling in jax, flax or the JAX package."""
+    without pulling in jax, flax, msgpack or the JAX package (the port reads
+    and writes flax msgpack bundles with its own codec)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import instancediff_torch as p\n"
@@ -241,7 +242,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'instancediff_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'instancediff_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([n for n in sys.modules if n.startswith('instancediff_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
