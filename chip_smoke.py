@@ -61,7 +61,8 @@ Phases, one JSON line each, in order:
                 the device (a synchronise before and after each replay),
                 under torch.profiler: per replayed step the device time by
                 kernel class, the device's idle share, the launches of each
-                kernel counted by name against the per-step counts, and the
+                kernel counted by name over the replays against steps x the
+                per-step counts, and the
                 host's kernel and graph launches per step (the call's text
                 encodings counted apart); the SM clock before and after;
   4. parity  -- full-width fp32 sampler calls (batch 2, 2 steps, eta 0)
@@ -92,7 +93,8 @@ Phases, one JSON line each, in order:
   6. per_forward -- every kernel each main path launches, held against its
                 plain version and timed at that path's own launch shapes
                 (bf16, batch 8), summed over one UNet forward (ms and
-                device_ms); then the ``{"kernels": [...]}`` line (each
+                device_ms); then, after phase ``train``, the
+                ``{"kernels": [...]}`` line (each
                 kernel's times from the first path that launches it:
                 fused-conv, flash and gn_channel_affine from drift, GroupNorm
                 from drift_unfused; max_abs_err over every shape),
@@ -107,6 +109,30 @@ Phases, one JSON line each, in order:
                 the replayed kernels by name on the device and holds them to
                 the same per-step counts.
 
+  7. train  -- ``tools/trainUM`` at flagship width (224 px, batch 4) over
+                SpeckleMed phantoms: drift fp32 (``flagship_tpu.yml``, remat
+                on) 12 iterations with checkpoints at 6 and 12 and inline
+                validation at 12, resumed from 6 (no validation or
+                checkpoint before its end) and held equal to the
+                uninterrupted run (nets, EMA, Adam moments), these two runs
+                alone under cuDNN deterministic; its bundle served by
+                ``Restorer.from_config``; the sampler's graph captured anew
+                after one more step and held to the eager loop; then, at
+                PyTorch's defaults, steps timed with remat on and off; drift
+                bf16 and DDPM 4 iterations each, validated inline; one step
+                of each profiled (the idle share against the profiled
+                step's wall and against the unprofiled median); ms per step
+                (median after 2 warm-up steps), img/s, peak memory and the
+                first and last losses; then one drift step at nf 64, ch_mult
+                [1,2], 64 px on the card against the CPU (TF32 off). The
+                train steps launch no kernel; validation and serving launch
+                ``PATHS``' per-step counts, and the phase's launches are
+                printed in its own line, not in the ``kernels`` line (its
+                runs are fp32 or batch 1-2, not the main paths' shapes). A
+                smoke reading, not a rate. It runs after ``per_forward``'s
+                timings (after its profiles of train steps torch.profiler
+                recorded no kernel of the kernel libraries on the card).
+
 Any failure raises and the script exits non-zero; a failed capture too (the
 engines never fall back to the eager loop). Without CUDA it exits 1 before
 doing anything."""
@@ -115,6 +141,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -149,9 +176,10 @@ from instancediff_torch.ops.group_norm_silu import (CLUSTER, SMEM_LIMIT, cluster
 from instancediff_torch.sde import DDPMSDE, DriftSDE, create_sde
 from instancediff_torch.sde.schedules import strided_sampling_grid
 from instancediff_torch.serving import Restorer
-from instancediff_torch.tools import testUM
+from instancediff_torch.tools import testUM, trainUM
 from instancediff_torch.utils import checkpoint as ckpt
-from instancediff_torch.utils.convert import flax_params
+from instancediff_torch.utils.convert import flax_params, load_flax_params
+from instancediff_torch.utils.parity import check_grads, check_params
 
 # H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by operand type
 # (bf16 on the tensor cores; fp32 on the FMA units, which the fp32 kernels use)
@@ -569,8 +597,8 @@ def write_speckle_med(root, n_per_name, res, emb_dim, names, seed=0) -> str:
     image a raw float32 clean disc-and-ramp phantom (B), the phantom under
     multiplicative gamma speckle and additive Gaussian noise (A), both in the
     modality's range (CT to 2400, cryo-EM to 300, else [0, 1]), and an
-    embedding; ``dataset_file.json`` holds the records under test and val.
-    Returns its path."""
+    embedding; ``dataset_file.json`` holds the records under train, test and
+    val. Returns its path."""
     os.makedirs(root, exist_ok=True)
     rng = np.random.default_rng(seed)
     scale = {"scatter artifact in CT": 2400.0, "noise in cryo-EM image": 300.0}
@@ -589,7 +617,7 @@ def write_speckle_med(root, n_per_name, res, emb_dim, names, seed=0) -> str:
         records.append(dict(paths, name=name))
     index = os.path.join(root, "dataset_file.json")
     with open(index, "w") as f:
-        json.dump({"test": records, "val": records}, f)
+        json.dump({"train": records, "test": records, "val": records}, f)
     return index
 
 
@@ -666,8 +694,10 @@ def profile_step(eng, gen, path) -> dict:
     torch.profiler, each replayed step alone on the device: a synchronise
     before the replay, then the replay and a synchronise inside a profiler
     range. Per replayed step: device time by kernel class (the kernels
-    that start inside its range), busy / range wall and the idle share, each
-    kernel's launches by name (checked against ``PATHS``), the top kernels;
+    that start inside its range, widened to the middle of the gaps between
+    replays), busy / range wall and the idle share, the top kernels; over
+    the call, each kernel's launches by name (checked against
+    ``SAMPLE_STEPS`` x ``PATHS``);
     per step of the request loop (the engine's ``sampler_step`` ranges:
     the noise draw and the replay) the host's launch calls, and the same
     for the call's inputs (``sampler_inputs``: the text encodings). The SM
@@ -708,11 +738,25 @@ def profile_step(eng, gen, path) -> dict:
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and e.name not in ("chip_smoke.replayed_step", "sampler_step", "sampler_inputs")]
+    # the kernels each replay launched, held to the per-step counts over the
+    # whole call (the replays are its only custom-kernel launches): exact
+    # however the device's and the host's clocks sit against each other
+    launched = Counter()
+    for evt in kernels:
+        for k, names in LAUNCH_NAMES.items():
+            launched[k] += any(n in evt.name.lower() for n in names)
+    if {k: launched[k] for k in PATHS[path]} != {k: n * SAMPLE_STEPS
+                                                 for k, n in PATHS[path].items()}:
+        raise AssertionError(f"{path}: kernels launched by name in {SAMPLE_STEPS} replayed "
+                             f"steps {dict(launched)}, want {SAMPLE_STEPS} x {PATHS[path]}")
+    # each replay's window on the device's timeline, widened to the middle of
+    # the gaps between replays: the two clocks may sit tens of us apart
+    pad = min([b[0] - a[1] for a, b in zip(windows, windows[1:])] or [0]) / 2
     steps = []
     for ws, we in windows:
-        by_class, by_name, n_name, launched = Counter(), Counter(), Counter(), Counter()
+        by_class, by_name, n_name = Counter(), Counter(), Counter()
         for evt in kernels:
-            if not ws <= evt.time_range.start <= we:
+            if not ws - pad <= evt.time_range.start <= we + pad:
                 continue
             ms = evt.time_range.elapsed_us() / 1e3
             name = evt.name.lower()
@@ -721,15 +765,9 @@ def profile_step(eng, gen, path) -> dict:
             by_class[cls] += ms
             by_name[evt.name[:200]] += ms
             n_name[evt.name[:200]] += 1
-            for k, names in LAUNCH_NAMES.items():
-                launched[k] += any(n in name for n in names)
         busy = sum(by_class.values())
         if busy <= 0:
             raise AssertionError(f"{path}: torch.profiler recorded no kernel in a replayed step")
-        launched = {k: launched[k] for k in PATHS[path]}
-        if launched != PATHS[path]:
-            raise AssertionError(f"{path}: kernels launched by name in a replayed step "
-                                 f"{launched}, want {PATHS[path]}")
         steps.append((busy, (we - ws) / 1e3, by_class, by_name, n_name))
 
     def host_calls(spans):
@@ -1111,6 +1149,364 @@ def bundle_phase(gpu) -> Counter:
     return total
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_CONFIGS = {"drift_fp32": "Configurations/flagship_tpu.yml",
+                 "drift_bf16": "Configurations/flagship_bf16_tpu.yml",
+                 "ddpm": "Configurations/flagship_ddpm_tpu.yml"}
+# the drift fp32 run: 2 epochs of 6 iterations at the configs' batch 4, a
+# checkpoint at 6 (an epoch's end, where a resume re-enters) and 12, inline
+# validation at 12; bf16 and DDPM: one epoch of SHORT_ITERS, validated at its end
+TRAIN_ITERS, TRAIN_SAVE, SHORT_ITERS, TIMED_STEPS = 12, 6, 4, 6
+# the CUDA-vs-CPU gradient check: a narrower drift engine, fp32, the tiny text tower
+GRAD_NET = dict(in_nc=2, out_nc=5, nf=64, ch_mult=[1, 2], num_res_blocks=2, context_dim=512,
+                text_module="scoremap", score_map_chan=16)
+GRAD_RES, GRAD_B = 64, 2
+# gradients per leaf (``parity.check_grads``): GRAD_TOL of the leaf's largest,
+# the score heads' scalar reductions REDUCTION_TOL, a leaf that cancels to
+# roundoff GRAD_FLOOR of the largest other leaf; parameters within GRAD_TOL
+# of each leaf's largest, but for at most ADAM_SHARE of the elements, which
+# may take Adam's allowance (``parity.check_params``)
+GRAD_TOL, GRAD_FLOOR, REDUCTION_TOL, ADAM_SHARE = 1e-4, 1e-5, 2e-3, 1e-5
+
+
+def train_config(tmp, name, index, iters, nepoch, save_freq, val_freq, **extra) -> str:
+    """A copy of ``TRAIN_CONFIGS[name]`` in ``tmp``: its train split the
+    phantoms of ``index`` cut to ``iters`` batches per epoch, its val split
+    one phantom, the experiment under ``tmp`` (``extra``: more ``path``
+    keys), ``nepoch`` epochs and the cadences given."""
+    with open(TRAIN_CONFIGS[name]) as f:
+        opt = yaml.safe_load(f)
+    train_ds, val_ds = opt["datasets"]["train"], opt["datasets"]["val"]
+    train_ds.update(dataset_file=index, max_dataset_size=iters * train_ds["batch_size"])
+    val_ds.update(dataset_file=index, max_dataset_size=1)
+    opt["path"].update(root=tmp, **extra)
+    opt["train"].update(val_freq=val_freq, nepoch=nepoch)
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=save_freq)
+    path = os.path.join(tmp, f"{name}{'_resume' if extra else ''}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """While open, every ``optimize_parameters`` is timed with the device
+    drained before and after, and the kernels it launched counted; yields
+    the list of (ms, loss, launches)."""
+    from instancediff_torch.models.engine import SamplingEngine
+
+    real = SamplingEngine.optimize_parameters
+    rec = []
+
+    def timed(self, *args, **kwargs):
+        before = sum(read_launches().values())
+        torch.cuda.synchronize()
+        t = time.time()
+        loss = real(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec.append(((time.time() - t) * 1e3, loss, sum(read_launches().values()) - before))
+        return loss
+
+    with mock.patch.object(SamplingEngine, "optimize_parameters", timed):
+        yield rec
+
+
+def profile_train_step(eng, data, unprofiled_ms: float) -> dict:
+    """One train step under torch.profiler, alone on the device (a
+    synchronise before and after): its wall, the device time of its kernels
+    by class (``KERNEL_CLASSES``), the idle share against that wall and
+    against ``unprofiled_ms`` (the median step without the profiler), the
+    kernels launched and the host's busiest ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.optimize_parameters(data, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by_class, n = Counter(), 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation",
+                                                                     False):
+            continue
+        name = e.name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
+                   "elementwise_other")
+        by_class[cls] += e.time_range.elapsed_us() / 1e3
+        n += 1
+    busy = sum(by_class.values())
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {"profiled_step_wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy, 3),
+            "idle_share_of_profiled_wall": round(1 - busy / wall_ms, 4),
+            "unprofiled_median_ms": unprofiled_ms,
+            "idle_share_of_unprofiled_median": round(1 - busy / unprofiled_ms, 4),
+            "kernels_launched": n,
+            "device_ms_by_class": {k: round(v, 3) for k, v in by_class.most_common()},
+            "top_host_ops_self_ms_calls": {e.key[:60]: [round(e.self_cpu_time_total / 1e3, 3),
+                                                        e.count] for e in host[:6]}}
+
+
+def run_trainum(cfg):
+    """``tools/trainUM`` on ``cfg`` on the card, its log kept out of stdout
+    (it is in the experiment's directory); returns the engine."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return trainUM.main(["-opt", cfg])
+
+
+def step_summary(rec, batch) -> dict:
+    """Median ms per train step after 2 warm-up steps, img/s, the first and
+    last losses, and the kernels the steps launched (must be 0)."""
+    ms = statistics.median(r[0] for r in rec[2:])
+    return {"steps": len(rec), "ms_per_step": round(ms, 3),
+            "train_img_per_s": round(batch * 1e3 / ms, 3), "loss_first": rec[0][1],
+            "loss_last": rec[-1][1], "kernel_launches_in_train_steps": sum(r[2] for r in rec)}
+
+
+def training_diff(a, b) -> float:
+    """Max abs difference of two engines' nets (online and EMA) and Adam
+    moments and steps."""
+    diff = 0.0
+    for key in a.nets:
+        for p, q in zip(a.nets[key].parameters(), b.nets[key].parameters()):
+            diff = max(diff, (p - q).abs().max().item())
+    for key, opt in a.optimizers.items():
+        for p, q in zip(a.nets[key].parameters(), b.nets[key].parameters()):
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                diff = max(diff, (opt.state[p][k] - b.optimizers[key].state[q][k]).abs()
+                           .max().item())
+    return diff
+
+
+def grad_check(gpu) -> None:
+    """One drift train step at ``GRAD_NET``'s widths, fp32, from one seeded
+    state with injected timesteps and noise, on the card and on the CPU,
+    TF32 off: the loss, every gradient leaf by leaf and the updated
+    parameters (``parity.check_grads`` and ``check_params`` with the
+    tolerances of ``GRAD_TOL``). A gradient a CUDA path dropped or got wrong
+    fails it."""
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    try:
+        rng = np.random.default_rng(50)
+        batch = {"input": rng.uniform(-1, 1, (GRAD_B, GRAD_RES, GRAD_RES, 1)).astype(np.float32),
+                 "target": rng.uniform(-1, 1, (GRAD_B, GRAD_RES, GRAD_RES, 1)).astype(np.float32),
+                 "type_idx": np.array([0, 3]), "A_emb": rng.standard_normal(
+                     (GRAD_B, 1, 512)).astype(np.float32)}
+        t = torch.tensor([3, 71])
+        noise = torch.tensor(rng.standard_normal((GRAD_B, GRAD_RES, GRAD_RES, 1)),
+                             dtype=torch.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng = CLIPDriftEngine(GRAD_NET, GRAD_NET, score_map_ch_mult=(1, 1),
+                                  sde=DriftSDE(T=T, max_sigma=0.4), tiny_text_encoder=True,
+                                  device=dev, if_train=True, image_size=GRAD_RES,
+                                  drift_net_lr=1e-4, noise_net_lr=1e-4)
+            rng_w = np.random.default_rng(51)
+            for key in ("drift", "noise"):
+                load_flax_params(eng.nets[key], seeded_tree(flax_params(eng.nets[key]), rng_w))
+            load_flax_params(eng.text_encoder, seeded_tree(flax_params(eng.text_encoder), rng_w))
+            loss = eng.optimize_parameters(batch, t=t, std_noise=noise)
+            out[dev] = (loss, {k: {n: (p.grad.float().cpu().numpy(), p.detach().cpu().numpy())
+                                   for n, p in eng.nets[k].named_parameters()}
+                               for k in ("drift", "noise")}, eng.lr0)
+            del eng
+        (loss_g, nets_g, lr0), (loss_c, nets_c, _) = out["cuda"], out["cpu"]
+        read = {}
+        for key in nets_c:
+            g_c, p_c = ({n: v[i] for n, v in nets_c[key].items()} for i in (0, 1))
+            g_g, p_g = ({n: v[i] for n, v in nets_g[key].items()} for i in (0, 1))
+            if not all(np.isfinite(g).all() for g in g_g.values()):
+                raise AssertionError(f"train step on the card: a {key} gradient is not finite")
+            what = f"train step on the card vs the CPU: {key} "
+            tols, read[key + "_gradients"] = check_grads(g_g, g_c, GRAD_TOL, GRAD_FLOOR,
+                                                         REDUCTION_TOL, what=what)
+            n = sum(v.size for v in p_c.values())
+            read[key + "_parameters"] = check_params(
+                p_g, p_c, GRAD_TOL, [(lr0[key], g_c, tols)], max(16, int(ADAM_SHARE * n)),
+                what=what)
+        lerr = abs(loss_g - loss_c) / abs(loss_c)
+        if lerr > GRAD_TOL:
+            raise AssertionError(f"train step loss on the card {loss_g}, on the CPU {loss_c}")
+        emit({"phase": "train", "what": "one drift train step on the card against the CPU, "
+                                        f"fp32, TF32 off, nf 64, ch_mult [1,2], {GRAD_RES} px, "
+                                        f"batch {GRAD_B}, injected t and noise",
+              "loss_cuda": loss_g, "loss_cpu": loss_c, "loss_rel_err": lerr, **read,
+              "tols": {"grad_of_leaf": GRAD_TOL, "floor_of_largest_leaf": GRAD_FLOOR,
+                       "reductions_of_leaf": REDUCTION_TOL, "params_of_leaf": GRAD_TOL,
+                       "adam_allowance_share": ADAM_SHARE},
+              "seconds": round(time.time() - t0, 3), "gpu": gpu})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def train_phase(gpu) -> None:
+    """The training path: ``tools/trainUM`` on the card at flagship width
+    (224 px, batch 4, the configs' nets) over SpeckleMed phantoms. Drift
+    fp32, remat on: 12 iterations with checkpoints at 6 and 12 and inline
+    validation at 12, then resumed from 6 to 12, whose nets, EMA and Adam
+    moments must equal the uninterrupted run's; these two runs alone under
+    cuDNN deterministic (its default backward algorithms are not
+    repeatable). Everything after runs at PyTorch's defaults: the bundle
+    served through ``Restorer.from_config``; one more step on the trained
+    engine, after which the sampler's graph is captured anew and agrees
+    with the eager loop; ``TIMED_STEPS`` steps of a fresh engine with remat
+    on and with remat off (ms per step, img/s, peak memory), one of each
+    profiled; drift bf16 and DDPM through trainUM for 4 iterations each
+    (timed, validated inline, parameters and moments fp32, one step
+    profiled); the gradient check. Kernels run only in validation and
+    serving, with the per-step counts of ``PATHS``; the train steps launch
+    none. The phase's launches (the eager comparison's apart) are printed
+    in its own line."""
+    total = Counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN convs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        index = write_speckle_med(os.path.join(tmp, "data"), 5, 224, 512, ARTIFACT_PROMPTS)
+        images = np.random.default_rng(5).uniform(-1, 1, (4, 224, 224, 1)).astype(np.float32)
+        data = {"input": images, "target": images[::-1].copy(), "type_idx": np.arange(4),
+                "A_emb": np.zeros((4, 1, 512), np.float32)}
+        zero_launches()
+        t_phase = time.time()
+        epochs = TRAIN_ITERS // TRAIN_SAVE
+        cfg = train_config(tmp, "drift_fp32", index, TRAIN_SAVE, epochs, TRAIN_SAVE,
+                           TRAIN_ITERS)
+        state_dir = os.path.join(tmp, "experiments", "flagship_224", "training_state")
+        # the resumed run neither validates nor checkpoints before its end
+        cfg_b = train_config(tmp, "drift_fp32", index, TRAIN_SAVE, epochs, 10**6, 10**6,
+                             resume_state=os.path.join(state_dir, f"{TRAIN_SAVE}.state"))
+        torch.backends.cudnn.deterministic = True
+        try:
+            with timed_steps() as rec_a:
+                whole = run_trainum(cfg)
+            with timed_steps() as rec_b:
+                resumed = run_trainum(cfg_b)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        diff = training_diff(whole, resumed)
+        if diff != 0 or whole.step != TRAIN_ITERS or not resumed.ema_restored:
+            raise AssertionError(f"resumed run differs from the uninterrupted one by {diff}")
+        del resumed
+        val = whole.last_graph
+        if {k: val.launches[NAMES[k]] for k in PATHS["drift"]} != PATHS["drift"]:
+            raise AssertionError(f"inline validation launches per step {val.launches}")
+        summary = step_summary(rec_a, 4)
+        emit({"phase": "train", "what": "trainUM drift fp32 flagship_tpu.yml, 224 px, "
+                                        "batch 4, remat on: 12 iterations, then resumed "
+                                        "from 6 to 12, both runs under cuDNN deterministic",
+              "steps": summary["steps"], "loss_first": summary["loss_first"],
+              "loss_last": summary["loss_last"],
+              "ms_per_step_cudnn_deterministic": summary["ms_per_step"],
+              "kernel_launches_in_train_steps": summary["kernel_launches_in_train_steps"],
+              "resumed_steps": len(rec_b), "resume_max_abs_diff": diff,
+              "ema_restored": True, "validation_launches_per_step": val.launches,
+              "seconds_both_runs": round(time.time() - t_phase, 3), "gpu": gpu})
+
+        t0 = time.time()
+        models = os.path.join(tmp, "experiments", "flagship_224", "models")
+        r = Restorer.from_config(cfg, pth_dir=models, iteration="latest", batch_size=2,
+                                 sample_steps=BUNDLE_STEPS, device="cuda")
+        served = r.restore(images[:2], ["speckle in OCT", "noise in low dose CT"])
+        per_step = {k: r.engine.last_graph.launches[NAMES[k]] for k in PATHS["drift"]}
+        if per_step != PATHS["drift"] or not np.isfinite(served).all():
+            raise AssertionError(f"trained bundle served: launches per step {per_step}")
+        del r
+
+        batch = {k: v[:2] for k, v in data.items()}
+        whole.test(batch, torch.Generator(device="cuda").manual_seed(3),
+                   sample_steps=BUNDLE_STEPS, use_ema=False)  # captures the online nets
+        captures = whole.captures
+        whole.optimize_parameters(data, torch.Generator(device="cuda").manual_seed(9))
+        got = whole.test(batch, torch.Generator(device="cuda").manual_seed(3),
+                         sample_steps=BUNDLE_STEPS, use_ema=False)
+        graph = whole.last_graph
+        before = Counter(read_launches())
+        want = whole.test(batch, torch.Generator(device="cuda").manual_seed(3),
+                          sample_steps=BUNDLE_STEPS, use_ema=False, compiled=False)
+        eager = Counter(read_launches())
+        eager.subtract(before)  # the eager comparison is counted apart
+        if whole.captures != captures + 1:
+            raise AssertionError("no new capture after the weights were updated")
+        emit({"phase": "train", "what": "the trained bundle served through "
+                                        "Restorer.from_config (2 images, 4 steps), and "
+                                        "the trained engine's sampler (online nets) after "
+                                        "one more train step: recaptured, graph vs eager, "
+                                        "fp32",
+              "from_config_launches_per_step": per_step, "recaptured": True,
+              **check_graph_vs_eager("trained engine", got, want, torch.float32),
+              "launches_per_step": graph.launches, "seconds": round(time.time() - t0, 3),
+              "gpu": gpu})
+        del whole, got, want
+        torch.cuda.empty_cache()
+
+        # fresh engines of the same config, remat on and off
+        opt = load_options(TRAIN_CONFIGS["drift_fp32"])
+        for remat in (True, False):
+            eng = create_model(opt["train"], opt["models"]["DriftNoise"],
+                               sde=create_sde(opt["sdes"]["driftSDE"]), image_size=224,
+                               remat=remat, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            with timed_steps() as rec:
+                for _ in range(TIMED_STEPS):
+                    eng.optimize_parameters(data, gen)
+            summary = step_summary(rec, 4)
+            if summary["kernel_launches_in_train_steps"]:
+                raise AssertionError("a train step launched a CUDA kernel")
+            what = f"drift fp32 train step, flagship_tpu.yml, 224 px, batch 4, remat " \
+                   f"{'on' if remat else 'off'}"
+            emit({"phase": "train", "what": what, **summary,
+                  "max_memory_allocated_gib": round(
+                      torch.cuda.max_memory_allocated() / 2**30, 3), "gpu": gpu})
+            emit({"phase": "train", "what": "profile: one " + what,
+                  **profile_train_step(eng, data, summary["ms_per_step"]), "gpu": gpu})
+            del eng
+            torch.cuda.empty_cache()
+
+        for name in ("drift_bf16", "ddpm"):
+            t0 = time.time()
+            cfg = train_config(tmp, name, index, SHORT_ITERS, 1, SHORT_ITERS, SHORT_ITERS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with timed_steps() as rec:
+                eng = run_trainum(cfg)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            summary = step_summary(rec, 4)
+            path = "ddpm" if name == "ddpm" else "drift"
+            val = {k: eng.last_graph.launches[NAMES[k]] for k in PATHS[path]}
+            fp32 = all(p.dtype == torch.float32 for p in eng.nets.parameters()) and all(
+                st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.float32
+                for opt_ in eng.optimizers.values() for st in opt_.state.values())
+            if summary["kernel_launches_in_train_steps"] or val != PATHS[path] or not fp32 \
+                    or not np.isfinite(summary["loss_last"]):
+                raise AssertionError(f"{name}: {summary}, validation launches {val}, "
+                                     f"fp32 parameters and moments {fp32}")
+            emit({"phase": "train", "what": f"trainUM {os.path.basename(TRAIN_CONFIGS[name])}, "
+                                            f"224 px, batch 4, {SHORT_ITERS} iterations, "
+                                            "validated inline",
+                  **summary, "max_memory_allocated_gib": round(peak, 3),
+                  "params_and_moments_fp32": fp32, "validation_launches_per_step": val,
+                  "seconds": round(time.time() - t0, 3), "gpu": gpu})
+            emit({"phase": "train", "what": f"profile: one {name} train step, 224 px, batch 4",
+                  **profile_train_step(eng, data, summary["ms_per_step"]), "gpu": gpu})
+            del eng
+            torch.cuda.empty_cache()
+        total.update(read_launches())
+        total.subtract(eager)
+    torch.backends.cudnn.allow_tf32 = tf32
+    if not all(total[k] for k in WRAPPERS):
+        raise AssertionError(f"the train phase's validation and serving launched {total}")
+    emit({"phase": "train", "what": "kernel launches of the phase's validation and serving "
+                                    "(fp32 and bf16, batch 1-2; the eager comparison apart), "
+                                    "not in the kernels line",
+          "launches": dict(total), "gpu": gpu})
+    grad_check(gpu)
+
+
 def sweep_conv(gpu) -> None:
     """Time the bf16 conv kernel at each flagship launch shape (batch 8) under
     every tile / N-block choice its plan picks from, beside cuDNN's conv on
@@ -1372,11 +1768,15 @@ def main() -> int:
             worst[kname] = max(worst[kname], tot["max_abs_err"])
             entries.setdefault(kname, {
                 "name": NAMES[kname], "route": "cuda", "source": SOURCES[kname][0],
-                "replaces": SOURCES[kname][1], "launches": launches[kname],
+                "replaces": SOURCES[kname][1],
                 "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
                 "bound_ms": tot["bound_ms"], "bound_by": bound_by.most_common(1)[0][0],
                 "library_ms": tot["library_ms"], "library": LIBRARY[kname]})
-    entries = [dict(e, max_abs_err=worst[k]) for k, e in entries.items()]
+
+    # 7. training: trainUM at flagship width, resume, serving what it
+    # trained; after the kernels' timings, which its profiles would disturb
+    train_phase(gpu)
+    entries = [dict(e, launches=launches[k], max_abs_err=worst[k]) for k, e in entries.items()]
     emit({"kernels": entries})
     print(gpu, flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)

@@ -1,8 +1,10 @@
 """Dataset and loader factories (port of ``instancediff_tpu/data``, the
-``SpeckleMed`` mode): the test and validation loaders of ``testUM``."""
+``SpeckleMed`` mode): the train loader of ``trainUM`` and the test and
+validation loaders of ``trainUM`` and ``testUM``."""
 
 from .loader import DataLoader, collate
 from .med_dataset import DEFAULT_TYPE_MAP, SpeckleMedDataset, create_SpeckleMedDataset
+from .sampler import DistIterSampler
 
 
 def create_dataset(dataset_opt):
@@ -10,18 +12,22 @@ def create_dataset(dataset_opt):
     if mode == "SpeckleMed":
         return create_SpeckleMedDataset(dataset_opt)
     if mode == "Synthetic":
-        raise NotImplementedError("the Synthetic dataset draws its degradations with "
-                                  "jax.random; it comes with the training port")
+        raise NotImplementedError(
+            "the Synthetic dataset draws its degradations with jax.random, which torch "
+            "cannot repeat; it waits for a numpy generator or a stored dataset "
+            "(ROADMAP queue 1)")
     raise NotImplementedError(f"Dataset mode [{mode}] is not recognized.")
 
 
-def create_dataloader(dataset, dataset_opt):
-    """A test/validation loader: the option block's batch size (1 by
-    default), in order, the last batch kept."""
+def create_dataloader(dataset, dataset_opt, sampler=None):
+    """The train phase: the option block's batch size in ``sampler``'s order
+    (the dataset's without one), a short last batch dropped. Test/validation:
+    the block's batch size (1 by default), in order, the last batch kept."""
     if dataset_opt.get("phase") == "train":
-        raise NotImplementedError("the training loader comes with the training port")
+        return DataLoader(dataset, batch_size=dataset_opt["batch_size"], sampler=sampler,
+                          drop_last=True)
     return DataLoader(dataset, batch_size=dataset_opt.get("batch_size") or 1)
 
 
-__all__ = ["DEFAULT_TYPE_MAP", "DataLoader", "SpeckleMedDataset", "collate",
+__all__ = ["DEFAULT_TYPE_MAP", "DataLoader", "DistIterSampler", "SpeckleMedDataset", "collate",
            "create_SpeckleMedDataset", "create_dataloader", "create_dataset"]

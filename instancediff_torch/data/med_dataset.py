@@ -47,22 +47,32 @@ def normalize_pair(a_img, b_img, name):
 
 
 class SpeckleMedDataset:
+    """``gt_only``: the records carry clean images only (no ``A`` files); the
+    input is a copy of the target, a placeholder that an engine with
+    ``degrade_on_device`` replaces on the device. An index whose records all
+    lack ``A`` is clean-only by itself; one that mixes both raises."""
+
     def __init__(self, data_flist, phase="train", max_dataset_size=1_000_000,
-                 use_artifact_type=(), resolution=224, type_map_ind=None, emb_dim=512):
+                 use_artifact_type=(), resolution=224, type_map_ind=None, emb_dim=512,
+                 gt_only=False):
         self.resolution = resolution
         self.emb_dim = emb_dim
         self.type_map_ind = dict(type_map_ind or DEFAULT_TYPE_MAP)
+        self.gt_only = bool(gt_only)
         with open(data_flist) as f:
             records = json.load(f)[phase]
         if use_artifact_type:
             records = [r for r in records if r["name"] in use_artifact_type]
         self.df = records[: int(max_dataset_size)]
         missing = next((r for r in self.df if "A" not in r), None)
-        if missing is not None:
-            # a clean-only record's degraded input would be synthesised on the
-            # device (degrade_on_device), which comes with the training port
-            raise ValueError(f"dataset record {missing.get('B', missing)} has no 'A' "
-                             "(degraded) file; clean-only splits come with the training port")
+        if not self.gt_only and missing is not None:
+            if all("A" not in r for r in self.df):
+                self.gt_only = True
+            else:
+                raise ValueError(
+                    f"dataset index mixes records with and without 'A' (degraded) files "
+                    f"(e.g. {missing.get('B', missing)}); use datasets.*.gt_only for a "
+                    "clean-only split or fix the index")
 
     def __len__(self):
         return len(self.df)
@@ -76,8 +86,9 @@ class SpeckleMedDataset:
         per_img = res * res
         names = [it["name"] for it in items]
         modes = [native_io.mode_for(n) for n in names]
-        a = native_io.read_batch([it["A"] for it in items], per_img, modes)
         b = native_io.read_batch([it["B"] for it in items], per_img, modes)
+        a = b.copy() if self.gt_only else native_io.read_batch([it["A"] for it in items],
+                                                                per_img, modes)
         embs = []
         raw = native_io.MODES["raw"]
         emb_paths = [it.get("A_emb") or it.get("emb_A") for it in items]
@@ -96,15 +107,16 @@ class SpeckleMedDataset:
             "type_idx": np.asarray(
                 [self.type_map_ind.get(n, 0) for n in names], dtype=np.int32),
             "names": names,
-            "LQ_path": [it["A"] for it in items],
+            "LQ_path": [it.get("A", it["B"]) for it in items],
             "GT_path": [it["B"] for it in items],
         }
 
     def __getitem__(self, index):
         item = self.df[index]
         res = self.resolution
-        a_img = np.fromfile(item["A"], dtype=np.float32).reshape(res, res, 1)
         b_img = np.fromfile(item["B"], dtype=np.float32).reshape(res, res, 1)
+        a_img = b_img.copy() if self.gt_only else np.fromfile(
+            item["A"], dtype=np.float32).reshape(res, res, 1)
         if item.get("A_emb") or item.get("emb_A"):
             emb_path = item.get("A_emb") or item.get("emb_A")
             a_emb = np.fromfile(emb_path, dtype=np.float32).reshape(1, -1)
@@ -115,7 +127,7 @@ class SpeckleMedDataset:
         return {
             "LQ": a_img.astype(np.float32),
             "GT": b_img.astype(np.float32),
-            "LQ_path": item["A"],
+            "LQ_path": item.get("A", item["B"]),
             "GT_path": item["B"],
             "name": name,
             "A_emb": a_emb,
@@ -134,4 +146,5 @@ def create_SpeckleMedDataset(params):
         resolution=params.get("resolution") or 224,
         type_map_ind=params.get("type_map_ind"),
         emb_dim=params.get("emb_dim") or 512,
+        gt_only=bool(params.get("gt_only")),
     )

@@ -1,6 +1,8 @@
-"""The sampling half of ``CLIPDriftEngine`` (port of
-``instancediff_tpu/models/drift_model.py``: ``build_sample_fn``, ``test``,
-``load``, ``save`` and the factory ``create_CLIPDriftModel``).
+"""``CLIPDriftEngine``, the joint training and sampling of the drift and
+noise UNets (port of ``instancediff_tpu/models/drift_model.py``: the train
+step ``build_train_step``/``optimize_parameters`` with ``_net_io`` and
+``_loss_terms``, ``build_sample_fn``, ``test``, ``load``, ``save``, the
+training state and the factory ``create_CLIPDriftModel``).
 
 The engine owns the frozen CLIP text tower, the prompt ids and the dual UNets
 (drift and noise net, raw and EMA weights, as the JAX engine's ``state``
@@ -8,7 +10,10 @@ keys name them); ``engine.SamplingEngine`` holds what it shares with the
 DDPM engine (``ddpm_model.py``), the sampler call ``test`` among it. A
 sampler call encodes the prompts with each net's per-scale SMM contexts
 once, outside the step loop, then runs the two nets one after the other at
-every step of ``DriftSDE.step``: eagerly, or replayed from a CUDA graph."""
+every step of ``DriftSDE.step``: eagerly, or replayed from a CUDA graph. A
+train step runs the two nets one after the other on their plain path; the
+JAX engine vmaps them over stacked parameters when their settings match
+(``fuse_dual_train``), which computes the same values."""
 
 from __future__ import annotations
 
@@ -20,27 +25,41 @@ import torch.nn as nn
 from ..sde.drift_sde import DriftSDE
 from ..utils import checkpoint as ckpt
 from ..utils.convert import flax_params, load_flax_params
-from .engine import ARTIFACT_PROMPTS, SamplingEngine, factory_kwargs
+from .engine import ARTIFACT_PROMPTS, SamplingEngine, factory_kwargs, score_map_loss
 
-OPTIMIZE_TYPES = ("inputRes", "predict_noise", "", "predict_std_noise_scale_drift",
-                  "predict_x0")
+OPTIMIZE_TYPES = ("inputRes", "predict_noise", "", "predict_std_noise_acc_drift",
+                  "predict_std_noise_scale_drift", "predict_x0")
 NET_KEYS = ("drift", "noise", "d_ema", "n_ema")
 
 
 class CLIPDriftEngine(SamplingEngine):
-    """Sampling engine. ``dnet_settings``/``nnet_settings`` are the
-    ``models.DriftNoise`` settings blocks (``bench.py``'s flagship: nf 64,
-    ch_mult [1,2,4,4], 2 ResBlocks per level); ``dtype`` is the compute dtype
-    of the nets and the text tower (norm statistics stay float32).
+    """Training and sampling engine. ``dnet_settings``/``nnet_settings`` are
+    the ``models.DriftNoise`` settings blocks (``bench.py``'s flagship: nf
+    64, ch_mult [1,2,4,4], 2 ResBlocks per level); ``dtype`` is the compute
+    dtype of the nets and the text tower (norm statistics stay float32).
+    ``if_train`` builds the optimizers (Adam with coupled L2 at the
+    learning rates, betas and weight decay given, the cosine schedule over
+    ``nepoch`` down to ``eta_min``) and the EMA shadows, with float32 master
+    weights; ``drift_loss`` ("l2" or "l1"), ``noise_loss`` ("none" or
+    "uni"), the settings blocks' ``use_dsm``/``use_nsm`` and
+    ``degrade_on_device`` (the input synthesised from the target) shape
+    the train step, as in JAX.
     ``engine_opts={"fused_gnconv": False}`` runs the unfused ResBlock body
     and head (default True: the fused body); see ``engine.SamplingEngine`` for the
     other knobs. With ``use_degra_context`` the context gains a second token,
     the prompt's text encoding without learnable context, and the ResBlocks
     run the unfused body with full cross-attention.
-    Parameters start at PyTorch's default init; load a bundle with ``load``
-    or a JAX engine's weights with ``utils.convert.load_engine``."""
+    A sampling engine's parameters start at PyTorch's default init; load a
+    bundle with ``load`` or a JAX engine's weights (and training state) with
+    ``utils.convert.load_engine``."""
+
+    TRAINED = {"drift": ("d_opt", "d_ema"), "noise": ("n_opt", "n_ema")}
 
     def __init__(self, dnet_settings: Dict, nnet_settings: Dict,
+                 drift_net_lr: float = 2e-5, noise_net_lr: float = 2e-5,
+                 weight_decay_drift: float = 1e-4, beta1: float = 0.9, beta2: float = 0.99,
+                 nepoch: int = 500, eta_min: float = 1e-6, drift_loss: str = "l2",
+                 noise_loss: str = "none",
                  optimize_type: str = "inputRes", optimize_target: str = "std",
                  if_MultiScoreMap: bool = True, score_map_ch_mult=(1, 1, 2, 4),
                  score_map_ngf: int = 64, use_image_context: bool = True,
@@ -50,18 +69,24 @@ class CLIPDriftEngine(SamplingEngine):
                  sde: Optional[DriftSDE] = None, dtype: torch.dtype = torch.float32,
                  tokenizer_vocab_path: Optional[str] = None,
                  tiny_text_encoder: bool = False, engine_opts: Optional[Dict] = None,
-                 text_encoder_pretrain_path: Optional[str] = None, device="cuda"):
+                 text_encoder_pretrain_path: Optional[str] = None, device="cuda",
+                 if_train: bool = False, image_size: int = 224, remat="auto",
+                 degrade_on_device: bool = False, seed: int = 0):
         super().__init__(dict(dnet_settings).get("context_dim", 512), CLIP_Type,
                          artifact_prompts, type_map_ind, engine_opts, dtype,
                          tokenizer_vocab_path, tiny_text_encoder, device,
-                         text_encoder_pretrain_path)
+                         text_encoder_pretrain_path, if_train)
         if optimize_type not in OPTIMIZE_TYPES:
-            raise ValueError(f"optimize_type {optimize_type!r} cannot be sampled; "
+            raise ValueError(f"unknown optimize_type {optimize_type!r}; "
                              f"choose from {OPTIMIZE_TYPES}")
         if optimize_target != "std":
             raise ValueError(f"optimize_target {optimize_target!r} is not supported "
                              "(only 'std')")
         self.optimize_type = optimize_type
+        self.drift_loss, self.noise_loss = drift_loss, noise_loss
+        self.use_dsm = dict(dnet_settings).get("use_dsm", True)
+        self.use_nsm = dict(nnet_settings).get("use_nsm", True)
+        self.degrade_on_device = bool(degrade_on_device)
         self.use_image_context = use_image_context
         self.use_degra_context = use_degra_context
         self.sde = sde
@@ -77,6 +102,8 @@ class CLIPDriftEngine(SamplingEngine):
         settings = {"drift": dnet_settings, "noise": nnet_settings,
                     "d_ema": dnet_settings, "n_ema": nnet_settings}
         self.nets = nn.ModuleDict({k: build_unet(settings[k]) for k in NET_KEYS})
+        self._init_training({"drift": drift_net_lr, "noise": noise_net_lr}, beta1, beta2,
+                            weight_decay_drift, nepoch, eta_min, image_size, remat, seed)
 
     def _load_nets(self, models_dir: str, iteration, load_ema: bool) -> None:
         """The JAX engine's ``load``: the iteration's nets; an absent prompt
@@ -105,8 +132,70 @@ class CLIPDriftEngine(SamplingEngine):
         return ckpt.save_bundle(models_dir, iteration,
                                 *(flax_params(self.nets[k]) for k in NET_KEYS))
 
+    # ------------------------------------------------------------ training
+
+    def _loss_keys(self) -> tuple:
+        if self.optimize_type == "predict_x0":
+            return ("l", "dl", "x0l", "dsml", "x0sml")
+        return ("l", "dl", "nl", "dsml", "nsml")
+
+    def _net_io(self, x_t, mu, x0, drift, t):
+        """(drift net input, noise net input, drift target, noise target or
+        None for the standard noise), each input an (x_a, x_b) pair, per
+        ``optimize_type``: inputRes / predict_noise / "": drift(x_t - mu,
+        mu) -> mu - x0, noise(x_t - mu, x_t) -> eps;
+        predict_std_noise_acc_drift: drift(x_t, x0 + drift) -> mu - x0,
+        noise(x_t, mu) -> eps (it cannot be sampled: x0 + drift is unknown
+        there); predict_std_noise_scale_drift: drift(x_t, mu) -> s_d[t]
+        (mu - x0), noise(x_t, mu) -> eps; predict_x0: drift(x_t, mu) ->
+        mu - x0, noise(x_t, mu) -> x0. ``t`` is [B,1,1,1]."""
+        d_in, n_in = self._net_inputs(x_t, mu)
+        ot = self.optimize_type
+        if ot == "predict_std_noise_acc_drift":
+            d_in = (x_t, x0 + drift)
+        if ot == "predict_std_noise_scale_drift":
+            sd = self.sde.drift_schedule.to(x_t.device)[t].reshape(t.shape).to(x_t.dtype)
+            return d_in, n_in, sd * (mu - x0), None
+        return d_in, n_in, mu - x0, (x0 if ot == "predict_x0" else None)
+
+    def _train_loss(self, batch, generator, t, std_noise, deg_noise):
+        """The JAX engine's ``_loss_terms`` after its forward diffusion: the
+        drift loss (l2 or l1), the noise loss (or with ``noise_loss`` "uni"
+        the loss of the summed predictions), and the score-map pyramid losses
+        of the nets whose ``use_dsm``/``use_nsm`` is on."""
+        mu, x0, type_idx, img_ctx = self._train_batch(batch, generator, deg_noise)
+        t, x_t, drift, std_noise, _ = self.sde.forward_diffusion(x0, mu, generator, t, std_noise)
+        d_in, n_in, d_target, n_target = self._net_io(x_t, mu, x0, drift, t)
+        if n_target is None:
+            n_target = std_noise
+        degra_ctx = None
+        if self.use_degra_context:
+            degra_ctx = self.text_encoder(self.prompt_ids, None)[type_idx][:, None, :]
+        dnet, nnet = self.nets["drift"], self.nets["noise"]
+        tb = t.reshape(-1)
+        pred_drift, d_sms = dnet(d_in[0], d_in[1], tb, type_idx, self._encode_prompts(dnet),
+                                 img_ctx, degra_ctx, plain=True)
+        pred_noise, n_sms = nnet(n_in[0], n_in[1], tb, type_idx, self._encode_prompts(nnet),
+                                 img_ctx, degra_ctx, plain=True)
+        if self.drift_loss == "l1":
+            dloss = torch.mean(torch.abs(pred_drift - d_target))
+        else:
+            dloss = torch.mean((pred_drift - d_target) ** 2)
+        if self.noise_loss == "uni":
+            nloss = torch.mean((pred_noise + pred_drift - (n_target + d_target)) ** 2)
+        else:
+            nloss = torch.mean((pred_noise - n_target) ** 2)
+        zero = torch.zeros((), device=self.device)
+        dsml = score_map_loss(d_sms, d_target) if d_sms and self.use_dsm else zero
+        nsml = score_map_loss(n_sms, n_target) if n_sms and self.use_nsm else zero
+        loss = dloss + nloss + dsml + nsml
+        return loss, dict(zip(self._loss_keys(), (loss, dloss, nloss, dsml, nsml)))
+
+    # ------------------------------------------------------------ sampling
+
     def _net_inputs(self, x, mu):
-        """(x_a, x_b) of the drift net and of the noise net."""
+        """(x_a, x_b) of the drift net and of the noise net, in sampling and
+        (but for ``predict_std_noise_acc_drift``'s drift net) in training."""
         if self.optimize_type in ("inputRes", "predict_noise", ""):
             return (x - mu, mu), (x - mu, x)
         return (x, mu), (x, mu)
@@ -127,6 +216,17 @@ class CLIPDriftEngine(SamplingEngine):
     def _step_nets(self, use_ema: bool):
         return (self.nets["d_ema" if use_ema else "drift"],
                 self.nets["n_ema" if use_ema else "noise"])
+
+    def test(self, batch, *args, **kwargs):
+        """``SamplingEngine.test``; an engine trained with
+        ``predict_std_noise_acc_drift`` cannot sample and raises, as JAX's
+        ``build_sample_fn`` does."""
+        if self.optimize_type == "predict_std_noise_acc_drift":
+            raise ValueError(
+                "optimize_type 'predict_std_noise_acc_drift' conditions the drift net on "
+                "x0+drift, which is unavailable at sampling time (training-only ablation; "
+                "reference drift_noise_model.py:314)")
+        return super().test(batch, *args, **kwargs)
 
     def _inputs(self, batch, use_ema: bool):
         """The call's tensors: mu, type ids, the image context and (with
@@ -165,15 +265,21 @@ def create_CLIPDriftModel(train_opt, model_opt, phase="train", **kwargs) -> CLIP
     factory's defaults (``create_CLIPDriftModel`` in
     ``instancediff_tpu/models/drift_model.py``); ``kwargs`` (``device``,
     ``sde``, ``type_map_ind``, ...) go to the engine, see
-    ``engine.factory_kwargs``. ``train_opt`` and ``phase`` are accepted for
-    the JAX signature."""
+    ``engine.factory_kwargs``. ``phase == "train"`` builds an engine that
+    trains, with ``train_opt``'s ``nepoch``."""
     kwargs.setdefault("type_map_ind", model_opt.get("type_map_ind"))
     return CLIPDriftEngine(
         dnet_settings=dict(model_opt["dnet_settings"]),
         nnet_settings=dict(model_opt["nnet_settings"]),
+        drift_net_lr=model_opt.get("drift_net_lr", 2e-5),
+        noise_net_lr=model_opt.get("noise_net_lr", 2e-5),
+        weight_decay_drift=model_opt.get("weight_decay_drift", 1e-4),
+        nepoch=(train_opt or {}).get("nepoch", 500),
+        drift_loss=model_opt.get("drift_loss", "l2"),
+        noise_loss=model_opt.get("noise_loss", "none"),
         optimize_type=model_opt.get("optimize_type", "inputRes"),
         optimize_target=model_opt.get("optimize_target", "std"),
         if_MultiScoreMap=model_opt.get("if_MultiScoreMap", True),
         score_map_ch_mult=tuple(model_opt.get("score_map_ch_mult", (1, 1, 2, 4))),
         score_map_ngf=model_opt.get("score_map_ngf", 64),
-        **factory_kwargs(model_opt, kwargs))
+        **factory_kwargs(model_opt, kwargs, phase))

@@ -1,7 +1,9 @@
-"""What the sampling engines share (``drift_model.CLIPDriftEngine`` and
+"""What the engines share (``drift_model.CLIPDriftEngine`` and
 ``ddpm_model.CLIPDDPMEngine``): the device, the engine knobs, the
 artifact-type map, the frozen CLIP text tower with the prompts' token ids
-and its weights, and the sampler call ``test`` with its compiled form.
+and its weights, the sampler call ``test`` with its compiled form, and the
+training state around an engine's train step (optimizers, EMA, learning
+rate, loss messages, ``{iter}.state`` files).
 
 A weight bundle (``utils/checkpoint.py``) holds the nets but not the frozen
 text tower: the JAX engines draw it from their seed, or read a torch CLIP
@@ -20,25 +22,37 @@ copied into the graph's static buffers; the initial noise and each step's
 noise are drawn from the caller's generator outside the graph, in the eager
 loop's order, so the graph and the eager loop consume the same numbers. The
 nets' weights are read by address too, so a graph is captured anew when
-they have been updated in place since its capture."""
+they have been updated in place since its capture.
+
+An engine built to train (``if_train``) keeps its nets' parameters in
+float32 and casts them where they are used (``layers.cast_compute_`` with
+``master``), as flax's ``dtype=bf16`` modules do with float32 parameters:
+Adam and the EMA update float32 values. Its train step runs the nets'
+differentiable plain path (``unet.py``), where no CUDA kernel runs, as the
+JAX package trains through its reference versions."""
 
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..ops.degradations import apply_degradation
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_gn_conv import fused_gn_silu_conv3x3, gn_channel_affine, packed_copies
 from ..ops.group_norm_silu import group_norm_silu
+from ..ops.resize import downsample_label
 from ..sde.schedules import strided_sampling_grid
 from ..sde.stepping import SamplerState, run_steps
-from ..utils.checkpoint import load_pytree, save_pytree
-from ..utils.convert import flax_params, load_flax_params
-from .layers import cast_compute_
+from ..utils.checkpoint import (load_pytree, load_training_state, save_pytree,
+                                save_training_state)
+from ..utils.convert import adam_state, flax_params, load_adam_state, load_flax_params
+from .layers import cast_compute_, flax_init_
+from .optim import cosine_annealing_lr, ema_update, make_adam, set_lr
 from .text_encoder import build_text_encoder, load_torch_clip_text_weights
 from .tokenizer import ClipBPETokenizer
 from .unet import LearnableForwardUNetMultiScoreMap
@@ -81,24 +95,23 @@ def resolve_dtype(name) -> torch.dtype:
     raise ValueError(f"unsupported models.<name>.dtype {name!r}")
 
 
-def factory_kwargs(model_opt: Dict, kwargs: Dict) -> Dict:
+def factory_kwargs(model_opt: Dict, kwargs: Dict, phase: str = "train") -> Dict:
     """The engine arguments a ``create_*`` factory takes from its option block
-    and keyword arguments, shared by both engines. The block's training keys
-    (learning rates, losses, ``packed_train``, ...) are not read: the port
-    samples only. ``image_size`` and ``seed`` shape the JAX engines' random
-    init, which a bundle replaces, and are dropped."""
-    if model_opt.get("degrade_on_device"):
-        raise NotImplementedError(
-            "degrade_on_device synthesises the degraded input on the device "
-            "(ops/degradations.py), which comes with the training port")
-    kw = {k: v for k, v in kwargs.items() if k not in ("image_size", "seed")}
+    and keyword arguments, shared by both engines (each factory adds its
+    own learning rates and losses). ``phase == "train"`` builds an engine
+    that trains (``if_train``), as the JAX factories do. The block's
+    ``packed_train`` is a TPU layout knob and is not read."""
+    kw = dict(kwargs)
     return dict(
         use_image_context=model_opt.get("use_image_context", True),
         use_degra_context=model_opt.get("use_degra_context", False),
+        degrade_on_device=bool(model_opt.get("degrade_on_device")),
         CLIP_Type=model_opt.get("CLIP_Type", "CLIP"),
         text_encoder_pretrain_path=model_opt.get("text_encoder_pretrain_path"),
         tiny_text_encoder=bool(model_opt.get("tiny_text_encoder")),
         tokenizer_vocab_path=model_opt.get("tokenizer_vocab_path"),
+        beta1=model_opt.get("beta1", 0.9), beta2=model_opt.get("beta2", 0.99),
+        eta_min=model_opt.get("eta_min", 1e-6), if_train=phase == "train",
         engine_opts=model_opt.get("engine"), dtype=resolve_dtype(model_opt.get("dtype")), **kw)
 
 
@@ -169,8 +182,16 @@ def _copy_into(dst: Dict, src: Dict) -> None:
             d.copy_(s)
 
 
+def score_map_loss(score_maps, label: torch.Tensor) -> torch.Tensor:
+    """The score-map pyramid loss (``optimize_score_map``): each level's map
+    against the label downsampled by 2^level, mean squared error, summed
+    and halved."""
+    return sum(torch.mean((sm - downsample_label(label, 2**i)) ** 2)
+               for i, sm in enumerate(score_maps)) / 2.0
+
+
 class SamplingEngine:
-    """Base of the sampling engines.
+    """Base of the engines.
 
     ``engine_opts`` takes the JAX engines' knobs. ``fused_gnconv`` is read by
     the drift engine; every other knob is accepted and changes nothing here:
@@ -182,8 +203,11 @@ class SamplingEngine:
     def __init__(self, context_dim: int, CLIP_Type: str, artifact_prompts: Sequence[str],
                  type_map_ind: Optional[Dict[str, int]], engine_opts: Optional[Dict],
                  dtype: torch.dtype, tokenizer_vocab_path: Optional[str],
-                 tiny_text_encoder: bool, device, text_encoder_pretrain_path=None):
+                 tiny_text_encoder: bool, device, text_encoder_pretrain_path=None,
+                 if_train: bool = False):
         self.device = resolve_device(device)
+        self.if_train = bool(if_train)
+        self.optimizers: Dict[str, torch.optim.Adam] = {}
         if CLIP_Type != "CLIP":
             raise NotImplementedError(f"CLIP_Type {CLIP_Type!r} is not ported "
                                       "(only 'CLIP')")
@@ -200,7 +224,7 @@ class SamplingEngine:
         tok = ClipBPETokenizer(tokenizer_vocab_path, context_length=text.context_length,
                                vocab_size=text.vocab_size)
         self.prompt_ids = torch.from_numpy(tok(list(artifact_prompts))).to(self.device)
-        self.text_encoder = cast_compute_(text.to(self.device), dtype).eval()
+        self.text_encoder = cast_compute_(text.to(self.device), dtype).eval().requires_grad_(False)
         # where the tower's weights come from: "pretrained" (a torch CLIP
         # checkpoint, as the JAX engines read it when the file exists),
         # "sidecar" (a bundle's text_params.ckpt) or None (the random init)
@@ -252,8 +276,10 @@ class SamplingEngine:
                               os.path.join(models_dir, TEXT_SIDECAR)))
 
     def _build_unet(self, settings: Dict, **kw) -> LearnableForwardUNetMultiScoreMap:
-        """One UNet from a ``net_settings`` block, in the compute dtype on the
-        engine's device; ``kw`` gives the engine-level fields."""
+        """One UNet from a ``net_settings`` block, computing in the compute
+        dtype on the engine's device (float32 master weights when the engine
+        trains), its parameters frozen until ``_init_training`` trains it;
+        ``kw`` gives the engine-level fields."""
         s = dict(settings)
         net = LearnableForwardUNetMultiScoreMap(
             in_nc=s.get("in_nc", 2), out_nc=s.get("out_nc", 5), nf=s.get("nf", 64),
@@ -263,7 +289,8 @@ class SamplingEngine:
             score_map_chan=s.get("score_map_chan", 16),
             token_embed_dim=self.token_embed_dim,
             num_res_blocks=s.get("num_res_blocks", 2), num_prompts=self.num_prompts, **kw)
-        return cast_compute_(net.to(self.device), self.dtype).eval()
+        return cast_compute_(net.to(self.device), self.dtype, master=self.if_train).eval() \
+            .requires_grad_(False)
 
     def _encode_prompts(self, net) -> list:
         """Per-SMM [K, context_dim] text encodings for one net's contexts."""
@@ -280,6 +307,135 @@ class SamplingEngine:
         a_emb = batch.get("A_emb")
         return (torch.zeros(B, 1, self.context_dim, device=self.device)
                 if a_emb is None else self._tensor(a_emb, torch.float32))
+
+    # ------------------------------------------------------------ training
+    # An engine that trains names its trained nets in ``TRAINED``: {net key:
+    # (optimizer state key, EMA net key)}, the JAX engine's ``state`` keys,
+    # and provides ``_train_loss(batch, generator, t, std_noise, deg_noise)
+    # -> (loss, {name: term})``, "l" (the loss) first, on the nets' plain
+    # path, and ``_loss_keys()``: the names of the terms.
+
+    def _init_training(self, lrs: Dict[str, float], beta1: float, beta2: float,
+                       weight_decay: float, nepoch: int, eta_min: float, image_size: int,
+                       remat, seed: int) -> None:
+        """Optimizers and EMA shadows for the nets in ``TRAINED`` (none
+        unless ``if_train``). The trained nets are drawn from the JAX
+        modules' initialisers (``layers.flax_init_``, from ``seed``; torch
+        cannot draw JAX's values) and their EMA shadows copied from them, as
+        the JAX engines start. ``remat`` (True/False/"auto": on at
+        ``image_size >= 128``, JAX's rule) rematerialises the ResBlocks in
+        the backward."""
+        self.lr0 = dict(lrs)
+        self.nepoch, self.eta_min = int(nepoch), float(eta_min)
+        self.step = 0
+        self.ema_restored = False
+        self.reinit_loss_message()
+        if not self.if_train:
+            return
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for key, (_, ema_key) in self.TRAINED.items():
+            net = flax_init_(self.nets[key], gen).requires_grad_(True)
+            net.remat = image_size >= 128 if remat == "auto" else bool(remat)
+            self.nets[ema_key].load_state_dict(net.state_dict())
+            self.optimizers[key] = make_adam(net.parameters(), lrs[key], beta1, beta2,
+                                             weight_decay)
+
+    def _train_batch(self, batch, generator, deg_noise):
+        """(mu, x0, type ids, image context) of a train batch; with
+        ``degrade_on_device`` mu is synthesised from the target
+        (``ops/degradations.apply_degradation``, its five noises from
+        ``deg_noise`` or the generator), as the JAX train step does."""
+        x0 = self._tensor(batch["target"], torch.float32)
+        type_idx = self._tensor(batch["type_idx"], torch.int64)
+        if self.degrade_on_device:
+            mu = apply_degradation(x0, type_idx, generator=generator, noise=deg_noise)
+        else:
+            mu = self._tensor(batch["input"], torch.float32)
+        return mu, x0, type_idx, self._image_context(batch, x0.shape[0])
+
+    def optimize_parameters(self, batch, generator: Optional[torch.Generator] = None,
+                            epoch: int = 0, t: Optional[torch.Tensor] = None,
+                            std_noise: Optional[torch.Tensor] = None,
+                            deg_noise: Optional[Sequence[torch.Tensor]] = None) -> float:
+        """One train step, the JAX engines' jitted one: forward diffusion,
+        the nets on their plain path with the text encodings computed inside
+        the autograd graph (gradients reach the SMM contexts through the
+        frozen tower), the losses, backward, one Adam step per trained net at
+        the epoch's cosine learning rate, the step counter, then the EMA.
+        ``batch``: ``input``/``target`` [B,H,W,1] in [-1,1], ``type_idx``
+        [B], optional ``A_emb`` [B,1,context_dim]. The timesteps ``t`` [B],
+        the standard noise ``std_noise`` and the degradation's five noises
+        ``deg_noise`` replace draws from ``generator`` (degradation first,
+        then t, then the noise). A parameter the loss does not reach gets a
+        zero gradient, so weight decay still moves it, as optax's update of
+        the whole tree does. Returns the loss."""
+        if not self.optimizers:
+            raise RuntimeError("this engine samples only: build it with if_train=True "
+                               "(create_model(..., phase='train'))")
+        if self.sde is None:
+            raise ValueError("engine has no SDE; pass sde= to the constructor")
+        for opt in self.optimizers.values():
+            opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss, terms = self._train_loss(batch, generator, t, std_noise, deg_noise)
+            loss.backward()
+        for key, opt in self.optimizers.items():
+            for p in self.nets[key].parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            set_lr(opt, cosine_annealing_lr(epoch, self.nepoch, self.lr0[key], self.eta_min))
+            opt.step()
+        self.step += 1
+        for key, (_, ema_key) in self.TRAINED.items():
+            ema_update(self.nets[ema_key], self.nets[key], self.step)
+        values = torch.stack([v.detach().float().reshape(()) for v in terms.values()]).tolist()
+        self._record_losses(dict(zip(terms, values)))
+        return values[0]
+
+    def reinit_loss_message(self) -> None:
+        keys = self._loss_keys()
+        self.loss_info = {"latest": {k: 0.0 for k in keys}, "avg": {k: 0.0 for k in keys},
+                          "num": 0}
+
+    def _record_losses(self, terms: Dict[str, float]) -> None:
+        for k, v in terms.items():
+            self.loss_info["latest"][k] = v
+            self.loss_info["avg"][k] = self.loss_info["avg"].get(k, 0.0) + v
+        self.loss_info["num"] += 1
+
+    def get_loss_message(self) -> str:
+        num = max(self.loss_info["num"], 1)
+        return "".join("({}={:4f}/{:4f})".format(k, self.loss_info["latest"][k],
+                                                   self.loss_info["avg"][k] / num)
+                       for k in self.loss_info["latest"])
+
+    def get_current_learning_rate(self, epoch: int = 0) -> float:
+        return cosine_annealing_lr(epoch, self.nepoch, self.lr0["noise"], self.eta_min)
+
+    def save_training_state(self, state_dir: str, epoch: int, iteration) -> int:
+        """``{iter}.state`` as the JAX engines write it: each trained net's
+        optimizer state (optax's layout), the step and the EMA shadows;
+        returns the bytes written."""
+        opt = {"step": np.asarray(self.step, np.int32)}
+        for key, (opt_key, ema_key) in self.TRAINED.items():
+            opt[opt_key] = adam_state(self.optimizers[key], self.nets[key])
+            opt[ema_key] = flax_params(self.nets[ema_key])
+        return save_training_state(state_dir, iteration, epoch, opt)
+
+    def resume_training(self, state_path: str) -> tuple:
+        """Restore the optimizers and the step, and the EMA shadows when the
+        state carries them (``ema_restored``: the caller then skips the
+        rolling EMA files in ``load``); returns (epoch, iter)."""
+        tree = load_training_state(state_path)
+        opt = tree["opt"]
+        for key, (opt_key, _) in self.TRAINED.items():
+            load_adam_state(self.optimizers[key], self.nets[key], opt[opt_key])
+        self.step = int(opt["step"])
+        self.ema_restored = all(ema_key in opt for _, ema_key in self.TRAINED.values())
+        if self.ema_restored:
+            for _, ema_key in self.TRAINED.values():
+                load_flax_params(self.nets[ema_key], opt[ema_key])
+        return tree["epoch"], tree["iter"]
 
     # ------------------------------------------------------------ sampling
     # An engine provides ``_inputs(batch, use_ema)``: a dict of the call's
@@ -314,6 +470,12 @@ class SamplingEngine:
         elif compiled and self.device.type != "cuda":
             raise ValueError("compiled=True captures a CUDA graph; this engine lives on "
                              f"{self.device} (pass compiled=False)")
+        if self.degrade_on_device and "target" in batch:
+            # a GT-only batch: its input is synthesised on the device, as in
+            # the train step (JAX's test does the same with its own key)
+            batch = dict(batch, input=apply_degradation(
+                self._tensor(batch["target"], torch.float32),
+                self._tensor(batch["type_idx"], torch.int64), generator=generator))
         with record_function("sampler_inputs"):
             inputs = self._inputs(batch, use_ema)
         if not compiled:

@@ -13,7 +13,15 @@ self-attention runs the flash-attention kernel. The plain convolutions
 (``conv_in``, ``down_*``, ``up_*``, the 1x1 skips, ``smm_fuse_*`` and the
 unfused body's 3x3 convs) are ``F.conv2d``/``F.conv_transpose2d``, as they
 are XLA convolutions in the JAX package. Layout is NHWC throughout, as in the
-JAX package."""
+JAX package.
+
+``forward(..., plain=True)`` is the differentiable path the JAX package trains
+through (its train-time UNet is built without kernel knobs): the unfused
+body with GroupNorm + SiLU in plain PyTorch (``group_norm_silu_plain``, the
+numerics of ``group_norm_silu_reference``), the bottleneck attention on
+``ops/attention.py`` (the jnp ``multi_head_attention``) and the unfused
+head; no CUDA kernel runs, and each ResBlock is rematerialised in the
+backward (``torch.utils.checkpoint``) when the net's ``remat`` is set."""
 
 from __future__ import annotations
 
@@ -23,13 +31,14 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_gn_conv import fused_gn_silu_conv3x3, gn_channel_affine
-from ..ops.group_norm_silu import group_norm_silu
-from .layers import (ConvParams, conv1x1, conv3x3, conv_same, conv_transpose_same, dense,
-                     layer_norm)
+from ..ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
+from .layers import (ConvParams, compute_dtype, conv1x1, conv3x3, conv_same,
+                     conv_transpose_same, dense, layer_norm)
 from .scoremap import ScoreMapModule
 
 _FLAX_GN_EPS = 1e-6  # flax nn.GroupNorm default, used by SelfAttention2D
@@ -68,8 +77,9 @@ class FusedGroupNormSiLU(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
-        return group_norm_silu(x, self.weight, self.bias, self.num_groups)
+    def forward(self, x, plain: bool = False):
+        gns = group_norm_silu_plain if plain else group_norm_silu
+        return gns(x, self.weight, self.bias, self.num_groups)
 
 
 class ContextCrossAttention(nn.Module):
@@ -111,7 +121,8 @@ class ResBlock(nn.Module):
     conv, twice). ``forward`` takes the fused body when asked to and the
     context has at most one token, as the JAX block does. ``context_tokens``
     is the number of context tokens the block is built for (0: no
-    cross-attention)."""
+    cross-attention). ``plain`` runs the unfused body on the plain GroupNorm
+    (the differentiable path)."""
 
     def __init__(self, in_ch: int, out_ch: int, temb_dim: int, context_dim: int,
                  context_tokens: int):
@@ -126,10 +137,10 @@ class ResBlock(nn.Module):
         self.xattn = (ContextCrossAttention(context_dim, out_ch, context_tokens > 1)
                       if context_tokens else None)
 
-    def forward(self, h, temb, context=None, fused: bool = True):
-        if fused and (context is None or context.shape[1] == 1):
+    def forward(self, h, temb, context=None, fused: bool = True, plain: bool = False):
+        if fused and not plain and (context is None or context.shape[1] == 1):
             return self._fused_body(h, temb, context)
-        return self._unfused_body(h, temb, context)
+        return self._unfused_body(h, temb, context, plain)
 
     def _fused_body(self, h, temb, context):
         B = h.shape[0]
@@ -148,10 +159,10 @@ class ResBlock(nn.Module):
         return fused_gn_silu_conv3x3(y1, scale2, shift2, self.conv2.weight, bias2,
                                      residual=res)
 
-    def _unfused_body(self, h, temb, context):
-        x = conv3x3(self.gns1(h), self.conv1)
+    def _unfused_body(self, h, temb, context, plain: bool = False):
+        x = conv3x3(self.gns1(h, plain), self.conv1)
         x = x + dense(self.temb_proj, F.silu(temb))[:, None, None]
-        x = conv3x3(self.gns2(x), self.conv2)
+        x = conv3x3(self.gns2(x, plain), self.conv2)
         h = (h if self.skip is None else conv1x1(h, self.skip)) + x
         if self.xattn is not None and context is not None:
             h = self.xattn(h, context)
@@ -159,7 +170,9 @@ class ResBlock(nn.Module):
 
 
 class SelfAttention2D(nn.Module):
-    """Bottleneck spatial self-attention on the flash-attention kernel."""
+    """Bottleneck spatial self-attention on the flash-attention kernel, or
+    with ``plain`` on ``ops/attention.py`` (the JAX package's jnp attention,
+    which it trains through)."""
 
     def __init__(self, channels: int, heads: int = 4):
         super().__init__()
@@ -170,11 +183,15 @@ class SelfAttention2D(nn.Module):
         self.v = nn.Linear(channels, channels)
         self.out = nn.Linear(channels, channels)
 
-    def forward(self, h):
+    def forward(self, h, plain: bool = False):
         B, H, W, C = h.shape
         x = F.group_norm(h.float().permute(0, 3, 1, 2), self.norm.num_groups,
                          self.norm.weight, self.norm.bias, self.norm.eps)
         x = x.permute(0, 2, 3, 1).reshape(B, H * W, C)
+        if plain:
+            attn = multi_head_attention(dense(self.q, x), dense(self.k, x), dense(self.v, x),
+                                        self.heads)
+            return h + dense(self.out, attn).reshape(B, H, W, C)
         Dh = C // self.heads
 
         def split(z):
@@ -194,7 +211,10 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
     ``if_MultiScoreMap`` every level has an SMM and a score map; without it
     (the DDPM baseline's single-score-map UNet) only level 0 has one.
     ``use_fused_gnconv`` selects the ResBlock body and the output head (see
-    ``ResBlock``); the context is [image | degradation] tokens."""
+    ``ResBlock``); the context is [image | degradation] tokens. ``plain``
+    runs the differentiable path (see the module's docstring); ``remat``
+    (set by the engine that trains the net) rematerialises its ResBlocks
+    there."""
 
     def __init__(self, in_nc: int = 2, out_nc: int = 5, nf: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), context_dim: int = 512,
@@ -216,6 +236,7 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
         self.use_image_context = use_image_context
         self.use_degra_context = use_degra_context
         self.use_fused_gnconv = use_fused_gnconv
+        self.remat = False
         n_levels = len(self.ch_mult)
         temb_dim = nf * 4
         context_tokens = int(use_image_context) + int(use_degra_context)
@@ -272,11 +293,18 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
 
     def forward(self, x_a, x_b, t, type_idx, text_embs: Sequence[torch.Tensor],
                 image_context: Optional[torch.Tensor] = None,
-                degra_context: Optional[torch.Tensor] = None):
-        dtype = self.conv_in.weight.dtype
+                degra_context: Optional[torch.Tensor] = None, plain: bool = False):
+        dtype = compute_dtype(self.conv_in)
         B = x_a.shape[0]
         n_levels = len(self.ch_mult)
-        fused = self.use_fused_gnconv
+        fused = self.use_fused_gnconv and not plain
+
+        def resblock(name, h):
+            blk = getattr(self, name)
+            if plain and self.remat:
+                return checkpoint(blk, h, temb, context, False, True, use_reentrant=False)
+            return blk(h, temb, context, fused, plain)
+
         x = torch.cat([x_a, x_b], dim=-1)
         temb = timestep_embedding(t, self.nf).to(dtype)
         temb = dense(self.temb_dense1, F.silu(dense(self.temb_dense0, temb)))
@@ -292,14 +320,14 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
         skips = []
         for i in range(n_levels):
             for j in range(self.num_res_blocks):
-                h = getattr(self, f"enc_{i}_{j}")(h, temb, context, fused)
+                h = resblock(f"enc_{i}_{j}", h)
             skips.append(h)
             if i < n_levels - 1:
                 h = conv_same(h, getattr(self, f"down_{i}"), stride=2)
 
-        h = self.mid1(h, temb, context, fused)
-        h = self.mid_attn(h)
-        h = self.mid2(h, temb, context, fused)
+        h = resblock("mid1", h)
+        h = self.mid_attn(h, plain)
+        h = resblock("mid2", h)
 
         scoremaps = []
         for i in reversed(range(n_levels)):
@@ -313,7 +341,7 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
                 parts.append(fused_maps.to(skips[i].dtype))
             h = torch.cat(parts, dim=-1)
             for j in range(self.num_res_blocks + 1):
-                h = getattr(self, f"dec_{i}_{j}")(h, temb, context, fused)
+                h = resblock(f"dec_{i}_{j}", h)
             if i > 0:
                 h = conv_transpose_same(h, getattr(self, f"up_{i - 1}"))
 
@@ -323,7 +351,7 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
             bias = self.conv_out.bias.float()[None].expand(B, self.out_nc)
             out = fused_gn_silu_conv3x3(h, scale, shift, self.conv_out.weight, bias)
         else:
-            out = conv3x3(self.norm_out(h), self.conv_out)
+            out = conv3x3(self.norm_out(h, plain), self.conv_out)
         if self.out_nc > 1:
             pred = torch.gather(out, -1, gather_idx.expand(*out.shape[:3], 1))
         else:

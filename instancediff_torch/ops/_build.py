@@ -129,6 +129,21 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when a kernel's caller asks for gradients: a kernel's output is
+    filled through ``ctypes`` and has no autograd history, so everything
+    upstream of it and every weight it reads would silently get none. The
+    differentiable path is the nets' ``plain=True`` forward, which the
+    engines' ``optimize_parameters`` runs (no kernel there); sampling runs
+    under ``torch.inference_mode``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input requires grad; "
+            "train through the differentiable plain path (the UNet's forward with "
+            "plain=True, as engine.optimize_parameters runs it), or call the kernel "
+            "under torch.no_grad() / torch.inference_mode()")
+
+
 def count_launch(wrapper) -> None:
     """Count one call of ``wrapper`` into its kernel library. Outside a CUDA
     graph capture the call launched its kernel: ``wrapper.launches`` += 1.

@@ -6,7 +6,8 @@ bf16 on the tensor cores (mma.sync; the softmax weights are rounded to bf16
 before they multiply V, the one departure from the all-fp32 Pallas kernel)
 and fp32 on the FMA units. ``flash_attention_plain`` is the same function in
 plain PyTorch. The wrapper uses the plain version only for CPU tensors: for a
-CUDA tensor it launches a kernel or raises."""
+CUDA tensor it launches a kernel or raises; it raises when an input requires
+grad and gradients are on (the kernel has no backward)."""
 
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ def flash_attention(q, k, v, scale=None):
         return flash_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _build.refuse_autograd("flash_attention", q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "

@@ -99,23 +99,24 @@ def pack_weights(w, nb):
 
 
 def packed_weights(w, nb):
-    """``pack_weights(w, nb)``, packed once per parameter: the copy is kept
+    """``pack_weights`` of ``w`` in bf16, packed once per parameter: the copy is kept
     on the weight tensor itself (attribute ``_fgc_packed``, freed with it) and
     repacked when the tensor is updated in place. Inference tensors (made
     inside ``torch.inference_mode``, e.g. a cast of the caller's weight) keep
     no copy, so a CUDA graph capturing one would repack at every replay: that
-    raises. The engines pass the parameter itself, already in the compute
-    dtype, and pack it in the warm-up step before the capture."""
+    raises. The engines pass the parameter itself (bf16, or a trained net's
+    float32 master weight: the copy is bf16 either way) and pack it in the
+    warm-up step before the capture."""
     if w.is_inference():
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("fused_gn_silu_conv3x3: an inference-mode weight would be "
                                "repacked at every replay of the captured graph")
-        return pack_weights(w, nb)
+        return pack_weights(w.to(torch.bfloat16), nb)
     key = (nb, w._version, w.data_ptr())
     hit = getattr(w, "_fgc_packed", None)
     if hit is None or hit[0] != key:
         with torch.no_grad():
-            hit = (key, pack_weights(w.detach(), nb))
+            hit = (key, pack_weights(w.detach().to(torch.bfloat16), nb))
         w._fgc_packed = hit
     return hit[1]
 
@@ -142,6 +143,7 @@ def gn_channel_affine(x, gamma, beta, num_groups, eps=1e-5):
     x*scale + shift; x [B,H,W,C] float32 or bfloat16, C % num_groups == 0."""
     if x.device.type == "cpu":
         return gn_channel_affine_plain(x, gamma, beta, num_groups, eps)
+    _build.refuse_autograd("gn_channel_affine", x, gamma, beta)
     out = group_norm_affine_cuda(x, gamma, beta, num_groups, eps)
     _build.count_launch(gn_channel_affine)
     return out
@@ -174,6 +176,7 @@ def fused_gn_silu_conv3x3(x, scale_c, shift_c, w, bias_bc, residual=None):
         return fused_gn_silu_conv3x3_plain(x, scale_c, shift_c, w, bias_bc, residual)
     if x.device.type != "cuda":
         raise ValueError(f"fused_gn_silu_conv3x3: unsupported device {x.device}")
+    _build.refuse_autograd("fused_gn_silu_conv3x3", x, scale_c, shift_c, w, bias_bc, residual)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_gn_silu_conv3x3: dtype {x.dtype} not supported")
     B, H, W, C = x.shape
@@ -195,7 +198,6 @@ def fused_gn_silu_conv3x3(x, scale_c, shift_c, w, bias_bc, residual=None):
     x = x.contiguous()
     scale_c = scale_c.float().contiguous()
     shift_c = shift_c.float().contiguous()
-    w = w.to(x.dtype).contiguous()
     bias_bc = bias_bc.float().contiguous()
     residual = residual.contiguous() if residual is not None else None
     res_ptr = residual.data_ptr() if residual is not None else None
@@ -204,12 +206,13 @@ def fused_gn_silu_conv3x3(x, scale_c, shift_c, w, bias_bc, residual=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16:
         plan = conv_plan(B, H, W, C, Cout)
-        wpk = packed_weights(w, plan["nb"])
+        wpk = packed_weights(w, plan["nb"])  # in bf16, from w in its own dtype
         rc = lib.fgc_tc_forward(x.data_ptr(), scale_c.data_ptr(), shift_c.data_ptr(),
                                 wpk.data_ptr(), bias_bc.data_ptr(), res_ptr, out.data_ptr(),
                                 B, H, W, C, Cout, plan["th"], plan["nb"], plan["stages"],
                                 stream)
     else:
+        w = w.float().contiguous()
         rc = lib.fgc_fma_forward(x.data_ptr(), scale_c.data_ptr(), shift_c.data_ptr(),
                                  w.data_ptr(), bias_bc.data_ptr(), res_ptr, out.data_ptr(),
                                  B, H, W, C, Cout, stream)

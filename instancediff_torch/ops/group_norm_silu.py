@@ -229,6 +229,7 @@ def group_norm_silu(x, gamma, beta, num_groups, eps=1e-5, silu=True):
     and any C with C % num_groups == 0; gamma/beta [C]. Output in x's dtype."""
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, gamma, beta, num_groups, eps, silu)
+    _build.refuse_autograd("group_norm_silu", x, gamma, beta)
     out = group_norm_silu_cuda(x, gamma, beta, num_groups, eps, silu)
     _build.count_launch(group_norm_silu)
     return out

@@ -1,5 +1,5 @@
-"""Conditional DDPM reverse sampler (port of the sampling half of
-``instancediff_tpu/sde/ddpm_sde.py``).
+"""Conditional DDPM: the forward diffusion the train step draws and the
+reverse sampler (port of ``instancediff_tpu/sde/ddpm_sde.py``).
 
 A variance-preserving DDPM on the clean image, x_t = sqrt(abar_t) x0 +
 s sqrt(1 - abar_t) eps with s = ``max_sigma``; the degraded input conditions
@@ -48,6 +48,26 @@ class DDPMSDE:
         self.max_sigma = float(max_sigma)
         self.eta = 1.0  # the sampler's default eta
         self.alphas_bar = make_cosine_alphas_bar(self.T)
+
+    def forward_diffusion(self, x0: torch.Tensor, mu: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          t: Optional[torch.Tensor] = None,
+                          eps: Optional[torch.Tensor] = None):
+        """``(t, x_t, eps)``: t ~ U{1..T} per sample, shaped [B,1,1,1], eps ~
+        N(0, I) like x0, x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) s eps.
+        ``mu`` is unused (the condition enters the net). ``t`` ([B] ints) and
+        ``eps`` replace draws from ``generator`` (t first, then the noise)."""
+        B = x0.shape[0]
+        if t is None:
+            t = torch.randint(1, self.T + 1, (B,), generator=generator, device=x0.device)
+        t = torch.as_tensor(t, device=x0.device).long().reshape(B)
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+        eps = eps.to(x0.device, x0.dtype)
+        bshape = (B,) + (1,) * (x0.ndim - 1)
+        abar = self.alphas_bar.to(x0.device)[t].reshape(bshape).to(x0.dtype)
+        x_t = torch.sqrt(abar) * x0 + torch.sqrt(1.0 - abar) * self.max_sigma * eps
+        return t.reshape(bshape), x_t, eps
 
     def coeff_table(self, sample_steps: Optional[int] = None, eta: Optional[float] = None,
                     device="cpu") -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""Instance-wise drift SDE reverse sampler (port of
-``instancediff_tpu/sde/drift_sde.py``).
+"""Instance-wise drift SDE: the forward diffusion the train step draws and
+the reverse sampler (port of ``instancediff_tpu/sde/drift_sde.py``).
 
 The JAX sampler is one ``lax.scan`` whose body takes the timestep as data.
 Here the body is ``DriftSDE.step``: it reads its coefficients from a
 per-call table on the device (``coeff_table``), so a Python loop and a
 captured CUDA graph run the same step (``stepping.py``). Torch cannot
 reproduce JAX's threefry bits, so every random draw is injectable:
-``reverse_ddpm`` takes the initial noise and the per-step noise as tensors,
-or draws them from an explicit ``torch.Generator``."""
+``forward_diffusion`` takes the timesteps and the noise as tensors, and
+``reverse_ddpm`` the initial noise and the per-step noise, or they draw them
+from an explicit ``torch.Generator``."""
 
 from __future__ import annotations
 
@@ -40,6 +41,41 @@ class DriftSDE:
         self.drift_schedule = make_schedule(drift_schedule, self.T)
         self.noise_schedule = make_schedule(noise_schedule, self.T)
         self.sigmas = self.max_sigma * torch.sqrt(self.noise_schedule)
+
+    def marginal(self, x0: torch.Tensor, mu: torch.Tensor, t):
+        """Mean and std of x_t | (x0, mu) for integer t [B] (or a scalar):
+        ``(x0 + s_d[t] (mu - x0), sigma[t])``, each shaped to broadcast over
+        x0's trailing axes."""
+        t = torch.as_tensor(t, device=x0.device)
+        bshape = (-1,) + (1,) * (x0.ndim - 1)
+        sd = self.drift_schedule.to(x0.device)[t].reshape(bshape)
+        sig = self.sigmas.to(x0.device)[t].reshape(bshape)
+        return x0 + sd * (mu - x0), sig
+
+    def forward_diffusion(self, x0: torch.Tensor, mu: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          t: Optional[torch.Tensor] = None,
+                          std_noise: Optional[torch.Tensor] = None):
+        """``(t, x_t, drift, std_noise, noise)`` for a batch: t ~ U{1..T} per
+        sample, shaped [B,1,1,1]; ``drift`` the scheduled drift
+        s_d[t] (mu - x0); ``std_noise`` ~ N(0, I) like x0; ``noise`` =
+        sigma[t] std_noise; x_t = x0 + drift + noise. ``t`` ([B] ints) and
+        ``std_noise`` replace draws from ``generator`` (t first, then the
+        noise)."""
+        B = x0.shape[0]
+        if t is None:
+            t = torch.randint(1, self.T + 1, (B,), generator=generator, device=x0.device)
+        t = torch.as_tensor(t, device=x0.device).long().reshape(B)
+        if std_noise is None:
+            std_noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+                                    dtype=x0.dtype)
+        std_noise = std_noise.to(x0.device, x0.dtype)
+        bshape = (B,) + (1,) * (x0.ndim - 1)
+        sd = self.drift_schedule.to(x0.device)[t].reshape(bshape).to(x0.dtype)
+        sig = self.sigmas.to(x0.device)[t].reshape(bshape).to(x0.dtype)
+        drift = sd * (mu - x0)
+        noise = sig * std_noise
+        return t.reshape(bshape), x0 + drift + noise, drift, std_noise, noise
 
     @staticmethod
     def posterior_coeffs(sig_t: torch.Tensor, sig_p: torch.Tensor, eta: float):
@@ -101,3 +137,7 @@ class DriftSDE:
         state = SamplerState(mu, self.coeff_table(sample_steps, eta, mu.device))
         return run_steps(self, state, mu, lambda: self.step(state, predict_fn), generator,
                          init_noise, step_noise)
+
+    def reverse_ode(self, mu: torch.Tensor, predict_fn: PredictFn, **kwargs):
+        """The deterministic sampler: ``reverse_ddpm`` at eta=0."""
+        return self.reverse_ddpm(mu, predict_fn, eta=0.0, **kwargs)

@@ -5,7 +5,8 @@
 Per iteration ``{iter}_DN.ckpt`` and ``{iter}_NN.ckpt`` (the drift and noise
 nets without their score-map prompts) and, when the nets have prompts,
 ``{iter}_DP.ckpt`` and ``{iter}_NP.ckpt`` (the ``smm_*`` subtrees); the EMA
-shadows under the rolling, historically misspelled ``lastest_{DN,DP,NN,NP}_ema.ckpt``.
+shadows under the rolling, historically misspelled ``lastest_{DN,DP,NN,NP}_ema.ckpt``;
+the trainer's state (optimizers, step, EMA) in ``{iter}.state``.
 Trees are nested dicts of arrays in flax's layout (``utils/convert.py``
 turns them into the port's parameters). ``load_pytree`` needs no template:
 it returns the file's tree as written."""
@@ -15,6 +16,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from . import msgpack
@@ -97,3 +99,21 @@ def load_bundle(models_dir: str, iteration, use_ema: bool = False) -> tuple:
         return load_pytree(path(kind)) if os.path.isfile(path(kind)) else None
 
     return load_pytree(path("DN")), optional("DP"), load_pytree(path("NN")), optional("NP")
+
+
+def save_training_state(state_dir: str, iteration, epoch, opt_states: Dict,
+                        extra: Optional[Dict] = None) -> int:
+    """``{iter}.state``: ``{"epoch", "iter", "opt": opt_states, "extra"}``,
+    epoch and iter as the 0-d int64 arrays the JAX package's ``save_pytree``
+    makes of them, so both write the same bytes for the same state; returns
+    the bytes written."""
+    tree = {"epoch": np.asarray(int(epoch), np.int64), "iter": np.asarray(int(iteration), np.int64),
+            "opt": opt_states, "extra": extra or {}}
+    return save_pytree(tree, os.path.join(state_dir, f"{iteration}.state"))
+
+
+def load_training_state(path: str) -> Dict:
+    """The tree of a ``{iter}.state`` file, epoch and iter as python ints."""
+    tree = load_pytree(path)
+    tree["epoch"], tree["iter"] = int(tree["epoch"]), int(tree["iter"])
+    return tree

@@ -518,3 +518,94 @@ def test_msgpack_codec_on_a_cuda_bf16_tensor(cuda):
     back = msgpack.from_bytes(data)
     assert back["n"] == 3 and back["w"].dtype == torch.bfloat16
     assert torch.equal(back["w"], t.cpu())
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_engine(path, dtype):
+    """A trainable engine at the graph tests' widths, seeded."""
+    kw = dict(sde=(DDPMSDE(T=GRAPH_T) if path == "ddpm" else DriftSDE(T=GRAPH_T, max_sigma=0.4)),
+              dtype=dtype, tiny_text_encoder=True, device="cuda", if_train=True,
+              image_size=GRAPH_RES, noise_net_lr=1e-3)
+    if path == "ddpm":
+        eng = CLIPDDPMEngine(GRAPH_NET, **kw)
+    else:
+        eng = CLIPDriftEngine(GRAPH_NET, GRAPH_NET, score_map_ch_mult=(1, 1), score_map_ngf=8,
+                              drift_net_lr=1e-3, **kw)
+    _randomize_(eng.nets, seed=1)
+    _randomize_(eng.text_encoder, seed=2)
+    return eng
+
+
+def _train_batch(seed):
+    rng = np.random.default_rng(seed)
+    batch = _graph_batch(seed)
+    batch["target"] = rng.uniform(-1, 1, batch["input"].shape).astype(np.float32)
+    return batch
+
+
+def test_kernel_wrappers_refuse_autograd(cuda):
+    """A kernel's output has no autograd history: each wrapper raises when
+    gradients are on and an input requires grad, and runs under no_grad."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = _randn(gen, 2, 8, 8, 64).requires_grad_()
+    g, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    s = torch.ones(2, 64, device=cuda)
+    w = _randn(gen, 3, 3, 64, 64, scale=0.1)
+    q = _randn(gen, 2, 4, 16, 64).requires_grad_()
+    calls = {"fused_gn_silu_conv3x3": lambda: fused_gn_silu_conv3x3(x, s, s, w, s),
+             "gn_channel_affine": lambda: gn_channel_affine(x, g, b, 32),
+             "group_norm_silu": lambda: group_norm_silu(x, g, b, 32),
+             "flash_attention": lambda: flash_attention(q, q, q)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["drift", "ddpm"])
+def test_train_step_reaches_every_parameter(cuda, path, dtype):
+    """A train step on the card launches no kernel and leaves every trained
+    parameter a finite gradient that is not all zero (the SMM contexts
+    through the frozen text tower too); the key biases, which the softmax
+    cancels in exact arithmetic, only finite; parameters and Adam's
+    moments stay float32."""
+    eng = _train_engine(path, dtype)
+    before = kernel_launches()
+    loss = eng.optimize_parameters(_train_batch(0), torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert kernel_launches() == before and np.isfinite(loss)
+    for key in eng.optimizers:
+        for name, p in eng.nets[key].named_parameters():
+            assert p.dtype == torch.float32 and p.grad is not None, name
+            assert torch.isfinite(p.grad).all(), name
+            if not name.endswith(("k_proj.bias", ".k.bias")):
+                assert p.grad.abs().max() > 0, name
+            st = eng.optimizers[key].state[p]
+            assert st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.float32
+        assert all(c.grad.abs().max() > 0 for c in eng.nets[key].smm_contexts())
+    assert not any(p.requires_grad for p in eng.text_encoder.parameters())
+
+
+@pytest.mark.parametrize("path", ["drift", "ddpm"])
+def test_compiled_sampler_recaptures_after_a_train_step(deterministic, path):
+    """The sampler's graph reads the nets by address: after
+    ``optimize_parameters`` updates them in place the next compiled call
+    captures anew, and matches the eager loop on the new weights."""
+    eng = _train_engine(path, torch.float32)
+    gen = torch.Generator(device="cuda")
+    batch = _graph_batch(3)
+    for use_ema in (False, True):
+        eng.test(batch, gen.manual_seed(1), sample_steps=2, use_ema=use_ema)
+    captures = eng.captures
+    for step in range(10):  # the EMA ticks at step 10
+        eng.optimize_parameters(_train_batch(step), gen.manual_seed(10 + step))
+    for use_ema in (False, True):
+        got = eng.test(batch, gen.manual_seed(2), sample_steps=2, use_ema=use_ema)
+        want = eng.test(batch, gen.manual_seed(2), sample_steps=2, use_ema=use_ema,
+                        compiled=False)
+        _assert_graph_matches_eager(got, want, torch.float32)
+    assert eng.captures == captures + 2
