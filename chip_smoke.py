@@ -100,15 +100,41 @@ Phases, one JSON line each, in order:
                 from drift_unfused; max_abs_err over every shape),
                 the card's name and power limit, and last
                 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are
-                its wrapper's counts over the graph-served main requests
-                and the bundle phase's flagship-width runs (the
+                its wrapper's counts over the graph-served main requests,
+                the bundle phase's flagship-width runs (the
                 ``from_config`` request and testUM; not the golden, whose
-                config and fp32 are not a main path's): the warm-up
+                config and fp32 are not a main path's) and the encoders
+                phase's requests and precompute_embeddings: the warm-up
                 steps' launches plus, per replay, the per-step count recorded at capture
                 (the eager comparison is counted apart); ``profile`` counts
                 the replayed kernels by name on the device and holds them to
                 the same per-step counts.
 
+  6b. encoders -- the conditioning encoders at full width, seeded random
+                weights: the flash kernel at the ViT-B/16 tower's shapes
+                ([8,12,197,64] and [8,12,257,64] fp32, [8,12,197,64] bf16)
+                against its plain version with bound and SDPA's time; the
+                on-device image context: a bf16 flagship_test.yml bundle and
+                a ViT-B/16 (fp32) written as image_params.ckpt, served by
+                ``Restorer.from_config`` with ``test.on_device_emb`` (requests
+                of 8, 3 and 8 at 4 steps through the graph, one eager; each
+                call's 12 tower flash launches held beside the steps'), the
+                embeddings' norms, the tower against itself on the plain
+                attention, its ms per call and device busy, a request with
+                the tower and one with ``A_emb`` given; ``CLIP_Type:
+                BiomedCLIP`` at the flagship's widths (256 px, batch 8,
+                bf16, the 12-layer PubMedBERT tower): drift requests at 4
+                steps and two at T=100, the per-call text encodings profiled,
+                DDPM requests, one drift train step; then
+                ``tools/precompute_embeddings`` on a seeded ViT-B/16 open_clip
+                state dict and 10 phantoms, each file held to the tower run
+                directly. Its graph-served runs and the tool count in the
+                kernels line: the steps' in the kernels' rows, the image
+                tower's flash launches (fp32) and its shapes' timings and
+                errors in the flash row's field ``image_tower``, its errors
+                in the row's ``max_abs_err`` too. It runs after
+                ``per_forward``'s timings
+                (its profiles record kernels before its train step);
   7. train  -- ``tools/trainUM`` at flagship width (224 px, batch 4) over
                 SpeckleMed phantoms: drift fp32 (``flagship_tpu.yml``, remat
                 on) 12 iterations with checkpoints at 6 and 12 and inline
@@ -499,19 +525,19 @@ def randomize_(module: torch.nn.Module, seed: int) -> None:
             p.copy_(torch.from_numpy(np.asarray(r, dtype=np.float32)))
 
 
-def flagship_engine(dtype, engine_opts=None) -> CLIPDriftEngine:
+def flagship_engine(dtype, engine_opts=None, clip_type="CLIP", **kw) -> CLIPDriftEngine:
     eng = CLIPDriftEngine(FLAGSHIP, FLAGSHIP, score_map_ch_mult=(1, 1, 2, 4),
-                          score_map_ngf=64, use_image_context=True, CLIP_Type="CLIP",
+                          score_map_ngf=64, use_image_context=True, CLIP_Type=clip_type,
                           sde=DriftSDE(T=T, max_sigma=0.4), dtype=dtype,
-                          engine_opts=engine_opts, device="cuda")
+                          engine_opts=engine_opts, device="cuda", **kw)
     for i, key in enumerate(("d_ema", "n_ema")):  # the nets test(use_ema=True) runs
         randomize_(eng.nets[key], seed=10 + i)
     randomize_(eng.text_encoder, seed=20)
     return eng
 
 
-def ddpm_engine(dtype) -> CLIPDDPMEngine:
-    eng = CLIPDDPMEngine(DDPM_NET, use_image_context=True, CLIP_Type="CLIP",
+def ddpm_engine(dtype, clip_type="CLIP") -> CLIPDDPMEngine:
+    eng = CLIPDDPMEngine(DDPM_NET, use_image_context=True, CLIP_Type=clip_type,
                          sde=DDPMSDE(T=T, max_sigma=DDPM_MAX_SIGMA), dtype=dtype,
                          device="cuda")
     randomize_(eng.nets["n_ema"], seed=30)
@@ -835,22 +861,29 @@ def check_graph_vs_eager(what, got, want, dtype) -> dict:
             "bit_identical": bool(torch.equal(got, want))}
 
 
-def serve(path, eng, build_s, gpu) -> tuple:
+def serve(path, eng, build_s, gpu, phase="main", name=None, res=RES, per_call=None,
+          restorer=None) -> tuple:
     """Requests through ``Restorer.restore`` on the compiled sampler: 8
     images (the first call: warm-up and capture), 3 (padded to 8: the same
     graph), 8 again (steady state); then the first request's batch eagerly
     with the same generator seed, held against the graph's output. Each
-    request's launches are counted from 0 (see the module docstring).
-    Returns the launches of the graph-served requests."""
-    restorer = Restorer(eng, batch_size=BATCH, sample_steps=SAMPLE_STEPS, eta=ETA, seed=0,
-                        device="cuda")
+    request's launches are counted from 0 (see the module docstring) and
+    held to ``PATHS[path]`` per step plus ``per_call`` per sampler call
+    (the image tower's, outside the graph). Lines are printed under
+    ``phase`` and ``name`` (default ``path``), at ``res`` px; ``restorer``
+    (default: one on ``eng``) serves them. Returns the launches of the
+    graph-served requests."""
+    name = name or path
+    per_call = Counter(per_call or {})
+    restorer = restorer or Restorer(eng, batch_size=BATCH, sample_steps=SAMPLE_STEPS, eta=ETA,
+                                    seed=0, device="cuda")
     n_steps = len(strided_sampling_grid(T, SAMPLE_STEPS)[0])
     rng = np.random.default_rng(0)
     total = Counter()
     torch.cuda.reset_peak_memory_stats()
     first = None
     for n_img in (8, 3, 8):
-        images = rng.uniform(-1, 1, (n_img, RES, RES, 1)).astype(np.float32)
+        images = rng.uniform(-1, 1, (n_img, res, res, 1)).astype(np.float32)
         types = [ARTIFACT_PROMPTS[i % len(ARTIFACT_PROMPTS)] for i in range(n_img)]
         captures = eng.captures
         replays = eng.last_graph.replays if eng.last_graph else 0
@@ -865,19 +898,25 @@ def serve(path, eng, build_s, gpu) -> tuple:
         replayed = entry.replays - (0 if captured else replays)
         per_step = {k: entry.launches[NAMES[k]] for k in PATHS[path]}
         calls = -(-n_img // BATCH)  # sampler calls: the request is chunked to the batch
-        want = {k: n * (replayed + captured) for k, n in per_step.items()}
+        want = {k: n * (replayed + captured) + per_call[k] * calls for k, n in per_step.items()}
         if out.shape != images.shape or not np.isfinite(out).all():
-            raise AssertionError(f"{path}, request of {n_img}: bad output {out.shape}, "
+            raise AssertionError(f"{name}, request of {n_img}: bad output {out.shape}, "
                                  f"finite={np.isfinite(out).all()}")
         if (per_step != PATHS[path] or got != want or captured != (first is None)
                 or replayed != n_steps * calls):
-            raise AssertionError(f"{path}, request of {n_img}: launches {got} (want {want}), "
+            raise AssertionError(f"{name}, request of {n_img}: launches {got} (want {want}), "
                                  f"per step at capture {per_step} (want {PATHS[path]}), "
                                  f"{captured} captures, {replayed} replays")
         total.update(got)
+        # the launches outside the graph are the image tower's: counted
+        # apart from the steps' (the kernels line's flash row gives them a
+        # field of their own)
+        outside = got["flash"] - per_step["flash"] * (replayed + captured)
+        total["flash"] -= outside
+        total["flash_tower"] += outside
         if first is None:
             first = (images, types, out)
-        emit({"phase": "main", "path": path, "images": n_img, "batch": BATCH, "res": RES,
+        emit({"phase": phase, "path": name, "images": n_img, "batch": BATCH, "res": res,
               "T": T, "sampler_steps": n_steps, "eta": ETA, "dtype": "bfloat16",
               "compiled": True, "captured": bool(captured), "seconds": round(seconds, 4),
               "ms_per_step": round(seconds / n_steps / calls * 1e3, 3),
@@ -900,22 +939,23 @@ def serve(path, eng, build_s, gpu) -> tuple:
     torch.cuda.synchronize()
     seconds = time.time() - t0
     got = read_launches()
-    want = {k: n * n_steps for k, n in PATHS[path].items()}
+    want = {k: n * n_steps + per_call[k] for k, n in PATHS[path].items()}
     if got != want:
-        raise AssertionError(f"{path}, eager request: launches {got}, want {want}")
-    emit({"phase": "main", "path": path, "what": "graph vs eager, the first request's batch, "
-                                                 "same generator seed",
-          **check_graph_vs_eager(f"{path} request", graph_out, eager, torch.bfloat16),
+        raise AssertionError(f"{name}, eager request: launches {got}, want {want}")
+    emit({"phase": phase, "path": name, "what": "graph vs eager, the first request's batch, "
+                                                "same generator seed",
+          **check_graph_vs_eager(f"{name} request", graph_out, eager, torch.bfloat16),
           "graph_ms_per_step_steady": round(steady_ms, 3),
           "eager_ms_per_step": round(seconds / n_steps * 1e3, 3), "eager_launches": got,
           "gpu": gpu})
     return total
 
 
-def serve_full_steps(eng, gpu) -> Counter:
+def serve_full_steps(eng, gpu, phase="main", name="drift") -> Counter:
     """Two 8-image requests at all T=100 steps (bench.py's flagship count):
     the first captures that step count's graph, the second is steady; their
-    launches, checked as ``serve`` checks them."""
+    launches, checked as ``serve`` checks them; lines under ``phase`` and
+    ``name``."""
     restorer = Restorer(eng, batch_size=BATCH, sample_steps=None, eta=ETA, seed=1,
                         device="cuda")
     rng = np.random.default_rng(1)
@@ -939,7 +979,7 @@ def serve_full_steps(eng, gpu) -> Counter:
             raise AssertionError(f"T={T} request: launches {got} (want {want}), "
                                  f"{replayed} replays")
         total.update(got)
-        emit({"phase": "main", "path": "drift", "images": BATCH, "res": RES, "T": T,
+        emit({"phase": phase, "path": name, "images": BATCH, "res": RES, "T": T,
               "sampler_steps": T, "eta": ETA, "dtype": "bfloat16", "compiled": True,
               "captured": bool(captured), "seconds": round(seconds, 4),
               "ms_per_step": round(seconds / T * 1e3, 3),
@@ -975,15 +1015,16 @@ BUNDLE_CONFIG = "Configurations/flagship_test.yml"
 BUNDLE_STEPS, TESTUM_PER_TYPE = 4, 2
 
 
-def bundle_config(tmp) -> tuple:
+def bundle_config(tmp, **test_opt) -> tuple:
     """A copy of ``BUNDLE_CONFIG`` in ``tmp``: bf16, the bundle in
-    ``tmp/models``, results in ``tmp/results``, and its test set a SpeckleMed
-    dataset of numpy phantoms written in ``tmp/data``. Returns (path, options)."""
+    ``tmp/models``, results in ``tmp/results``, ``test`` updated with
+    ``test_opt``, and its test set a SpeckleMed dataset of numpy phantoms
+    written in ``tmp/data``. Returns (path, options)."""
     with open(BUNDLE_CONFIG) as f:
         opt = yaml.safe_load(f)
     opt["models"]["DriftNoise"]["dtype"] = "bfloat16"
     opt["test"].update(pth_dir=os.path.join(tmp, "models"),
-                       result_dir=os.path.join(tmp, "results"))
+                       result_dir=os.path.join(tmp, "results"), **test_opt)
     ds = opt["datasets"]["test"]
     ds["dataset_file"] = write_speckle_med(os.path.join(tmp, "data"), TESTUM_PER_TYPE,
                                            opt["resolution"], ds["emb_dim"],
@@ -1147,6 +1188,295 @@ def bundle_phase(gpu) -> Counter:
                                            for t in batch_s[1:]],
               "launches": got, "gpu": gpu})
     return total
+
+
+# ---------------------------------------------------------------- encoders
+
+# the image tower's attention on the flash kernel: [B, heads, tokens, 64] at
+# 224 px (197 tokens) and 256 px (257), fp32 (the tower's dtype) and bf16
+TOWER_FLASH_SHAPES = [((BATCH, 12, 197, 64), torch.float32), ((BATCH, 12, 257, 64), torch.float32),
+                      ((BATCH, 12, 197, 64), torch.bfloat16)]
+TOWER_LAYERS = 12  # ViT-B/16: one flash launch per block per call
+# the image context is L2-normalised: each norm within this of 1
+NORM_TOL = 1e-5
+# precompute_embeddings: each written embedding against the tower run directly
+EMB_TOL = 1e-5
+PRECOMPUTE_PER_TYPE = 2
+
+
+def device_busy(fn, reps: int = 3) -> dict:
+    """``fn`` alone on the device under torch.profiler, ``reps`` times after
+    a warm-up: per call the host wall (synchronised), the device time of
+    its kernels, the kernels launched and the host's launch calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3 / reps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    host = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+               and any(e.name.startswith(h) for h in HOST_LAUNCHES[:2]))
+    return {"wall_ms": round(wall, 3), "device_busy_ms": round(busy, 3),
+            "idle_share": round(1 - busy / wall, 4), "kernels": len(kernels) // reps,
+            "host_kernel_launches": host // reps}
+
+
+def vit_state_dict(rng, width=768, layers=12, embed=512, grid=14, patch=16) -> dict:
+    """A seeded random ViT-B/16 state dict in open_clip's timm layout
+    (``visual.trunk.*``, fused ``qkv``, ``visual.head.proj``): weights ~
+    N(0, 1/fan_in), norm scales ~ 1 + 0.1 N, biases ~ 0.1 N, the class
+    token and position table ~ 0.02 N."""
+    def w(*shape):
+        fan_in = int(np.prod(shape[1:]))
+        return torch.from_numpy((rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32))
+
+    def n(*shape, scale=0.1, mean=0.0):
+        return torch.from_numpy((mean + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    sd = {"visual.trunk.patch_embed.proj.weight": w(width, 3, patch, patch),
+          "visual.trunk.patch_embed.proj.bias": n(width),
+          "visual.trunk.cls_token": n(1, 1, width, scale=0.02),
+          "visual.trunk.pos_embed": n(1, grid * grid + 1, width, scale=0.02),
+          "visual.trunk.norm.weight": n(width, mean=1.0), "visual.trunk.norm.bias": n(width),
+          "visual.head.proj.weight": w(embed, width)}
+    for i in range(layers):
+        b = f"visual.trunk.blocks.{i}."
+        sd.update({b + "norm1.weight": n(width, mean=1.0), b + "norm1.bias": n(width),
+                   b + "norm2.weight": n(width, mean=1.0), b + "norm2.bias": n(width),
+                   b + "attn.qkv.weight": w(3 * width, width), b + "attn.qkv.bias": n(3 * width),
+                   b + "attn.proj.weight": w(width, width), b + "attn.proj.bias": n(width),
+                   b + "mlp.fc1.weight": w(4 * width, width), b + "mlp.fc1.bias": n(4 * width),
+                   b + "mlp.fc2.weight": w(width, 4 * width), b + "mlp.fc2.bias": n(width)})
+    return sd
+
+
+def serve_with_tower(gpu) -> Counter:
+    """The on-device ``emb_A`` path: a seeded ``flagship_test.yml`` engine
+    (224 px, bf16) saved with its text sidecar, a seeded ViT-B/16 (width 768,
+    12 layers, 12 heads, fp32) written as ``image_params.ckpt`` with the
+    port's codec, both served by ``Restorer.from_config`` with
+    ``test.on_device_emb``; requests of 8, 3 (padded) and 8 at 4 steps
+    through the graph and one eager (``serve``: the tower's 12 flash
+    launches per call beside the steps', returned as ``flash_tower``); the
+    image context's norms; the
+    tower against itself on the plain attention (fp32); its ms per call
+    and device busy; a request with the tower and one with ``A_emb``
+    given. Returns the graph-served requests' launches."""
+    from instancediff_torch.models import text_encoder as text_mod
+    from instancediff_torch.models.clip_vit import build_image_tower, image_context
+    from instancediff_torch.serving import IMAGE_SIDECAR
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tower_") as tmp:
+        cfg, opt = bundle_config(tmp, on_device_emb=True)
+        models = opt["test"]["pth_dir"]
+        res = opt["resolution"]
+        eng = create_model(None, opt["models"]["DriftNoise"], phase="test",
+                           sde=create_sde(opt["sdes"]["driftSDE"]), device="cuda")
+        for i, key in enumerate(("drift", "noise", "d_ema", "n_ema")):
+            randomize_(eng.nets[key], seed=60 + i)
+        randomize_(eng.text_encoder, seed=64)
+        eng.save(models, "latest")
+        del eng
+        tower = build_image_tower(embed_dim=512, image_size=res)
+        randomize_(tower, seed=65)
+        ckpt.save_pytree(flax_params(tower), os.path.join(models, IMAGE_SIDECAR))
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        r = Restorer.from_config(cfg, batch_size=BATCH, sample_steps=SAMPLE_STEPS, eta=ETA,
+                                 seed=0, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        eng = r.engine
+        if eng.image_tower is None or sum(p.numel() for p in eng.image_tower.parameters()) \
+                != sum(p.numel() for p in tower.parameters()):
+            raise AssertionError("from_config attached no ViT-B/16 tower")
+        total = serve("drift", eng, load_s, gpu, phase="encoders", name="drift_on_device_emb",
+                      res=res, per_call={"flash": TOWER_LAYERS}, restorer=r)
+
+        mu = torch.rand(BATCH, res, res, 1, generator=torch.Generator(device="cuda")
+                        .manual_seed(8), device="cuda") * 2 - 1
+        with torch.inference_mode():
+            emb = image_context(eng.image_tower, mu)
+            norms = torch.linalg.vector_norm(emb.float(), dim=-1).flatten()
+            with mock.patch.object(text_mod, "flash_attention", flash_attention_plain):
+                plain = image_context(eng.image_tower, mu)
+            raw = eng.image_tower(mu)
+            with mock.patch.object(text_mod, "flash_attention", flash_attention_plain):
+                raw_plain = eng.image_tower(mu)
+            tower_ms = cuda_ms(lambda: image_context(eng.image_tower, mu))
+            busy = device_busy(lambda: image_context(eng.image_tower, mu))
+        if emb.shape != (BATCH, 1, 512) or not torch.isfinite(emb).all() or \
+                (norms - 1).abs().max().item() > NORM_TOL:
+            raise AssertionError(f"image context: shape {tuple(emb.shape)}, norms {norms}")
+        err = (raw - raw_plain).abs().max().item()
+        limit = FORWARD_TOL * max(1.0, raw_plain.abs().max().item())
+        if not err <= limit:
+            raise AssertionError(f"tower, flash kernel vs plain attention: {err} > {limit}")
+        # a request with the tower, then one with A_emb given (the tower
+        # detached: the same graph, its image context from the request)
+        images = np.random.default_rng(9).uniform(-1, 1, (BATCH, res, res, 1)).astype(np.float32)
+        emb_given = np.random.default_rng(10).standard_normal((BATCH, 1, 512)).astype(np.float32)
+        timed = {}
+        for what in ("with_tower", "A_emb_given", "with_tower_again"):
+            if what == "A_emb_given":
+                attached, eng.image_tower = eng.image_tower, None
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r.restore(images, "speckle in OCT", emb=emb_given)
+            torch.cuda.synchronize()
+            timed[what] = round((time.time() - t0) * 1e3, 3)
+            if what == "A_emb_given":
+                eng.image_tower = attached
+        emit({"phase": "encoders", "what": "the on-device image context: from_config with "
+                                           "test.on_device_emb (flagship_test.yml, 224 px, bf16; "
+                                           "the ViT-B/16 tower fp32)",
+              "from_config_s": round(load_s, 3), "tower_params": sum(
+                  p.numel() for p in eng.image_tower.parameters()),
+              "emb_norm_min_max": [norms.min().item(), norms.max().item()], "norm_tol": NORM_TOL,
+              "tower_kernel_vs_plain_max_abs_err": err, "tol": limit,
+              "normalised_kernel_vs_plain_max_abs_err": (emb - plain).abs().max().item(),
+              "tower_ms_per_call": round(tower_ms, 3), "tower_profile": busy,
+              "request_ms_8_images_4_steps": timed, "gpu": gpu})
+        del r, eng, tower
+        torch.cuda.empty_cache()
+    return total
+
+
+def encoded_text_profile(eng) -> dict:
+    """The per-call text encodings of a sampler call (``_inputs``: every
+    SMM context of both nets, and the prompts), timed and profiled."""
+    batch = {"input": torch.zeros(BATCH, RES, RES, 1, device="cuda"),
+             "type_idx": torch.arange(BATCH, device="cuda") % len(ARTIFACT_PROMPTS)}
+    with torch.inference_mode():
+        return device_busy(lambda: eng._inputs(batch, True))
+
+
+def biomedclip_paths(gpu) -> Counter:
+    """``CLIP_Type: BiomedCLIP`` at the flagship's widths (nf 64, ch_mult
+    [1,2,4,4], 768-wide SMM contexts; the 12-layer PubMedBERT tower, context
+    256), 256 px, batch 8, bf16: the drift engine's requests of 8, 3 and 8
+    at 4 steps through the graph and one eager, two T=100 requests, the
+    per-call text encodings profiled; the DDPM engine's requests; one drift
+    train step on the plain path. Returns the graph-served launches."""
+    total = Counter()
+    t0 = time.time()
+    eng = flagship_engine(torch.bfloat16, clip_type="BiomedCLIP")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    if eng.token_embed_dim != 768 or eng.prompt_mask is None:
+        raise AssertionError("the BiomedCLIP engine's contexts are not 768 wide")
+    total.update(serve("drift", eng, build_s, gpu, phase="encoders", name="drift_biomedclip"))
+    total.update(serve_full_steps(eng, gpu, phase="encoders", name="drift_biomedclip"))
+    emit({"phase": "encoders", "what": "BiomedCLIP drift: the per-call text encodings (4 SMM "
+                                       "contexts x 2 nets x 5 prompts through the 12-layer "
+                                       "BERT tower), alone on the device",
+          "prompt_tokens": int(eng.prompt_mask.sum(dim=1).max()),
+          "text_encodings": encoded_text_profile(eng), "gpu": gpu})
+    del eng
+    torch.cuda.empty_cache()
+    eng = ddpm_engine(torch.bfloat16, clip_type="BiomedCLIP")
+    total.update(serve("ddpm", eng, 0.0, gpu, phase="encoders", name="ddpm_biomedclip"))
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = flagship_engine(torch.bfloat16, clip_type="BiomedCLIP", if_train=True, image_size=RES)
+    rng = np.random.default_rng(11)
+    batch = {"input": rng.uniform(-1, 1, (2, RES, RES, 1)).astype(np.float32),
+             "target": rng.uniform(-1, 1, (2, RES, RES, 1)).astype(np.float32),
+             "type_idx": np.array([0, 3]), "A_emb": np.zeros((2, 1, 512), np.float32)}
+    contexts = [c.detach().clone() for c in eng.nets["drift"].smm_contexts()]
+    before = sum(read_launches().values())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss = eng.optimize_parameters(batch, torch.Generator(device="cuda").manual_seed(12))
+    torch.cuda.synchronize()
+    moved = all(not torch.equal(a, b) for a, b in zip(contexts, eng.nets["drift"].smm_contexts()))
+    if not np.isfinite(loss) or not moved or sum(read_launches().values()) != before:
+        raise AssertionError(f"BiomedCLIP drift train step: loss {loss}, contexts moved {moved}")
+    emit({"phase": "encoders", "what": f"one BiomedCLIP drift train step on the plain path, "
+                                       f"{RES} px, batch 2, bf16 compute, fp32 master weights",
+          "loss": loss, "smm_contexts_moved": moved, "seconds_with_first_call": round(
+              time.time() - t0, 3), "gpu": gpu})
+    del eng
+    torch.cuda.empty_cache()
+    return total
+
+
+def precompute_phase(gpu) -> Counter:
+    """``tools/precompute_embeddings`` on the card: a seeded ViT-B/16 state
+    dict in open_clip's layout and 10 SpeckleMed phantoms at 224 px; each
+    written ``_emb.raw`` against the tower run directly (within
+    ``EMB_TOL``), and the index naming every file. Returns the tool's
+    launches (the tower's flash launches as ``flash_tower``)."""
+    from instancediff_torch.data.med_dataset import normalize_pair
+    from instancediff_torch.models.biomedclip import get_BiomedCLIP
+    from instancediff_torch.tools import precompute_embeddings
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_emb_") as tmp:
+        index = write_speckle_med(os.path.join(tmp, "data"), PRECOMPUTE_PER_TYPE, 224, 512,
+                                  ARTIFACT_PROMPTS)
+        path = os.path.join(tmp, "open_clip_vit_b16.bin")
+        torch.save(vit_state_dict(np.random.default_rng(13)), path)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = precompute_embeddings.main(["--index", index, "--checkpoint", path])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        got = Counter(read_launches())
+        with open(index) as f:
+            records = [rec for recs in json.load(f).values() for rec in recs]
+        model = get_BiomedCLIP(checkpoint_path=path, device="cuda")
+        images = np.stack([normalize_pair(np.fromfile(rec["A"], np.float32).reshape(224, 224, 1),
+                                          np.zeros(1), rec["name"])[0] for rec in records])
+        want = model.encode_image(images).float().cpu().numpy()
+        err = max(float(np.abs(np.fromfile(rec["A_emb"], np.float32) - w).max())
+                  for rec, w in zip(records, want))
+        named = all(os.path.isfile(rec["A_emb"]) and rec["A_emb"].endswith("_emb.raw")
+                    for rec in records)
+        calls = -(-len(records) // 8)
+        if n != len(records) or not named or not err <= EMB_TOL or \
+                got["flash"] != TOWER_LAYERS * calls:
+            raise AssertionError(f"precompute_embeddings: {n} of {len(records)} records, "
+                                 f"files named {named}, max abs err {err}, launches {got}")
+        emit({"phase": "encoders", "what": "instancediff_torch.tools.precompute_embeddings on "
+                                           "the card: a seeded ViT-B/16 open_clip state dict, "
+                                           "SpeckleMed phantoms at 224 px, batch 8",
+              "records": n, "distinct_images": len({rec["A"] for rec in records}),
+              "max_abs_err_vs_tower": err, "tol": EMB_TOL, "index_names_every_file": named,
+              "seconds": round(seconds, 3), "launches": dict(got), "gpu": gpu})
+        del model
+    got["flash_tower"], got["flash"] = got["flash"], 0
+    return got
+
+
+def encoders_phase(gpu, gen, worst) -> tuple:
+    """Phase ``encoders``: the flash kernel at the image tower's shapes
+    against its plain version (with bound and SDPA's time; the errors go
+    into ``worst["flash"]``), the on-device image context, the BiomedCLIP
+    paths and precompute_embeddings. Returns the launches of the runs that
+    count in the kernels line (the tower's flash launches as
+    ``flash_tower``) and the tower's shapes' measurements."""
+    tower = []
+    for shape, dtype in TOWER_FLASH_SHAPES:
+        m = measure_flash(shape, dtype, gen)
+        worst["flash"] = max(worst["flash"], m["max_abs_err"])
+        emit({"phase": "encoders", "kernel": NAMES["flash"], "shape": list(shape),
+              "what": "the image tower's attention", "dtype": str(dtype), "tol": TOL[dtype],
+              "per_call_launches": TOWER_LAYERS, **m, "gpu": gpu})
+        tower.append(dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""), **m))
+    total = serve_with_tower(gpu)
+    total.update(biomedclip_paths(gpu))
+    total.update(precompute_phase(gpu))
+    return total, tower
 
 
 # ---------------------------------------------------------------- training
@@ -1741,6 +2071,7 @@ def main() -> int:
     # 5. config -> bundle -> compiled sampler -> metrics, and the golden
     launches.update(bundle_phase(gpu))
 
+
     # 6. every kernel of every path, per UNet forward at that path's own
     # launch shapes; the kernels line takes the first path that launches it
     entries = {}
@@ -1773,10 +2104,29 @@ def main() -> int:
                 "bound_ms": tot["bound_ms"], "bound_by": bound_by.most_common(1)[0][0],
                 "library_ms": tot["library_ms"], "library": LIBRARY[kname]})
 
+    # 6b. the conditioning encoders: the image tower on the card (on-device
+    # emb_A through from_config), BiomedCLIP, precompute_embeddings; after
+    # the kernels' timings: after its train step torch.profiler records no
+    # kernel of the kernel libraries
+    encoded, tower = encoders_phase(gpu, gen, worst)
+    launches.update(encoded)
+
     # 7. training: trainUM at flagship width, resume, serving what it
     # trained; after the kernels' timings, which its profiles would disturb
     train_phase(gpu)
-    entries = [dict(e, launches=launches[k], max_abs_err=worst[k]) for k, e in entries.items()]
+    entries = {k: dict(e, launches=launches[k], max_abs_err=worst[k]) for k, e in entries.items()}
+    # the flash row is the UNet bottleneck's (bf16, the tensor-core kernel);
+    # the image tower's launches (fp32, the FMA kernel) and its shapes'
+    # measurements are a field of their own
+    entries["flash"]["image_tower"] = {
+        "launches": launches["flash_tower"], "launches_dtype": "float32", "per_shape": [
+            {k: m[k] for k in ("shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "max_abs_err")} for m in tower]}
+    idle = [k for k, e in entries.items() if not e["launches"]] + (
+        [] if launches["flash_tower"] else ["flash (image tower)"])
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
+    entries = list(entries.values())
     emit({"kernels": entries})
     print(gpu, flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)

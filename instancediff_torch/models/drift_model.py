@@ -26,6 +26,7 @@ from ..sde.drift_sde import DriftSDE
 from ..utils import checkpoint as ckpt
 from ..utils.convert import flax_params, load_flax_params
 from .engine import ARTIFACT_PROMPTS, SamplingEngine, factory_kwargs, score_map_loss
+from .layers import cast_compute_
 
 OPTIMIZE_TYPES = ("inputRes", "predict_noise", "", "predict_std_noise_acc_drift",
                   "predict_std_noise_scale_drift", "predict_x0")
@@ -170,7 +171,7 @@ class CLIPDriftEngine(SamplingEngine):
             n_target = std_noise
         degra_ctx = None
         if self.use_degra_context:
-            degra_ctx = self.text_encoder(self.prompt_ids, None)[type_idx][:, None, :]
+            degra_ctx = self._encode_text(None)[type_idx][:, None, :]
         dnet, nnet = self.nets["drift"], self.nets["noise"]
         tb = t.reshape(-1)
         pred_drift, d_sms = dnet(d_in[0], d_in[1], tb, type_idx, self._encode_prompts(dnet),
@@ -228,6 +229,20 @@ class CLIPDriftEngine(SamplingEngine):
                 "reference drift_noise_model.py:314)")
         return super().test(batch, *args, **kwargs)
 
+    def attach_image_tower(self, tower) -> None:
+        """Embed each sampler call's input on the device: with
+        ``use_image_context`` the image context becomes ``tower``'s
+        L2-normalised float32 embedding of ``mu`` (``clip_vit.
+        image_context``), computed once per call before the step loop, as
+        the JAX sampler hoists it before its scan; ``batch["A_emb"]`` is
+        then not read. The tower is moved to the engine's device, frozen
+        and kept in float32 whatever the engine's dtype. A captured graph
+        reads the image context from its static buffer, refilled each call,
+        so no graph is captured anew. Training keeps the batch's
+        ``A_emb``, as in JAX."""
+        self.image_tower = cast_compute_(tower.to(self.device), torch.float32).eval() \
+            .requires_grad_(False)
+
     def _inputs(self, batch, use_ema: bool):
         """The call's tensors: mu, type ids, the image context and (with
         ``use_degra_context``) the prompt's encoding without learnable
@@ -236,9 +251,10 @@ class CLIPDriftEngine(SamplingEngine):
         type_idx = self._tensor(batch["type_idx"], torch.int64)
         degra_ctx = None
         if self.use_degra_context:
-            degra_ctx = self.text_encoder(self.prompt_ids, None)[type_idx][:, None, :]
+            degra_ctx = self._encode_text(None)[type_idx][:, None, :]
         dnet, nnet = self._step_nets(use_ema)
-        return {"mu": mu, "type_idx": type_idx, "img_ctx": self._image_context(batch, mu.shape[0]),
+        return {"mu": mu, "type_idx": type_idx,
+                "img_ctx": self._image_context(batch, mu.shape[0], mu),
                 "degra_ctx": degra_ctx, "d_text": self._encode_prompts(dnet),
                 "n_text": self._encode_prompts(nnet)}
 

@@ -1,13 +1,15 @@
 """What the engines share (``drift_model.CLIPDriftEngine`` and
 ``ddpm_model.CLIPDDPMEngine``): the device, the engine knobs, the
-artifact-type map, the frozen CLIP text tower with the prompts' token ids
-and its weights, the sampler call ``test`` with its compiled form, and the
+artifact-type map, the frozen text tower (CLIP, or BiomedCLIP's PubMedBERT
+with ``CLIP_Type: BiomedCLIP``) with the prompts' token ids (and mask) and
+its weights, the image context (``batch["A_emb"]``, or an attached image
+tower's embedding of the input), the sampler call ``test`` with its compiled form, and the
 training state around an engine's train step (optimizers, EMA, learning
 rate, loss messages, ``{iter}.state`` files).
 
 A weight bundle (``utils/checkpoint.py``) holds the nets but not the frozen
 text tower: the JAX engines draw it from their seed, or read a torch CLIP
-checkpoint (``text_encoder_pretrain_path``). The port reads the same
+or BiomedCLIP checkpoint (``text_encoder_pretrain_path``). The port reads the same
 checkpoint, or the tower's weights from a sidecar ``text_params.ckpt`` beside
 the bundle, which ``tools/export_text_params.py`` writes with JAX; it refuses
 to load a bundle with neither, since its own random tower is not the one the
@@ -53,8 +55,10 @@ from ..utils.checkpoint import (load_pytree, load_training_state, save_pytree,
 from ..utils.convert import adam_state, flax_params, load_adam_state, load_flax_params
 from .layers import cast_compute_, flax_init_
 from .optim import cosine_annealing_lr, ema_update, make_adam, set_lr
-from .text_encoder import build_text_encoder, load_torch_clip_text_weights
-from .tokenizer import ClipBPETokenizer
+from .clip_vit import image_context
+from .text_encoder import (HFContextTextEncoder, build_text_encoder, load_torch_bert_weights,
+                           load_torch_clip_text_weights)
+from .tokenizer import BertWordPieceTokenizer, ClipBPETokenizer
 from .unet import LearnableForwardUNetMultiScoreMap
 
 ARTIFACT_PROMPTS = (
@@ -208,9 +212,6 @@ class SamplingEngine:
         self.device = resolve_device(device)
         self.if_train = bool(if_train)
         self.optimizers: Dict[str, torch.optim.Adam] = {}
-        if CLIP_Type != "CLIP":
-            raise NotImplementedError(f"CLIP_Type {CLIP_Type!r} is not ported "
-                                      "(only 'CLIP')")
         self.engine_opts = dict(engine_opts or {})
         unknown = sorted(set(self.engine_opts) - ENGINE_KNOBS)
         if unknown:
@@ -220,18 +221,37 @@ class SamplingEngine:
         self.num_prompts = len(artifact_prompts)
         self.type_map = dict(type_map_ind) if type_map_ind else {
             name: i for i, name in enumerate(artifact_prompts)}
-        text, self.token_embed_dim = build_text_encoder(context_dim, tiny=tiny_text_encoder)
-        tok = ClipBPETokenizer(tokenizer_vocab_path, context_length=text.context_length,
-                               vocab_size=text.vocab_size)
-        self.prompt_ids = torch.from_numpy(tok(list(artifact_prompts))).to(self.device)
+        text, self.token_embed_dim = build_text_encoder(context_dim, tiny=tiny_text_encoder,
+                                                        clip_type=CLIP_Type)
+        # the prompts' ids, and for the BERT tower their mask ([CLS] text
+        # [SEP] padded to the context length); None for CLIP's BPE ids
+        self.prompt_mask = None
+        if isinstance(text, HFContextTextEncoder):
+            tok = BertWordPieceTokenizer(tokenizer_vocab_path,
+                                         context_length=text.context_length,
+                                         vocab_size=text.vocab_size)
+            ids, mask = tok(list(artifact_prompts))
+            self.prompt_mask = torch.from_numpy(mask).to(self.device)
+            load_pretrained = load_torch_bert_weights
+        else:
+            tok = ClipBPETokenizer(tokenizer_vocab_path, context_length=text.context_length,
+                                   vocab_size=text.vocab_size)
+            ids = tok(list(artifact_prompts))
+            load_pretrained = load_torch_clip_text_weights
+        self.prompt_ids = torch.from_numpy(ids).to(self.device)
         self.text_encoder = cast_compute_(text.to(self.device), dtype).eval().requires_grad_(False)
-        # where the tower's weights come from: "pretrained" (a torch CLIP
-        # checkpoint, as the JAX engines read it when the file exists),
-        # "sidecar" (a bundle's text_params.ckpt) or None (the random init)
+        # where the tower's weights come from: "pretrained" (a torch CLIP or
+        # BiomedCLIP checkpoint, as the JAX engines read it when the file
+        # exists), "sidecar" (a bundle's text_params.ckpt) or None (the
+        # random init)
         self.text_weights = None
         if text_encoder_pretrain_path and os.path.isfile(str(text_encoder_pretrain_path)):
-            load_torch_clip_text_weights(self.text_encoder, str(text_encoder_pretrain_path))
+            load_pretrained(self.text_encoder, str(text_encoder_pretrain_path))
             self.text_weights = "pretrained"
+        # an image tower that embeds the sampler's input as the image context
+        # (``drift_model.CLIPDriftEngine.attach_image_tower``); None: the
+        # batch's ``A_emb``
+        self.image_tower = None
         # the compiled sampler: graphs by ``graph_key``, captures so far, the
         # graph the last compiled call replayed, and (made at the first
         # capture) the one memory pool all of the engine's graphs share and
@@ -292,18 +312,31 @@ class SamplingEngine:
         return cast_compute_(net.to(self.device), self.dtype, master=self.if_train).eval() \
             .requires_grad_(False)
 
+    def _encode_text(self, context) -> torch.Tensor:
+        """[K, context_dim] encodings of the prompts with the learnable
+        ``context`` tokens spliced in (None: without context)."""
+        if self.prompt_mask is not None:
+            return self.text_encoder(self.prompt_ids, self.prompt_mask, context)
+        return self.text_encoder(self.prompt_ids, context)
+
     def _encode_prompts(self, net) -> list:
         """Per-SMM [K, context_dim] text encodings for one net's contexts."""
-        return [self.text_encoder(self.prompt_ids, ctx) for ctx in net.smm_contexts()]
+        return [self._encode_text(ctx) for ctx in net.smm_contexts()]
 
     def _tensor(self, value, dtype):
         return torch.as_tensor(value, dtype=dtype, device=self.device)
 
-    def _image_context(self, batch, B: int):
-        """``batch["A_emb"]`` [B,1,context_dim] (zeros when absent), or None
-        without image context."""
+    def _image_context(self, batch, B: int, mu: Optional[torch.Tensor] = None):
+        """None without image context; else, for a sampler call (``mu``
+        given) on an engine with an image tower, the tower's normalised
+        embedding of ``mu`` [B,1,context_dim] in float32; else
+        ``batch["A_emb"]`` (zeros when absent). Training reads the batch's,
+        as the JAX train step does."""
         if not self.use_image_context:
             return None
+        if mu is not None and self.image_tower is not None:
+            with record_function("image_tower"):
+                return image_context(self.image_tower, mu)
         a_emb = batch.get("A_emb")
         return (torch.zeros(B, 1, self.context_dim, device=self.device)
                 if a_emb is None else self._tensor(a_emb, torch.float32))
@@ -453,9 +486,10 @@ class SamplingEngine:
         """Restore a batch: ``batch["input"]`` [B,H,W,1] in [-1,1] (the
         degraded image mu), ``batch["type_idx"]`` [B], optional
         ``batch["A_emb"]`` [B,1,context_dim] (zeros when absent; used with
-        image context). Returns x0_hat [B,H,W,1] float32 on the engine's
-        device. Noise comes from ``generator`` unless ``init_noise`` and
-        ``step_noise`` are given (see ``stepping.run_steps``).
+        image context unless an image tower is attached). Returns x0_hat
+        [B,H,W,1] float32 on the engine's device. Noise comes from
+        ``generator`` unless ``init_noise`` and ``step_noise`` are given
+        (see ``stepping.run_steps``).
 
         ``compiled`` (default: True on CUDA, False on the CPU) replays one
         captured graph per sampler step, captured at the first call of each

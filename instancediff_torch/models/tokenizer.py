@@ -1,9 +1,12 @@
-"""Host-side CLIP tokenizer (copy of ``ClipBPETokenizer`` and the helpers it
-needs from ``instancediff_tpu/models/tokenizer.py``).
+"""Host-side tokenizers (copy of ``ClipBPETokenizer``,
+``BertWordPieceTokenizer`` and the helpers they need from
+``instancediff_tpu/models/tokenizer.py``).
 
-With a BPE merges file it splits and byte-pair-encodes as CLIP's
-SimpleTokenizer does; without one, a deterministic hash of each word gives
-stable ids, the same ids as the JAX package's fallback."""
+With a BPE merges file ``ClipBPETokenizer`` splits and byte-pair-encodes as
+CLIP's SimpleTokenizer does; with a ``vocab.txt`` ``BertWordPieceTokenizer``
+splits words into greedy longest-match WordPiece pieces. Without the file,
+a deterministic hash of each word gives stable ids, the same ids as the JAX
+package's fallback."""
 
 from __future__ import annotations
 
@@ -48,6 +51,66 @@ _WORD_RE = re.compile(r"[a-z0-9]+|[^\sa-z0-9]")
 
 def _basic_tokenize(text: str):
     return _WORD_RE.findall(text.lower())
+
+
+class BertWordPieceTokenizer:
+    """WordPiece with BERT's special tokens: [CLS] pieces [SEP], padded with
+    [PAD] to ``context_length``, with a 0/1 mask. Pieces after a word's
+    first are looked up as ``##piece``; a word with no split into known
+    pieces is one [UNK]; the text is cut so that [SEP] stays. ``vocab_path``
+    is a ``vocab.txt`` (one token per line); None selects the hash fallback
+    (pad 0, unk 1, cls 2, sep 3, words hashed to ``[10, vocab_size)``).
+    ``__call__(texts) -> (ids, mask)``, int32 [K, context_length] each."""
+
+    def __init__(self, vocab_path: str | None = None, context_length: int = 256,
+                 vocab_size: int = 30522):
+        self.context_length = context_length
+        self.vocab = None
+        self.vocab_size = vocab_size
+        if vocab_path and os.path.isfile(vocab_path):
+            with open(vocab_path, encoding="utf-8") as f:
+                self.vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+            self.vocab_size = len(self.vocab)
+            self.cls_id = self.vocab.get("[CLS]", 2)
+            self.sep_id = self.vocab.get("[SEP]", 3)
+            self.pad_id = self.vocab.get("[PAD]", 0)
+            self.unk_id = self.vocab.get("[UNK]", 1)
+        else:
+            self.pad_id, self.unk_id, self.cls_id, self.sep_id = 0, 1, 2, 3
+
+    def _wordpiece(self, word: str):
+        if self.vocab is None:
+            return [_hash_id(word, self.vocab_size)]
+        if word in self.vocab:
+            return [self.vocab[word]]
+        ids, start = [], 0
+        while start < len(word):
+            end, cur = len(word), None
+            while start < end:
+                piece = word[start:end] if start == 0 else "##" + word[start:end]
+                if piece in self.vocab:
+                    cur = self.vocab[piece]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_id]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def __call__(self, texts):
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.full((len(texts), self.context_length), self.pad_id, dtype=np.int32)
+        mask = np.zeros((len(texts), self.context_length), dtype=np.int32)
+        for i, text in enumerate(texts):
+            ids = [self.cls_id]
+            for w in _basic_tokenize(text):
+                ids.extend(self._wordpiece(w))
+            ids = ids[: self.context_length - 1] + [self.sep_id]
+            out[i, : len(ids)] = ids
+            mask[i, : len(ids)] = 1
+        return out, mask
 
 
 def _clip_word_pattern(special_tokens):

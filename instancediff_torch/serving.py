@@ -16,6 +16,7 @@ Usage:
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -24,22 +25,27 @@ import torch
 from .device import resolve_device
 
 
+# the image tower's weights beside a bundle, and the script that writes them
+# with JAX
+IMAGE_SIDECAR = "image_params.ckpt"
+IMAGE_EXPORT_TOOL = "tools/export_image_params.py"
+
+
 def engine_from_config(opt, device="cuda", pth_dir: Optional[str] = None, iteration="latest",
                        use_ema: bool = True):
     """The sampling engine of parsed options ``opt`` (``train.which_model``,
     ``train.which_sde``; the top-level ``type_map_ind`` when the model block
     has none), with the bundle ``iteration`` of ``pth_dir`` (none: the
-    engine's initial weights) loaded through ``engine.load``.
-    ``test.on_device_emb`` (the on-device image tower) is not ported and
-    raises."""
+    engine's initial weights) loaded through ``engine.load``. With
+    ``test.on_device_emb`` an engine that takes an image tower (the drift
+    engine) gets ``clip_vit.build_image_tower`` at ``resolution``, its
+    weights read from ``image_params.ckpt`` beside the bundle
+    (``tools/export_image_params.py`` writes them with JAX: the tower JAX's
+    ``from_config`` draws from key 7); without that file it raises, since a
+    tower the port drew itself is not the one JAX serves with."""
     from .models import create_model
     from .sde import create_sde
 
-    if (opt.get("test") or {}).get("on_device_emb"):
-        raise NotImplementedError(
-            "test.on_device_emb needs the CLIP image tower (models/clip_vit.py), not "
-            "ported yet (ROADMAP queue 1 item 5); without it a use_image_context "
-            "model would be served zero embeddings it never saw")
     train_opt = opt.get("train") or {}
     model_opt = opt["models"][train_opt.get("which_model") or "DriftNoise"]
     if opt.get("type_map_ind") and not model_opt.get("type_map_ind"):
@@ -48,7 +54,29 @@ def engine_from_config(opt, device="cuda", pth_dir: Optional[str] = None, iterat
     engine = create_model(None, model_opt, phase="test", sde=sde, device=device)
     if pth_dir:
         engine.load(pth_dir, iteration, use_ema=use_ema)
+    if (opt.get("test") or {}).get("on_device_emb") and hasattr(engine, "attach_image_tower"):
+        engine.attach_image_tower(load_image_tower(opt, model_opt, engine.context_dim, pth_dir))
     return engine
+
+
+def load_image_tower(opt, model_opt, embed_dim: int, pth_dir: Optional[str]):
+    """The image tower of ``opt`` (``build_image_tower`` at ``resolution``,
+    tiny with ``tiny_text_encoder``) filled from ``<pth_dir>/image_params.ckpt``
+    with the port's codec; raises, naming the export command, when the file
+    is missing."""
+    from .models.clip_vit import build_image_tower
+    from .utils.checkpoint import load_pytree
+    from .utils.convert import load_flax_params
+
+    path = os.path.join(pth_dir or ".", IMAGE_SIDECAR)
+    if not pth_dir or not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"test.on_device_emb: {path} is missing. The port draws no image tower of its "
+            "own (JAX draws it from key 7); write the sidecar with JAX: python "
+            f"{IMAGE_EXPORT_TOOL} -opt <config> --models-dir {pth_dir or '<models dir>'}")
+    tower = build_image_tower(embed_dim=embed_dim, tiny=bool(model_opt.get("tiny_text_encoder")),
+                              image_size=opt.get("resolution") or 224)
+    return load_flax_params(tower, load_pytree(path))
 
 
 class Restorer:

@@ -4,7 +4,9 @@
     python -m instancediff_torch.tools.testUM -opt=Configurations/flagship_test.yml
 
 Loads the bundle ``test.iter`` from ``test.pth_dir`` (its EMA shadows with
-``test.use_ema``) and the text tower's sidecar, restores every batch of each
+``test.use_ema``) and the text tower's sidecar (with ``test.on_device_emb``
+the image tower's too, which then embeds each batch's input in place of its
+``A_emb``; ``serving.engine_from_config``), restores every batch of each
 ``datasets.test*``/``val*`` entry on the sampler (on CUDA the compiled one),
 scores each image with RMSE/SSIM/PSNR on ``x/2 + 0.5`` at the reference's
 settings, writes ``LQ|pred|GT`` triptychs as raw float32 under

@@ -16,7 +16,16 @@ them:
 - ``nn.Embedding``: ``embedding`` -> ``weight``;
 - norms: ``scale`` -> ``weight``;
 - free parameters (SMM ``context``, ``gamma1/2``, ``logit_scale``,
-  ``score_bias``, ``positional_embedding``) as they are.
+  ``score_bias``, ``positional_embedding``; the image tower's
+  ``class_token``, ``pos_embed`` and LayerScale ``ls_1``/``ls_2``; the BERT
+  tower's ``position_embeddings`` and ``token_type_embeddings``) as they are.
+
+So the towers' trees map with no table of their own: the image tower
+(``models/clip_vit.py``) ``patch_embed.kernel`` [P,P,3,W] <-> the patch
+conv's weight [W,3,P,P], ``block_{i}``, ``ln_pre``/``ln_post``, ``proj``;
+the BERT tower (``text_encoder.HFContextTextEncoder``)
+``word_embeddings.embedding``, ``embeddings_ln``, ``layer_{i}.{q,k,v,out}_proj``,
+``attn_ln``, ``fc``, ``proj``, ``ffn_ln``, ``proj_fc1``/``proj_fc2``.
 
 Every leaf of the tree must be consumed and every parameter of the module
 filled; a leftover or a missing key raises. Adam's moments are trees of the

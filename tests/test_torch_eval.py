@@ -133,7 +133,8 @@ def test_from_config_refuses_what_is_not_ported(bundle, tmp_path, monkeypatch):
     opt["test"]["on_device_emb"] = True
     path = tmp_path / "emb.yml"
     path.write_text(yaml.safe_dump(opt))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # the on-device image tower needs its weights beside the bundle
+    with pytest.raises(FileNotFoundError, match="export_image_params.py"):
         Restorer.from_config(str(path), pth_dir=bundle, iteration=ITER, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from instancediff_torch.models.clip_vit import CLIPVisionTower, image_context
 from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
 from instancediff_torch.models.drift_model import CLIPDriftEngine
 from instancediff_torch.models.engine import kernel_launches
@@ -609,3 +610,106 @@ def test_compiled_sampler_recaptures_after_a_train_step(deterministic, path):
                         compiled=False)
         _assert_graph_matches_eager(got, want, torch.float32)
     assert eng.captures == captures + 2
+
+
+# ---------------------------------------------------------------- the encoders
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_flash_kernel_at_the_image_towers_shape(cuda, dtype, tol):
+    """ViT-B/16 at 224 px: 12 heads of 64 over 197 tokens (ragged for the
+    tiles)."""
+    gen = torch.Generator(device=cuda).manual_seed(197)
+    q, k, v = (_randn(gen, 2, 12, 197, 64).to(dtype) for _ in range(3))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v).float(), rtol=tol,
+                               atol=tol)
+
+
+def test_image_tower_on_cuda_matches_the_cpu(cuda):
+    """A ViT with 64-wide heads (2 layers of width 128, the full tower's
+    head width), fp32: its attention on the flash kernel on the card, on the
+    plain version on the CPU, within 1e-4; the normalised image context of
+    unit norm; 2 flash launches per call."""
+    tower = CLIPVisionTower(image_size=64, patch_size=16, width=128, layers=2, heads=2,
+                            embed_dim=32)
+    _randomize_(tower, seed=3)
+    images = torch.rand(3, 64, 64, 1, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    with torch.inference_mode():
+        want = tower(images)
+        gpu_tower = tower.to(cuda)
+        before = flash_attention.launches
+        got = gpu_tower(images.to(cuda))
+        ctx = image_context(gpu_tower, images.to(cuda))
+        torch.cuda.synchronize()
+    assert flash_attention.launches == before + 4
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(torch.linalg.vector_norm(ctx, dim=-1).cpu(),
+                               torch.ones(3, 1), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("path", ["drift", "ddpm"])
+def test_biomedclip_engine_graph_matches_eager(cuda, path):
+    """``CLIP_Type: BiomedCLIP`` (the BERT tower, WordPiece ids and mask):
+    the captured step replays bit-identically to the eager loop in bf16;
+    a drift engine with a 64-wide-head image tower attached too (the tower
+    runs before the graph, 2 flash launches per call)."""
+    kw = dict(dtype=torch.bfloat16, tiny_text_encoder=True, CLIP_Type="BiomedCLIP",
+              device="cuda")
+    if path == "ddpm":
+        eng = CLIPDDPMEngine(GRAPH_NET, sde=DDPMSDE(T=GRAPH_T), **kw)
+    else:
+        eng = CLIPDriftEngine(GRAPH_NET, GRAPH_NET, score_map_ch_mult=(1, 1), score_map_ngf=8,
+                              sde=DriftSDE(T=GRAPH_T, max_sigma=0.4), **kw)
+        tower = CLIPVisionTower(image_size=GRAPH_RES, patch_size=8, width=128, layers=2,
+                                heads=2, embed_dim=32)
+        _randomize_(tower, seed=5)
+        eng.attach_image_tower(tower)
+    _randomize_(eng.nets, seed=1)
+    _randomize_(eng.text_encoder, seed=2)
+    assert eng.prompt_mask is not None and eng.token_embed_dim == 48
+    batch = _graph_batch(0)
+    want = eng.test(batch, torch.Generator(device="cuda").manual_seed(7), sample_steps=3,
+                    compiled=False)
+    before = flash_attention.launches
+    got = eng.test(batch, torch.Generator(device="cuda").manual_seed(7), sample_steps=3)
+    torch.cuda.synchronize()
+    n_steps = len(strided_sampling_grid(GRAPH_T, 3)[0])
+    per_step = eng.last_graph.launches["flash_attention"]
+    assert eng.captures == 1
+    assert flash_attention.launches - before == per_step * (n_steps + 1) + (
+        2 if path == "drift" else 0)
+    assert torch.equal(got, want)
+
+
+def test_biomedclip_low_precision_on_cuda(cuda):
+    """BiomedCLIP at full width (ViT-B/16, the 12-layer PubMedBERT) on the
+    card at precision bf16 and pure_bf16, from the same random weights as
+    at fp32: unit-norm bfloat16 embeddings within TOL[bf16] = 1e-2 of the
+    fp32 model's, the tower's 12 flash launches per ``encode_image`` call;
+    fp16 raises (the flash kernel takes float32 and bfloat16)."""
+    from instancediff_torch.models.biomedclip import get_BiomedCLIP
+    from instancediff_torch.models.text_encoder import HFContextTextEncoder
+    from instancediff_torch.utils.convert import flax_params
+
+    visual = CLIPVisionTower()
+    text = HFContextTextEncoder()
+    _randomize_(visual, seed=6)
+    _randomize_(text, seed=7)
+    trees = dict(params=flax_params(visual), text_params=flax_params(text))
+    images = torch.rand(4, 224, 224, 1, generator=torch.Generator().manual_seed(8)) * 2 - 1
+    texts = ["speckle in OCT", "noise in cryo-EM image", "low dose CT"]
+    ref = get_BiomedCLIP(precision="fp32", device="cuda", **trees)
+    want = ref.encode_image(images), ref.encode_text(texts)
+    for precision in ("bf16", "pure_bf16"):
+        model = get_BiomedCLIP(precision=precision, device="cuda", **trees)
+        before = flash_attention.launches
+        got = model.encode_image(images), model.encode_text(texts)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 12
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+            torch.testing.assert_close(g.float(), w, rtol=0, atol=1e-2)
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+        get_BiomedCLIP(precision="fp16", device="cuda", **trees)
