@@ -158,6 +158,31 @@ Phases, one JSON line each, in order:
                 smoke reading, not a rate. It runs after ``per_forward``'s
                 timings (after its profiles of train steps torch.profiler
                 recorded no kernel of the kernel libraries on the card).
+  8. distill -- the flash kernel at every head width it takes (4 to 128,
+                fp32 and bf16, [8,4,1024,D]) against its plain version,
+                timed, with the kernel the plan picks (printed after
+                ``per_forward``, before any train step: afterwards
+                torch.profiler records no kernel of the kernel libraries);
+                (a) ``tools/distill``
+                at flagship_bf16_tpu.yml's widths (224 px, batch 4) on a
+                seeded bundle, phases 50 and 25 of 4 steps each: per phase
+                the median ms per distill step after 2 warm-ups, the
+                teacher's two predictions' ms (CUDA events), launches per
+                step (twice the drift path's per-step counts: the teacher's
+                rollout runs the kernels), peak memory, losses; the
+                teacher's composed targets on the kernels against the plain
+                path (an fp32 copy of the teacher held within ``TOL``, the
+                bf16 teacher's error read); ``distill25`` served by ``Restorer.from_config`` at 25
+                steps, eta 0 on the compiled sampler (bit-identical to the
+                eager loop); the tool's student recaptured after one more
+                distill step; (b) on weights that learned, nf 16 (8-wide
+                heads), fp32: ``demo_all_modalities`` (every modality
+                restored >= degraded + 6 dB), JAX's distillation gate (the
+                fixture recipe's teacher, one phase T=16 -> 8: the student
+                >= degraded + 6 dB and within 1 dB of the teacher), and
+                ``eval_protocol`` tables for both on a port Synthetic set
+                pinned by its manifest. Its launches are printed in a line
+                of its own, not in the ``kernels`` line.
 
 Any failure raises and the script exits non-zero; a failed capture too (the
 engines never fall back to the eager loop). Without CUDA it exits 1 before
@@ -189,9 +214,10 @@ from instancediff_torch.models import unet as unet_mod
 from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
 from instancediff_torch.models.drift_model import CLIPDriftEngine
 from instancediff_torch.models.engine import ARTIFACT_PROMPTS, KERNELS, TEXT_SIDECAR
-from instancediff_torch.models.layers import ConvParams
+from instancediff_torch.models.layers import ConvParams, cast_compute_
 from instancediff_torch.ops import _build
-from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from instancediff_torch.ops.flash_attention import (HEAD_WIDTHS, flash_attention,
+                                                     flash_attention_plain, flash_plan)
 from instancediff_torch.ops.fused_gn_conv import (conv_plan, fused_gn_silu_conv3x3,
                                                   fused_gn_silu_conv3x3_plain, gn_channel_affine,
                                                   gn_channel_affine_plain, pack_weights)
@@ -1837,6 +1863,403 @@ def train_phase(gpu) -> None:
     grad_check(gpu)
 
 
+# ---------------------------------------------------------------- distillation
+
+# (a) flagship_bf16_tpu.yml at its published widths, 224 px, batch 4: two
+# phases of DISTILL_STEPS steps each, cut in depth only
+DISTILL_CONFIG, DISTILL_PHASES, DISTILL_STEPS, DISTILL_WARMUP = "drift_bf16", (50, 25), 4, 2
+DISTILL_RES, DISTILL_BATCH, DISTILL_EMB = 224, 4, 512
+# per distill step the teacher runs two dual-net predictions on the drift
+# path's kernels: twice a sampler step's launches
+DISTILL_PER_STEP = {k: 2 * n for k, n in PATHS["drift"].items()}
+# (b) the gate's recipe (JAX's tests/conftest.py:train_tiny_engine and
+# tests/test_distill.py): the teacher 300 steps of batch 8 on 16 OCT
+# phantoms, then one phase T=16 -> 8 of 150 steps at lr 1e-3, raw teacher,
+# batches of 8 from default_rng(50_000 + i); scored on the first 4 images
+GATE_TEACHER_STEPS, GATE_PHASE_STEPS, GATE_LR, GATE_STUDENT = 300, 150, 1e-3, 8
+# demo_all_modalities cut from its 800 steps to 500: a tiny train step is
+# host-bound (~0.2 s on the card) and the phase's time is the script's; at
+# 400 steps low-dose CT cleared its +6 dB by 0.7 dB only
+DEMO_STEPS = 500
+GATE_MIN_GAIN_DB, GATE_MAX_GAP_DB = 6.0, 1.0
+# the flash kernel at every head width it takes, at the bottleneck's N
+FLASH_WIDTH_N = 1024
+
+
+def flash_widths(gpu) -> None:
+    """The flash kernel at every head width and dtype against its plain
+    version, timed with its bound and SDPA's time, at [8, 4, 1024, D]; which
+    kernel the plan picks."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for D in HEAD_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = (BATCH, 4, FLASH_WIDTH_N, D)
+            m = measure_flash(shape, dtype, gen)
+            emit({"phase": "distill", "what": "flash at every head width", "shape": shape,
+                  "dtype": str(dtype), "path": flash_plan(D, dtype)["path"], "tol": TOL[dtype],
+                  **m, "gpu": gpu})
+
+
+@contextlib.contextmanager
+def timed_distill_steps():
+    """While open, every ``distill_step`` the phases run is timed with the
+    device drained before and after, the kernels it launched counted, the
+    teacher's two predictions timed with CUDA events around them, and peak
+    memory read (reset when a phase begins); yields {student steps: [step
+    records]}."""
+    from instancediff_torch.models import distill as distill_mod
+
+    real_step, real_dual = distill_mod.distill_step, CLIPDriftEngine._dual_forward
+    rec, teacher_ms = {}, []
+
+    def dual(self, *args, plain, **kwargs):
+        if plain:
+            return real_dual(self, *args, plain=plain, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_dual(self, *args, plain=plain, **kwargs)
+        end.record()
+        teacher_ms.append((start, end))
+        return out
+
+    def step(engine, teacher, batch, student_steps, *args, **kwargs):
+        if student_steps not in rec:
+            rec[student_steps] = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = read_launches()
+        teacher_ms.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        metrics = real_step(engine, teacher, batch, student_steps, *args, **kwargs)
+        torch.cuda.synchronize()
+        ms = (time.time() - t) * 1e3
+        after = read_launches()
+        rec[student_steps].append({
+            "ms": ms, "teacher_ms": sum(a.elapsed_time(b) for a, b in teacher_ms),
+            "teacher_predictions": len(teacher_ms),
+            "launches": {k: after[k] - before[k] for k in after}, "metrics": metrics,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return metrics
+
+    with mock.patch.object(distill_mod, "distill_step", step), \
+            mock.patch.object(CLIPDriftEngine, "_dual_forward", dual):
+        yield rec
+
+
+def distill_flagship(gpu, tmp) -> Counter:
+    """(a) ``tools/distill`` at flagship_bf16_tpu.yml's widths (224 px,
+    batch 4) on a seeded bundle: phases 50 and 25 of ``DISTILL_STEPS``
+    steps; per phase the median ms per step after the warm-ups, the
+    teacher's ms, launches per step (held to ``DISTILL_PER_STEP``), peak
+    memory and the losses. Then on one batch the teacher's composed targets
+    on the kernels against the plain path: an fp32 copy of the teacher held
+    within ``TOL``, the bf16 teacher's error read and not held (a one-ulp
+    difference at one conv flips bf16 roundings downstream, through both
+    predictions and the step between them: 1.0-1.2 % of the largest target
+    on the card, over the 1e-2 a single kernel call is held to);
+    ``distill25`` served by
+    ``Restorer.from_config`` at 25 steps, eta 0 (graph vs eager, launches
+    per step), and the tool's student recaptured after one more distill
+    step. Returns the phase's launches (the eager comparisons apart)."""
+    from instancediff_torch.models.distill import Teacher, distill_step, distill_targets
+    from instancediff_torch.tools import distill as distill_tool
+
+    total = Counter()
+    index = write_speckle_med(os.path.join(tmp, "data"), 2, DISTILL_RES, DISTILL_EMB,
+                              ARTIFACT_PROMPTS)
+    cfg = train_config(tmp, DISTILL_CONFIG, index, 2, 1, 10**6, 10**6)
+    opt = load_options(cfg)
+    models, out = os.path.join(tmp, "seeded"), os.path.join(tmp, "distilled")
+    t0 = time.time()
+    eng = create_model(opt["train"], opt["models"]["DriftNoise"], phase="train",
+                       image_size=DISTILL_RES, device="cuda")
+    for i, key in enumerate(("drift", "noise", "d_ema", "n_ema")):
+        randomize_(eng.nets[key], seed=40 + i)
+    randomize_(eng.text_encoder, seed=20)
+    nbytes = eng.save(models, "seeded")
+    del eng
+    torch.cuda.empty_cache()
+    zero_launches()
+    t_tool = time.time()
+    with timed_distill_steps() as rec:
+        student = distill_tool.main(
+            ["-opt", cfg, "--device", "cuda", "--ckpt-dir", models, "--ckpt-iter", "seeded",
+             "--phases", *map(str, DISTILL_PHASES), "--steps-per-phase", str(DISTILL_STEPS),
+             "--lr", "2e-5", "--out-dir", out])
+    total.update(read_launches())
+    tool_s = time.time() - t_tool
+    for n, steps in rec.items():
+        per_step = [r["launches"] for r in steps]
+        if any({k: p[k] for k in DISTILL_PER_STEP} != DISTILL_PER_STEP for p in per_step) or \
+                any(r["teacher_predictions"] != 2 for r in steps):
+            raise AssertionError(f"distill phase {n}: launches per step {per_step}")
+        last = steps[-1]["metrics"]
+        if not all(np.isfinite(v) for r in steps for v in r["metrics"].values()):
+            raise AssertionError(f"distill phase {n}: losses {[r['metrics'] for r in steps]}")
+        timed = steps[DISTILL_WARMUP:]
+        config_name = os.path.basename(TRAIN_CONFIGS[DISTILL_CONFIG])
+        emit({"phase": "distill", "what": f"tools/distill {config_name}, {DISTILL_RES} px, "
+                                          f"batch {DISTILL_BATCH}, bf16, phase -> {n} steps, "
+                                          f"{DISTILL_STEPS} distill steps",
+              "ms_per_step_median": statistics.median(r["ms"] for r in timed),
+              "ms_per_step": [round(r["ms"], 3) for r in steps],
+              "teacher_ms_median": statistics.median(r["teacher_ms"] for r in timed),
+              "teacher_ms": [round(r["teacher_ms"], 3) for r in steps],
+              "launches_per_step": per_step[-1], "expected_per_step": DISTILL_PER_STEP,
+              "max_memory_allocated_gib": round(max(r["max_memory_allocated_gib"]
+                                                    for r in steps), 3),
+              "loss_first": steps[0]["metrics"], "loss_last": last, "gpu": gpu})
+    emit({"phase": "distill", "what": "tools/distill end to end (seeded bundle saved, loaded, "
+                                      "two phases, two bundles saved)",
+          "seeded_bundle_bytes": nbytes, "seconds": round(time.time() - t0, 3),
+          "tool_seconds": round(tool_s, 3), "bundles": sorted(
+              f for f in os.listdir(out) if f.startswith("distill")), "gpu": gpu})
+
+    # the teacher's targets on the kernels against the plain path, one batch
+    rng = np.random.default_rng(8)
+    shape = (DISTILL_BATCH, DISTILL_RES, DISTILL_RES, 1)
+    batch = {"input": rng.uniform(-1, 1, shape).astype(np.float32),
+             "target": rng.uniform(-1, 1, shape).astype(np.float32),
+             "type_idx": np.arange(DISTILL_BATCH) % 5,
+             "A_emb": rng.standard_normal((DISTILL_BATCH, 1, DISTILL_EMB)).astype(np.float32)}
+    teacher = Teacher.from_engine(student, ema=False)
+    fp32_teacher = Teacher.from_engine(student, ema=False)
+    for net in (fp32_teacher.drift, fp32_teacher.noise):
+        cast_compute_(net, torch.float32)
+    gen = torch.Generator(device="cuda")
+    errs = {}
+    for dtype, t in ((torch.bfloat16, teacher), (torch.float32, fp32_teacher)):
+        before = Counter(read_launches())
+        got = distill_targets(student, t, batch, DISTILL_PHASES[-1], generator=gen.manual_seed(4))
+        after = Counter(read_launches())
+        after.subtract(before)
+        if dict(after) != DISTILL_PER_STEP:
+            raise AssertionError(f"teacher targets launched {dict(after)}")
+        total.update(after)
+        with contextlib.ExitStack() as stack:
+            for patch in plain_kernels():
+                stack.enter_context(patch)
+            want = distill_targets(student, t, batch, DISTILL_PHASES[-1],
+                                   generator=gen.manual_seed(4))
+        for k in ("d_tgt", "n_tgt"):
+            label = f"{str(dtype).split('.')[1]}_{k}"
+            if dtype == torch.float32:
+                errs[label + "_max_abs_err"] = check_err(
+                    f"fp32 teacher {k}, kernels vs plain", got[k], want[k], dtype)
+            else:
+                errs[label + "_max_abs_err"] = (got[k] - want[k]).abs().max().item()
+                errs[label + "_largest"] = want[k].abs().max().item()
+        del got, want
+    emit({"phase": "distill", "what": f"the teacher's composed targets ({DISTILL_RES} px, batch "
+                                      f"{DISTILL_BATCH}) on the kernels against the plain path: "
+                                      "the fp32 teacher held within TOL, the bf16 one read",
+          **errs, "tol_fp32": TOL[torch.float32], "launches_per_teacher": DISTILL_PER_STEP,
+          "gpu": gpu})
+    del fp32_teacher
+
+    # distill25 from its bundle through from_config on the compiled sampler
+    n = DISTILL_PHASES[-1]
+    r = Restorer.from_config(cfg, pth_dir=out, iteration=f"distill{n}",
+                             batch_size=DISTILL_BATCH, sample_steps=n, eta=0.0, use_ema=False,
+                             device="cuda", seed=0)
+    before = Counter(read_launches())
+    t = time.time()
+    served = r.restore(batch["input"], [ARTIFACT_PROMPTS[i] for i in batch["type_idx"]])
+    torch.cuda.synchronize()
+    served_s = time.time() - t
+    graph = r.engine.last_graph
+    after = Counter(read_launches())
+    after.subtract(before)
+    total.update(after)
+    per_step = {k: graph.launches[NAMES[k]] for k in PATHS["drift"]}
+    want = r.engine.test({"input": batch["input"], "type_idx": batch["type_idx"]},
+                         torch.Generator(device="cuda").manual_seed(0), use_ema=False,
+                         sample_steps=n, eta=0.0, compiled=False)
+    vs_eager = check_graph_vs_eager(f"distill{n}", served, want.cpu().numpy(), torch.bfloat16)
+    if per_step != PATHS["drift"] or r.engine.captures != 1 or graph.replays != n \
+            or not vs_eager["bit_identical"]:
+        raise AssertionError(f"distill{n} served: launches per step {per_step}, captures "
+                             f"{r.engine.captures}, replays {graph.replays}, {vs_eager}")
+    emit({"phase": "distill", "what": f"the distill{n} bundle through Restorer.from_config, "
+                                      f"{n} steps, eta 0, bf16, {DISTILL_BATCH} images, "
+                                      "compiled sampler",
+          **vs_eager, "launches_per_step": per_step, "captures": r.engine.captures,
+          "request_s_with_capture": round(served_s, 3), "gpu": gpu})
+    del r, served, want
+
+    # the tool's student: served, one more distill step, served again
+    sample = {"input": batch["input"], "type_idx": batch["type_idx"]}
+
+    def serve_student(compiled=None):
+        return student.test(sample, torch.Generator(device="cuda").manual_seed(1),
+                            use_ema=False, sample_steps=n, eta=0.0, compiled=compiled)
+
+    before = Counter(read_launches())
+    serve_student()
+    captures = student.captures
+    distill_step(student, teacher, batch, n, generator=gen.manual_seed(6), lr=2e-5)
+    got = serve_student()
+    after = Counter(read_launches())
+    after.subtract(before)
+    total.update(after)
+    want = serve_student(compiled=False)
+    if student.captures != captures + 1:
+        raise AssertionError("no new capture after a distill step updated the student")
+    emit({"phase": "distill", "what": f"the tool's student at {n} steps, eta 0, before and "
+                                      "after one more distill step: recaptured, graph vs eager",
+          **check_graph_vs_eager("student after a distill step", got, want, torch.bfloat16),
+          "captures_before": captures, "captures_after": student.captures, "gpu": gpu})
+    del student, teacher, got, want
+    torch.cuda.empty_cache()
+    return total
+
+
+def gate_config(tmp, root) -> str:
+    """``tiny_cpu.yml`` as the gate's engine (nf 16, score-map ngf 16, T=16,
+    max_sigma 0.3, all five artifact types) with its test split the set at
+    ``root``: the config ``eval_protocol`` scores the gate's bundles with."""
+    with open("Configurations/tiny_cpu.yml") as f:
+        opt = yaml.safe_load(f)
+    net = dict(opt["models"]["DriftNoise"]["nnet_settings"], nf=16)
+    opt["models"]["DriftNoise"].update(nnet_settings=net, dnet_settings=net, score_map_ngf=16,
+                                       drift_net_lr=2e-3, noise_net_lr=2e-3)
+    opt["sdes"]["driftSDE"].update(T=16, max_sigma=0.3)
+    opt.pop("type_map_ind")
+    opt["artifact_type"] = list(ARTIFACT_PROMPTS)
+    opt["datasets"] = {"test": dict(name="test_dataset", mode="SpeckleMed", resolution=32,
+                                    emb_dim=16, dataset_file=os.path.join(root, "dataset_file.json"),
+                                    use_artifact_type=list(ARTIFACT_PROMPTS))}
+    opt["test"].update(pth_dir=os.path.join(tmp, "gate_models"), batch_size=5,
+                       result_dir=os.path.join(tmp, "results"), use_ema=False)
+    path = os.path.join(tmp, "gate.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+def distill_gate(gpu, tmp) -> Counter:
+    """(b) JAX's distillation gate on weights that learned, fp32 at nf 16,
+    ch_mult [1, 2] (8-wide bottleneck heads): ``demo_all_modalities``
+    (``DEMO_STEPS`` steps, each modality restored >= degraded + 6 dB); the gate's teacher
+    trained with the recipe of JAX's fixture, one ``distill_phase`` to T=8,
+    the student >= degraded + 6 dB and within 1 dB of the teacher; then a
+    port Synthetic set (32 px, 2 test images per type) with its manifest,
+    scored by ``eval_protocol`` for the teacher and the student. Returns
+    the phase's launches."""
+    from instancediff_torch.models.distill import distill_phase
+    from instancediff_torch.tools import demo_all_modalities, eval_protocol, make_synth_dataset
+    from instancediff_torch.tools.demo_restoration import (restore_and_score,
+                                                           synthetic_arrays, tiny_engine, train)
+
+    total = Counter()
+    zero_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        demo = demo_all_modalities.main(["--device", "cuda", "--steps", str(DEMO_STEPS)])
+    short = {m: s for m, s in demo.items()
+             if not s["restored"]["PSNR"] >= s["degraded"]["PSNR"] + GATE_MIN_GAIN_DB}
+    emit({"phase": "distill", "what": "demo_all_modalities on the card: one nf 16 model, all "
+                                      f"five modalities, {DEMO_STEPS} steps of batch 10, T=16, "
+                                      "eta 1",
+          "per_modality": demo, "seconds": round(time.time() - t0, 3), "gpu": gpu})
+    if short:
+        raise AssertionError(f"demo: restored < degraded + {GATE_MIN_GAIN_DB} dB for {short}")
+
+    t0 = time.time()
+    data = synthetic_arrays(16, ["speckle in OCT"])
+    eng = tiny_engine("cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        loss = train(eng, data, GATE_TEACHER_STEPS, 8, 1000, 0)
+    train_s = time.time() - t0
+
+    def mean_psnr(scores, which):
+        return float(np.mean([s[which]["PSNR"] for s in scores]))
+
+    teacher_scores = restore_and_score(eng, data, 4)
+    models = os.path.join(tmp, "gate_models")
+    eng.save(models, "teacher")
+
+    def batches():
+        i = 0
+        while True:
+            idx = np.random.default_rng(50_000 + i).choice(16, 8, replace=False)
+            yield {k: v[idx] for k, v in data.items()}
+            i += 1
+
+    t0 = time.time()
+    distill_phase(eng, GATE_STUDENT, batches(), GATE_PHASE_STEPS, lr=GATE_LR,
+                  ema_as_teacher=False, log_every=0,
+                  generator=torch.Generator(device="cuda").manual_seed(77))
+    torch.cuda.synchronize()
+    phase_s = time.time() - t0
+    student_scores = restore_and_score(eng, data, 4, sample_steps=GATE_STUDENT, eta=0.0)
+    eng.save(models, f"distill{GATE_STUDENT}")
+    degraded = mean_psnr(teacher_scores, "degraded")
+    p_teacher, p_student = mean_psnr(teacher_scores, "restored"), mean_psnr(student_scores,
+                                                                          "restored")
+    gate = {"degraded_psnr": degraded, "teacher_T16_eta1_psnr": p_teacher,
+            f"student_T{GATE_STUDENT}_eta0_psnr": p_student,
+            "student_gain_db": p_student - degraded, "teacher_minus_student_db": p_teacher - p_student}
+    emit({"phase": "distill", "what": "the distillation gate: teacher (JAX's fixture recipe, "
+                                      f"{GATE_TEACHER_STEPS} steps) -> one phase T=16 -> "
+                                      f"{GATE_STUDENT}, {GATE_PHASE_STEPS} steps, lr {GATE_LR}, "
+                                      "raw teacher; mean over the first 4 images",
+          **gate, "teacher_last_loss": loss, "teacher_train_s": round(train_s, 3),
+          "phase_s": round(phase_s, 3), "ms_per_distill_step": round(
+              phase_s * 1e3 / GATE_PHASE_STEPS, 3), "teacher_scores": teacher_scores,
+          "student_scores": student_scores, "gpu": gpu})
+    if not (p_student >= degraded + GATE_MIN_GAIN_DB and p_teacher - p_student <= GATE_MAX_GAP_DB):
+        raise AssertionError(f"distillation gate failed: {gate}")
+    del eng
+    total.update(read_launches())
+
+    # the pinned-manifest protocol over a port Synthetic set
+    root = os.path.join(tmp, "gate_set")
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_synth_dataset.main(["--root", root, "--res", "32", "--n-train", "0", "--n-val",
+                                 "0", "--n-test", "10", "--emb-dim", "16"])
+    cfg = gate_config(tmp, root)
+    zero_launches()
+    tables = {}
+    for tag, extra in (("teacher", ["--iter", "teacher"]),
+                       (f"student{GATE_STUDENT}", ["--iter", f"distill{GATE_STUDENT}",
+                                                   "--sample-steps", str(GATE_STUDENT),
+                                                   "--eta", "0"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            record = eval_protocol.main(["--opt", cfg, "--dataset-root", root, "--tag", tag,
+                                         "--device", "cuda", "--use-ema", "0", "--out-dir",
+                                         os.path.join(tmp, "eval"), *extra])
+        tables[tag] = record["table"]
+        print("\n".join(ln for ln in buf.getvalue().splitlines() if ln.startswith("|")),
+              flush=True)
+    total.update(read_launches())
+    emit({"phase": "distill", "what": "eval_protocol on a port Synthetic set (32 px, 2 test "
+                                      "images per type, manifest verified) for the gate's "
+                                      "teacher (T=16, eta 1) and student (T=8, eta 0)",
+          "manifest_sha256": record["manifest_sha256"], "tables": tables, "gpu": gpu})
+    return total
+
+
+def distill_phase_chip(gpu) -> None:
+    """Phase ``distill``: (a) at flagship width and (b) the gate; its
+    launches in a line of its own. (``flash_widths`` runs before the train
+    steps of phases ``encoders`` and ``train``: after a train step
+    torch.profiler records no kernel of the kernel libraries.)"""
+    t0 = time.time()
+    total = Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
+        total.update(distill_flagship(gpu, tmp))
+        total.update(distill_gate(gpu, tmp))
+    if not all(total[k] for k in ("conv", "flash", "affine")):
+        raise AssertionError(f"the distill phase launched {dict(total)}")
+    emit({"phase": "distill", "what": "kernel launches of the phase (the teachers' rollouts, "
+                                      "the students' and the demo's sampling, eval_protocol; "
+                                      "the eager comparisons apart), not in the kernels line",
+          "launches": dict(total), "seconds": round(time.time() - t0, 3), "gpu": gpu})
+
+
 def sweep_conv(gpu) -> None:
     """Time the bf16 conv kernel at each flagship launch shape (batch 8) under
     every tile / N-block choice its plan picks from, beside cuDNN's conv on
@@ -2104,6 +2527,10 @@ def main() -> int:
                 "bound_ms": tot["bound_ms"], "bound_by": bound_by.most_common(1)[0][0],
                 "library_ms": tot["library_ms"], "library": LIBRARY[kname]})
 
+    # the flash kernel at every head width (phase distill's first lines),
+    # profiled before any train step
+    flash_widths(gpu)
+
     # 6b. the conditioning encoders: the image tower on the card (on-device
     # emb_A through from_config), BiomedCLIP, precompute_embeddings; after
     # the kernels' timings: after its train step torch.profiler records no
@@ -2114,6 +2541,10 @@ def main() -> int:
     # 7. training: trainUM at flagship width, resume, serving what it
     # trained; after the kernels' timings, which its profiles would disturb
     train_phase(gpu)
+
+    # 8. distillation: the teacher's rollouts on the kernels inside a
+    # training loop, at flagship width and on the gate's tiny widths
+    distill_phase_chip(gpu)
     entries = {k: dict(e, launches=launches[k], max_abs_err=worst[k]) for k, e in entries.items()}
     # the flash row is the UNet bottleneck's (bf16, the tensor-core kernel);
     # the image tower's launches (fp32, the FMA kernel) and its shapes'

@@ -1,8 +1,12 @@
-// Blockwise-softmax attention for the UNet bottleneck: o = softmax(q k^T * scale) v.
+// Blockwise-softmax attention: o = softmax(q k^T * scale) v, unmasked.
 //
 // Replaces instancediff_tpu/ops/pallas_kernels.py:flash_attention (Pallas
-// kernel _flash_kernel). q/k/v/o are [BH, N, D] in T (bf16 or fp32), D = 64;
-// scores, the online max/sum and the accumulator are fp32; o is stored in T.
+// kernel _flash_kernel). q/k/v/o are [BH, N, D] in T (bf16 or fp32); scores,
+// the online max/sum and the accumulator are fp32; o is stored in T. The
+// UNet's bottleneck has 4 heads, so D = nf * ch_mult[-1] / 4: 64 at the
+// flagship's widths, 4 to 128 at the repo's other configurations; the ViT
+// image tower has D = 64. The launch plan (which kernel serves a (D, dtype))
+// is ops/flash_attention.py:flash_plan, which mirrors flash_forward below.
 //
 // What bounds it on the H100: per head it does 4*N*Nk*D FLOPs on
 // 2*(2*N + 2*Nk)*D bytes (bf16), i.e. N/2 FLOP/byte: ~512 at N = 1024, above
@@ -12,11 +16,11 @@
 // in practice it is bound by latency and occupancy, not by the MMA rate:
 // mma.sync serves it as well as wgmma would.
 //
-// bf16 design (flash_tc_kernel, FA2-style): a block of 8 warps owns 128 query
-// rows of one (batch*head), 16 rows per warp, its Q fragments loaded once from
-// device memory into registers. K/V tiles of 64 keys, shared by the 8 warps,
-// stream through shared memory with cp.async, double-buffered, so the next
-// tile loads while this one is multiplied.
+// bf16 at D = 64 (flash_tc_kernel, FA2-style): a block of 8 warps owns 128
+// query rows of one (batch*head), 16 rows per warp, its Q fragments loaded
+// once from device memory into registers. K/V tiles of 64 keys, shared by
+// the 8 warps, stream through shared memory with cp.async, double-buffered,
+// so the next tile loads while this one is multiplied.
 // S = Q K^T on mma.sync m16n8k16 (bf16 -> fp32; exact products of bf16
 // inputs), the online max and sum in fp32 on the accumulator fragments with
 // exp2f (scores pre-scaled by scale*log2(e)), then P is rounded to bf16 in
@@ -26,8 +30,13 @@
 // within the bf16 tolerance of the plain fp32 version). Ragged N: keys past
 // Nk are zero-filled and score -inf, query rows past N are not stored.
 //
-// fp32 (flash_fma_kernel, the parity path): one thread per query row, fp32
-// FMA on fp32 copies of K and V in shared memory; the first, simple design.
+// Every other (D, dtype) (flash_fma_kernel<D, T>, D in {4, 8, 16, 32, 64,
+// 128}): one thread per query row, all in fp32 on the FMA units. q, k and v
+// are read in T and upcast to fp32 as they are loaded (as _flash_kernel
+// upcasts its blocks), K and V tiles kept in shared memory as fp32, o
+// rounded to T once at the store. The first, simple design: at D = 128 the
+// row's q and accumulator (256 floats) exceed the register file's share of
+// a thread and spill to local memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -39,12 +48,24 @@ namespace {
 constexpr int BQ = 64;   // query rows (threads) per block
 constexpr int BKV = 32;  // keys per shared-memory tile
 
-template <int D>
-__global__ void __launch_bounds__(BQ) flash_fma_kernel(const float* __restrict__ q,
-                                                       const float* __restrict__ k,
-                                                       const float* __restrict__ v,
-                                                       float* __restrict__ o, int N, int Nk,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(BQ) flash_fma_kernel(const T* __restrict__ q,
+                                                       const T* __restrict__ k,
+                                                       const T* __restrict__ v,
+                                                       T* __restrict__ o, int N, int Nk,
                                                        float scale_log2) {
+  static_assert(D % 4 == 0, "rows are read as float4");
   __shared__ __align__(16) float Ks[BKV][D];
   __shared__ __align__(16) float Vs[BKV][D];
   __shared__ float S[BKV][BQ];
@@ -58,7 +79,7 @@ __global__ void __launch_bounds__(BQ) flash_fma_kernel(const float* __restrict__
   float qr[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = valid ? q[qbase + d] * scale_log2 : 0.f;  // log2-domain scores
+    qr[d] = valid ? to_f32(q[qbase + d]) * scale_log2 : 0.f;  // log2-domain scores
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -69,8 +90,8 @@ __global__ void __launch_bounds__(BQ) flash_fma_kernel(const float* __restrict__
       const int jj = i / D, d = i % D;
       const int j = j0 + jj;
       const bool ok = j < Nk;
-      Ks[jj][d] = ok ? k[kbase + (size_t)j * D + d] : 0.f;
-      Vs[jj][d] = ok ? v[kbase + (size_t)j * D + d] : 0.f;
+      Ks[jj][d] = ok ? to_f32(k[kbase + (size_t)j * D + d]) : 0.f;
+      Vs[jj][d] = ok ? to_f32(v[kbase + (size_t)j * D + d]) : 0.f;
     }
     __syncthreads();
 
@@ -114,7 +135,7 @@ __global__ void __launch_bounds__(BQ) flash_fma_kernel(const float* __restrict__
   if (valid) {
     const float inv = 1.f / l;
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[qbase + d] = acc[d] * inv;
+    for (int d = 0; d < D; ++d) o[qbase + d] = from_f32<T>(acc[d] * inv);
   }
 }
 
@@ -317,25 +338,48 @@ __global__ void __launch_bounds__(WARPS * 32) flash_tc_kernel(const __nv_bfloat1
   }
 }
 
+
+template <typename T>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, int BH, int N,
+                       int Nk, int D, float scale_log2, cudaStream_t s) {
+  const dim3 grid((N + BQ - 1) / BQ, BH);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(o);
+  switch (D) {
+    case 4: flash_fma_kernel<4, T><<<grid, BQ, 0, s>>>(qp, kp, vp, op, N, Nk, scale_log2); break;
+    case 8: flash_fma_kernel<8, T><<<grid, BQ, 0, s>>>(qp, kp, vp, op, N, Nk, scale_log2); break;
+    case 16: flash_fma_kernel<16, T><<<grid, BQ, 0, s>>>(qp, kp, vp, op, N, Nk, scale_log2); break;
+    case 32: flash_fma_kernel<32, T><<<grid, BQ, 0, s>>>(qp, kp, vp, op, N, Nk, scale_log2); break;
+    case 64: flash_fma_kernel<64, T><<<grid, BQ, 0, s>>>(qp, kp, vp, op, N, Nk, scale_log2); break;
+    case 128:
+      flash_fma_kernel<128, T><<<grid, BQ, 0, s>>>(qp, kp, vp, op, N, Nk, scale_log2);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; path: 0 = the FMA kernel (any D of
+// launch_fma's, either dtype), 1 = the tensor-core kernel (bf16, D = 64),
+// as ops/flash_attention.py:flash_plan chooses. Returns cudaGetLastError().
 extern "C" int flash_forward(const void* q, const void* k, const void* v, void* o, int BH, int N,
-                             int Nk, int D, float scale, int dtype, void* stream) {
-  if (D != 64 || BH <= 0 || N <= 0 || Nk <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BQ - 1) / BQ, BH);
+                             int Nk, int D, float scale, int dtype, int path, void* stream) {
+  if (BH <= 0 || N <= 0 || Nk <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    flash_fma_kernel<64><<<grid, BQ, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), N, Nk, scale_log2);
-  } else if (dtype == 1) {
+  if (path == 1) {
+    if (dtype != 1 || D != DH) return (int)cudaErrorInvalidValue;
     flash_tc_kernel<kWarps><<<dim3((N + kWarps * 16 - 1) / (kWarps * 16), BH), kWarps * 32, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), N, Nk, scale_log2);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (path != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_fma<float>(q, k, v, o, BH, N, Nk, D, scale_log2, s);
+  if (dtype == 1) return (int)launch_fma<__nv_bfloat16>(q, k, v, o, BH, N, Nk, D, scale_log2, s);
+  return (int)cudaErrorInvalidValue;
 }

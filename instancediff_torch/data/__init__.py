@@ -1,10 +1,12 @@
 """Dataset and loader factories (port of ``instancediff_tpu/data``, the
-``SpeckleMed`` mode): the train loader of ``trainUM`` and the test and
-validation loaders of ``trainUM`` and ``testUM``."""
+``SpeckleMed`` and ``Synthetic`` modes): the train loader of ``trainUM`` and
+``distill`` and the test and validation loaders of ``trainUM`` and
+``testUM``."""
 
 from .loader import DataLoader, collate
 from .med_dataset import DEFAULT_TYPE_MAP, SpeckleMedDataset, create_SpeckleMedDataset
 from .sampler import DistIterSampler
+from .synthetic import SyntheticMedDataset, make_synthetic_dataset, write_synthetic_index
 
 
 def create_dataset(dataset_opt):
@@ -12,10 +14,7 @@ def create_dataset(dataset_opt):
     if mode == "SpeckleMed":
         return create_SpeckleMedDataset(dataset_opt)
     if mode == "Synthetic":
-        raise NotImplementedError(
-            "the Synthetic dataset draws its degradations with jax.random, which torch "
-            "cannot repeat; it waits for a numpy generator or a stored dataset "
-            "(ROADMAP queue 1)")
+        return make_synthetic_dataset(dataset_opt)
     raise NotImplementedError(f"Dataset mode [{mode}] is not recognized.")
 
 
@@ -29,5 +28,6 @@ def create_dataloader(dataset, dataset_opt, sampler=None):
     return DataLoader(dataset, batch_size=dataset_opt.get("batch_size") or 1)
 
 
-__all__ = ["DEFAULT_TYPE_MAP", "DataLoader", "DistIterSampler", "SpeckleMedDataset", "collate",
-           "create_SpeckleMedDataset", "create_dataloader", "create_dataset"]
+__all__ = ["DEFAULT_TYPE_MAP", "DataLoader", "DistIterSampler", "SpeckleMedDataset",
+           "SyntheticMedDataset", "collate", "create_SpeckleMedDataset", "create_dataloader",
+           "create_dataset", "make_synthetic_dataset", "write_synthetic_index"]

@@ -10,9 +10,9 @@ class-token pool -> bias-free ``proj``. Two flavours (``FLAVOURS``): timm /
 BiomedCLIP (exact GELU, LayerNorm eps 1e-6, no ``ln_pre``; the default, and
 what ``build_image_tower`` builds) and OpenAI (QuickGELU, eps 1e-5,
 ``ln_pre``; what OpenAI's checkpoints hold). The blocks' self-attention is
-unmasked and runs the flash kernel on CUDA, which takes 64-wide heads
-(ViT-B/16: 12 heads of 64): a tower with other head widths runs on the CPU
-only. The tower is frozen: PatchDropout and DropPath, the training-only
+unmasked and runs the flash kernel on CUDA (ViT-B/16: 12 heads of 64; the
+kernel takes the head widths of ``ops/flash_attention.HEAD_WIDTHS``). The
+tower is frozen: PatchDropout and DropPath, the training-only
 options of the JAX tower, are refused."""
 
 from __future__ import annotations

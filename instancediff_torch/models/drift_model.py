@@ -172,12 +172,9 @@ class CLIPDriftEngine(SamplingEngine):
         degra_ctx = None
         if self.use_degra_context:
             degra_ctx = self._encode_text(None)[type_idx][:, None, :]
-        dnet, nnet = self.nets["drift"], self.nets["noise"]
-        tb = t.reshape(-1)
-        pred_drift, d_sms = dnet(d_in[0], d_in[1], tb, type_idx, self._encode_prompts(dnet),
-                                 img_ctx, degra_ctx, plain=True)
-        pred_noise, n_sms = nnet(n_in[0], n_in[1], tb, type_idx, self._encode_prompts(nnet),
-                                 img_ctx, degra_ctx, plain=True)
+        pred_drift, pred_noise, d_sms, n_sms = self._dual_forward(
+            self.nets["drift"], self.nets["noise"], d_in, n_in, t.reshape(-1), type_idx,
+            img_ctx, degra_ctx, plain=True)
         if self.drift_loss == "l1":
             dloss = torch.mean(torch.abs(pred_drift - d_target))
         else:
@@ -191,6 +188,27 @@ class CLIPDriftEngine(SamplingEngine):
         nsml = score_map_loss(n_sms, n_target) if n_sms and self.use_nsm else zero
         loss = dloss + nloss + dsml + nsml
         return loss, dict(zip(self._loss_keys(), (loss, dloss, nloss, dsml, nsml)))
+
+    def _dual_forward(self, drift_net, noise_net, d_in, n_in, t, ty, img_ctx, degra_ctx,
+                      plain: bool, texts=None):
+        """Both UNets for one training-style step (JAX's ``_dual_forward``,
+        shared by the train step and the distillation step): the drift net
+        on ``d_in``, then the noise net on ``n_in`` (each an (x_a, x_b)
+        pair) at the timesteps ``t`` [B]. ``plain`` runs the differentiable
+        plain path (a train step, a student), else the sampling path (on
+        CUDA the kernels; a teacher, under no_grad). ``texts``: the two
+        nets' per-SMM text encodings, else encoded here (inside the autograd
+        graph when gradients are on). JAX vmaps the two nets over stacked
+        parameters when their settings match, which computes the same
+        values. Returns (pred_drift, pred_noise, drift score maps, noise
+        score maps)."""
+        if texts is None:
+            texts = (self._encode_prompts(drift_net), self._encode_prompts(noise_net))
+        pred_drift, d_sms = drift_net(d_in[0], d_in[1], t, ty, texts[0], img_ctx, degra_ctx,
+                                      plain=plain)
+        pred_noise, n_sms = noise_net(n_in[0], n_in[1], t, ty, texts[1], img_ctx, degra_ctx,
+                                      plain=plain)
+        return pred_drift, pred_noise, d_sms, n_sms
 
     # ------------------------------------------------------------ sampling
 

@@ -412,18 +412,26 @@ class SamplingEngine:
         with torch.enable_grad():
             loss, terms = self._train_loss(batch, generator, t, std_noise, deg_noise)
             loss.backward()
+        self._apply_gradients({key: cosine_annealing_lr(epoch, self.nepoch, self.lr0[key],
+                                                        self.eta_min)
+                               for key in self.optimizers})
+        values = torch.stack([v.detach().float().reshape(()) for v in terms.values()]).tolist()
+        self._record_losses(dict(zip(terms, values)))
+        return values[0]
+
+    def _apply_gradients(self, lrs: Dict[str, float]) -> None:
+        """After a backward: one Adam step per trained net at its learning
+        rate in ``lrs`` (a parameter the loss did not reach gets a zero
+        gradient), the step counter, then the EMA shadows."""
         for key, opt in self.optimizers.items():
             for p in self.nets[key].parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            set_lr(opt, cosine_annealing_lr(epoch, self.nepoch, self.lr0[key], self.eta_min))
+            set_lr(opt, lrs[key])
             opt.step()
         self.step += 1
         for key, (_, ema_key) in self.TRAINED.items():
             ema_update(self.nets[ema_key], self.nets[key], self.step)
-        values = torch.stack([v.detach().float().reshape(()) for v in terms.values()]).tolist()
-        self._record_losses(dict(zip(terms, values)))
-        return values[0]
 
     def reinit_loss_message(self) -> None:
         keys = self._loss_keys()

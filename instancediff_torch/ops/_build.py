@@ -40,8 +40,8 @@ SIGNATURES = {
         "fgc_tc_smem_bytes": ([_I] * 3, _I),
     },
     "flash_attention": {
-        # q, k, v, out, BH, N, Nk, D, scale, dtype, stream
-        "flash_forward": ([_VP] * 4 + [_I] * 4 + [_F, _I, _VP], _I),
+        # q, k, v, out, BH, N, Nk, D, scale, dtype, path, stream
+        "flash_forward": ([_VP] * 4 + [_I] * 4 + [_F, _I, _I, _VP], _I),
     },
     "group_norm_silu": {
         # x, gamma, beta, out, partials, gstat, tickets, B, HW, C, G, eps, silu,

@@ -118,6 +118,27 @@ class DriftSDE:
         x0_hat = x_t - sd_t * pd - sig_t * pn
         return x0_hat + sd_p * pd + carry * pn + c * z
 
+    def reverse_step_at(self, x_t: torch.Tensor, t, t_prev, pred_drift, pred_noise,
+                        eta: float, z: torch.Tensor) -> torch.Tensor:
+        """One ancestral step t -> t_prev at per-sample integer timesteps
+        ``t``/``t_prev`` ([B]; JAX's ``reverse_step`` with ``t_prev`` and
+        ``z`` given): the schedule values gathered at each sample's pair and
+        cast to x_t's dtype, the noise split from ``posterior_coeffs``. The
+        distillation step's teacher rollout uses it; the sampler reads its
+        coefficients from a table row (``reverse_step``)."""
+        t = torch.as_tensor(t, device=x_t.device).long()
+        t_prev = torch.as_tensor(t_prev, device=x_t.device).long()
+        bshape = (-1,) + (1,) * (x_t.ndim - 1)
+
+        def at(table, ts):
+            return table.to(x_t.device)[ts].reshape(bshape).to(x_t.dtype)
+
+        sd_t, sd_p = at(self.drift_schedule, t), at(self.drift_schedule, t_prev)
+        sig_t, sig_p = at(self.sigmas, t), at(self.sigmas, t_prev)
+        x0_hat = x_t - sd_t * pred_drift - sig_t * pred_noise
+        carry, c = self.posterior_coeffs(sig_t, sig_p, eta)
+        return x0_hat + sd_p * pred_drift + carry * pred_noise + c * z
+
     def step(self, state: SamplerState, predict_fn: PredictFn) -> None:
         """One sampler step, the scan body: the row at the state's step
         index, the nets, the reverse step into ``state.x``, index + 1."""

@@ -18,7 +18,8 @@ from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
 from instancediff_torch.models.drift_model import CLIPDriftEngine
 from instancediff_torch.models.engine import kernel_launches
 from instancediff_torch.models.layers import ConvParams
-from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from instancediff_torch.ops.flash_attention import (HEAD_WIDTHS, flash_attention,
+                                                     flash_attention_plain, flash_plan)
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.fused_gn_conv import (
     fused_gn_silu_conv3x3,
@@ -257,8 +258,8 @@ def test_gn_plan_matches_kernel_shared_memory(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 2, 16, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="D=64"):
+    q = torch.zeros(1, 2, 16, 48, device=cuda)
+    with pytest.raises(ValueError, match="D=48"):
         flash_attention(q, q, q)
     x = torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.float16)
     s = torch.zeros(1, 8, device=cuda)
@@ -713,3 +714,142 @@ def test_biomedclip_low_precision_on_cuda(cuda):
             torch.testing.assert_close(g.float(), w, rtol=0, atol=1e-2)
     with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
         get_BiomedCLIP(precision="fp16", device="cuda", **trees)
+
+
+# ---------------------------------------------------------------- every head width
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N", [64, 197, 1024])
+@pytest.mark.parametrize("D", HEAD_WIDTHS)
+def test_flash_kernel_at_every_head_width(cuda, dtype, tol, N, D):
+    """Every head width the kernels take (the UNet bottleneck's 4 heads give
+    D = nf * ch_mult[-1] / 4), both dtypes, N one tile, ragged and the
+    flagship's; one launch, no plain fallback."""
+    gen = torch.Generator(device=cuda).manual_seed(N * 1000 + D)
+    q, k, v = (_randn(gen, 2, 4, N, D).to(dtype) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v).float(), rtol=tol,
+                               atol=tol)
+
+
+def _flash_kernel_names(q):
+    from torch.profiler import ProfilerActivity, profile
+
+    flash_attention(q, q, q)  # loaded before the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, q, q)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if "flash_" in e.name]
+
+
+@pytest.mark.parametrize("D,dtype", [(64, torch.bfloat16), (64, torch.float32),
+                                     (8, torch.bfloat16), (128, torch.float32)])
+def test_flash_plan_picks_the_kernel_the_card_runs(cuda, D, dtype):
+    """bf16 at D = 64 (the bottleneck's and the tower's shape) stays on the
+    tensor-core kernel; every other (D, dtype) runs the FMA kernel, by the
+    profiler's kernel name."""
+    q = torch.zeros(1, 4, 128, D, device=cuda, dtype=dtype)
+    names = _flash_kernel_names(q)
+    want = "flash_tc_kernel" if flash_plan(D, dtype)["path"] == "tc" else "flash_fma_kernel"
+    assert len(names) == 1 and want in names[0], names
+    assert (want == "flash_tc_kernel") == (D == 64 and dtype == torch.bfloat16)
+
+
+# a tiny engine of the demos' and the distillation gate's widths: nf 16,
+# ch_mult [1, 2], so the bottleneck's 4 heads are 8 wide
+TINY_NET = dict(in_nc=2, out_nc=5, nf=16, ch_mult=[1, 2], context_dim=16, text_module="scoremap",
+                score_map_chan=4, if_MultiScoreMap=True, num_res_blocks=1)
+
+
+def _tiny_engine(dtype=torch.float32, if_train=False):
+    eng = CLIPDriftEngine(TINY_NET, TINY_NET, score_map_ch_mult=(1, 1), score_map_ngf=16,
+                          sde=DriftSDE(T=16, max_sigma=0.3), dtype=dtype, tiny_text_encoder=True,
+                          image_size=32, device="cuda", if_train=if_train)
+    _randomize_(eng.nets, seed=3)
+    _randomize_(eng.text_encoder, seed=4)
+    return eng
+
+
+def _tiny_batch(seed, B=4):
+    rng = np.random.default_rng(seed)
+    return {"input": rng.uniform(-1, 1, (B, 32, 32, 1)).astype(np.float32),
+            "target": rng.uniform(-1, 1, (B, 32, 32, 1)).astype(np.float32),
+            "type_idx": rng.integers(0, 5, B),
+            "A_emb": rng.standard_normal((B, 1, 16)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiny_width_engine_samples_on_the_compiled_sampler(deterministic, dtype):
+    """nf 16, ch_mult [1, 2] (8-wide heads): the compiled sampler at 8 of 16
+    steps, eta 0, against the eager loop; the kernels recorded per step: 2
+    flash, 10 fused conv, 10 statistics (5 ResBlocks and the head per
+    net)."""
+    eng = _tiny_engine(dtype)
+    batch = _tiny_batch(0)
+    gen = torch.Generator(device="cuda")
+    got = eng.test(batch, gen.manual_seed(1), sample_steps=8, eta=0.0)
+    want = eng.test(batch, gen.manual_seed(1), sample_steps=8, eta=0.0, compiled=False)
+    _assert_graph_matches_eager(got, want, dtype)
+    per_step = eng.last_graph.launches
+    assert per_step["flash_attention"] == 2 and per_step["group_norm_silu"] == 0
+    assert per_step["fused_gn_silu_conv3x3"] == per_step["gn_channel_affine"] > 0
+
+
+def test_distill_teacher_targets_on_the_kernels_match_the_plain_path(cuda):
+    """The teacher's composed targets with its two predictions on the
+    kernels (its sampling path) and with every kernel wrapper patched to its
+    plain version: fp32 within 1e-4 of the targets' largest magnitude."""
+    from unittest import mock
+
+    from instancediff_torch.models import unet as unet_mod
+    from instancediff_torch.models.distill import Teacher, distill_targets
+    from instancediff_torch.ops.fused_gn_conv import gn_channel_affine_plain
+
+    eng = _tiny_engine(if_train=True)
+    teacher = Teacher.from_engine(eng)
+    gen = torch.Generator(device="cuda")
+    before = kernel_launches()
+    got = distill_targets(eng, teacher, _tiny_batch(1), 8, 1.0, True, generator=gen.manual_seed(5))
+    after = kernel_launches()
+    assert after["flash_attention"] - before["flash_attention"] == 4
+    assert after["fused_gn_silu_conv3x3"] > before["fused_gn_silu_conv3x3"]
+    plain = {"fused_gn_silu_conv3x3": fused_gn_silu_conv3x3_plain,
+             "gn_channel_affine": gn_channel_affine_plain,
+             "group_norm_silu": group_norm_silu_plain, "flash_attention": flash_attention_plain}
+    with mock.patch.multiple(unet_mod, **plain):
+        want = distill_targets(eng, teacher, _tiny_batch(1), 8, 1.0, True,
+                               generator=gen.manual_seed(5))
+    for k in ("d_tgt", "n_tgt"):
+        err = (got[k] - want[k]).abs().max().item()
+        assert err <= 1e-4 * max(1.0, want[k].abs().max().item()), (k, err)
+
+
+def test_distill_phase_then_test_captures_a_new_graph(cuda):
+    """A compiled call before a phase captures the online nets' step; after
+    a phase (in-place copies and updates) the next call at the student's
+    steps captures anew and serves the student, as the eager loop does."""
+    from instancediff_torch.models.distill import distill_phase
+
+    eng = _tiny_engine(if_train=True)
+    batch = _tiny_batch(2)
+    gen = torch.Generator(device="cuda")
+    eng.test(batch, gen.manual_seed(1), sample_steps=8, eta=0.0, use_ema=False)
+    captures = eng.captures
+    batches = iter([_tiny_batch(10 + i) for i in range(3)])
+    distill_phase(eng, 8, batches, 3, lr=1e-3, ema_as_teacher=False, log_every=0,
+                  generator=gen.manual_seed(3))
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = eng.test(batch, gen.manual_seed(1), sample_steps=8, eta=0.0, use_ema=False)
+        want = eng.test(batch, gen.manual_seed(1), sample_steps=8, eta=0.0, use_ema=False,
+                        compiled=False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert eng.captures == captures + 1
+    _assert_graph_matches_eager(got, want, torch.float32)

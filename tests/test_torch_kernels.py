@@ -31,7 +31,8 @@ from instancediff_torch.models.layers import conv_same, conv_transpose_same
 from instancediff_torch.models.scoremap import ScaledDecoderLayer
 from instancediff_torch.models.unet import SelfAttention2D
 from instancediff_torch.ops.attention import multi_head_attention
-from instancediff_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from instancediff_torch.ops.flash_attention import (HEAD_WIDTHS, flash_attention,
+                                                     flash_attention_plain, flash_plan)
 from instancediff_torch.ops.fused_gn_conv import (
     fused_gn_silu_conv3x3,
     fused_gn_silu_conv3x3_plain,
@@ -63,6 +64,34 @@ def test_flash_plain_matches_pallas_interpret():
     got = flash_attention(_t(q), _t(k), _t(v))  # CPU tensor -> plain version
     # float32; blockwise vs one-shot softmax: rounding only
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("D", [4, 8, 128])
+def test_flash_plain_matches_pallas_interpret_at_other_head_widths(D):
+    """The widths the repo's other configurations give the bottleneck's 4
+    heads (tiny_cpu.yml 4, the demos 8, nf 128 128): JAX's Pallas kernel
+    takes any D, and so does the port's plain version."""
+    rng = np.random.default_rng(D)
+    q, k, v = (_rand(rng, 2, 4, 64, D) for _ in range(3))
+    want = np.asarray(pk.flash_attention(q, k, v, q_tile=32, kv_tile=32, interpret=True))
+    got = flash_attention(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plan_per_head_width_and_dtype(dtype):
+    """The tensor-core kernel for bf16 at D = 64 only, the FMA kernel for
+    every other width it is instantiated for, a named refusal elsewhere."""
+    for D in HEAD_WIDTHS:
+        plan = flash_plan(D, dtype)
+        assert plan["path"] == ("tc" if (D == 64 and dtype == torch.bfloat16) else "fma")
+        assert plan["D"] == D
+    assert HEAD_WIDTHS == (4, 8, 16, 32, 64, 128)
+    for D in (1, 2, 12, 48, 96, 256):
+        with pytest.raises(ValueError, match=f"D={D}"):
+            flash_plan(D, dtype)
+    with pytest.raises(TypeError, match="float16"):
+        flash_plan(64, torch.float16)
 
 
 def test_flash_plain_ragged_n_matches_reference():
@@ -276,6 +305,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Restorer(engine)
         Restorer(engine, device="cpu")
+    # the distillation driver and the demos default to the card too
+    from instancediff_torch.tools import demo_all_modalities, demo_restoration
+    from instancediff_torch.tools import distill as distill_tool
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distill_tool.main(["-opt", "Configurations/tiny_cpu.yml", "--phases", "4"])
+    for demo in (demo_restoration, demo_all_modalities):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            demo.main([])
 
 
 def test_chip_smoke_fails_without_cuda():
