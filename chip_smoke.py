@@ -183,6 +183,39 @@ Phases, one JSON line each, in order:
                 ``eval_protocol`` tables for both on a port Synthetic set
                 pinned by its manifest. Its launches are printed in a line
                 of its own, not in the ``kernels`` line.
+  9. irsde  -- ``create_sde({"class_name": "IRSDE", "T": 100})`` driven by
+                two noise predictors with seeded random weights, each on the
+                kernels and on the plain path: the DDPM net at
+                flagship_ddpm_tpu.yml's widths (unfused body: 45
+                ``group_norm_silu`` + 1 flash per step) and the flagship drift
+                engine's noise net (fused body: 45 fused conv + 45
+                ``gn_channel_affine`` + 1 flash); 256 px, batch 8, bf16:
+                ``reverse_sde`` (stochastic, injected noise) and
+                ``reverse_ode`` at all 100 steps, kernels vs plain within
+                ``TOL[bf16]`` of the plain result's largest value, launches
+                per step held to ``IRSDE_PATHS``, ms per step; then
+                ``ode_sampler`` in fp32 (rtol = atol = 1e-5) at
+                ``IRSDE_ODE_RES`` px on both paths (evaluations, accepted and
+                rejected steps, launches per evaluation; kernels vs plain
+                within ``IRSDE_ODE_TOL`` of the largest value plus twice the
+                solve's own error, the kernels' distance to their solve at a
+                tenth of the tolerance). Its kernel launches count in the
+                ``kernels`` line;
+ 10. dist   -- (a) ``tools/trainUM`` with ``train.dist: true`` launched by
+                ``python -m torch.distributed.run --nproc_per_node 1`` with
+                ``--launcher pytorch`` (one NCCL rank) at
+                flagship_bf16_tpu.yml's widths, 224 px, batch 4, 2
+                iterations, validated and saved at the end, against the
+                same run without a process group, both cuDNN deterministic:
+                the bundle and ``{iter}.state`` must hash alike; NCCL with two
+                ranks on the card (reported: NCCL takes one rank per card);
+                (b) two spawned ranks sharing the card over gloo at
+                flagship_tpu.yml's widths (fp32, remat), 224 px, global batch
+                4 (2 per rank), 2 steps on one set of injected draws: the
+                first step's averaged gradients and updated parameters held
+                to one process's step on the global batch (the rules of
+                ``grad_check``), the ranks' parameters equal, ms per step
+                per rank, the all-reduce's ms and bytes.
 
 Any failure raises and the script exits non-zero; a failed capture too (the
 engines never fall back to the eager loop). Without CUDA it exits 1 before
@@ -208,6 +241,7 @@ import numpy as np
 import torch
 import yaml
 
+from instancediff_torch import parallel
 from instancediff_torch.config import load_options
 from instancediff_torch.models import create_model
 from instancediff_torch.models import unet as unet_mod
@@ -2260,6 +2294,465 @@ def distill_phase_chip(gpu) -> None:
           "launches": dict(total), "seconds": round(time.time() - t0, 3), "gpu": gpu})
 
 
+# ---------------------------------------------------------------- data parallel
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# (a) trainUM launched by torch.distributed.run as one NCCL rank against the
+# same run without a process group, flagship_bf16_tpu.yml's widths, 224 px,
+# batch 4, cut in depth: DIST_ITERS iterations, one save (the end's), one
+# validation (rank 0, at the last iteration)
+DIST_CONFIG, DIST_ITERS, DIST_LAUNCH_TIMEOUT = "drift_bf16", 2, 600
+# (b) two ranks sharing the card over gloo, flagship_tpu.yml (fp32, remat),
+# 224 px, global batch 4 (2 per rank): DIST_GLOO_STEPS steps on one set of
+# injected draws, the first held to one process's step on the global batch
+DIST_GLOO_CONFIG, DIST_GLOO_STEPS, DIST_WORLD_TIMEOUT = "drift_fp32", 2, 600
+# both runs of (a) hold every op to a deterministic algorithm (cuDNN's
+# default backward algorithms are not bit-repeatable), as phase train's
+# resume runs do
+DETERMINISTIC_TRAINUM = """import sys
+import torch
+torch.backends.cudnn.deterministic = True
+from instancediff_torch.tools import trainUM
+trainUM.main(sys.argv[1:])
+"""
+
+
+def launch_trainum(root, cfg, dist: bool) -> tuple:
+    """``tools/trainUM`` on ``cfg`` in a process of its own from ``root``:
+    with ``dist`` under ``python -m torch.distributed.run --nproc_per_node
+    1`` with ``--launcher pytorch`` (one NCCL rank), else plainly; returns
+    (seconds, its standard output)."""
+    wrapper = os.path.join(root, "trainum_deterministic.py")
+    with open(wrapper, "w") as f:
+        f.write(DETERMINISTIC_TRAINUM)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, wrapper, "-opt", cfg]
+    if dist:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+               "--master_addr", "127.0.0.1", "--master_port", str(parallel.free_port()),
+               wrapper, "-opt", cfg, "--launcher", "pytorch"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                          timeout=DIST_LAUNCH_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"trainUM ({'dist' if dist else 'plain'}) rc {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return time.time() - t0, proc.stdout
+
+
+def dist_nccl_one_rank(gpu, tmp) -> None:
+    """(a) trainUM with ``train.dist: true`` under ``torch.distributed.run``
+    (one NCCL rank) and the same run with ``train.dist: false``: the bundle
+    and ``{iter}.state`` they write must hash alike."""
+    index = write_speckle_med(os.path.join(tmp, "data"), 2, 224, 512, ARTIFACT_PROMPTS)
+    hashes, seconds, logs = {}, {}, {}
+    for name, dist in (("dist", True), ("plain", False)):
+        root = os.path.join(tmp, name)
+        os.makedirs(root)
+        cfg = train_config(root, DIST_CONFIG, index, DIST_ITERS, 1, 10**6, DIST_ITERS)
+        with open(cfg) as f:
+            opt = yaml.safe_load(f)
+        opt["train"]["dist"] = dist
+        with open(cfg, "w") as f:
+            yaml.safe_dump(opt, f)
+        seconds[name], logs[name] = launch_trainum(root, cfg, dist)
+        exp = os.path.join(root, "experiments", opt["name"])
+        hashes[name] = {f"{d}/{k}": v for d in ("models", "training_state")
+                        for k, v in sha256_files(os.path.join(exp, d)).items()}
+    if "world_size=1" not in logs["dist"] or f"VAL iter {DIST_ITERS}" not in logs["dist"]:
+        raise AssertionError(f"the dist run's log:\n{logs['dist'][-3000:]}")
+    if hashes["dist"] != hashes["plain"]:
+        raise AssertionError(f"train.dist bundle and state differ from the plain run's: "
+                             f"{hashes}")
+    emit({"phase": "dist", "what": f"(a) trainUM {os.path.basename(TRAIN_CONFIGS[DIST_CONFIG])}"
+                                   f", 224 px, batch 4, {DIST_ITERS} iterations, validated and "
+                                   "saved at the end: train.dist under torch.distributed.run "
+                                   "(one NCCL rank) against train.dist false, both cuDNN "
+                                   "deterministic",
+          "files": len(hashes["dist"]), "sha256_identical": True,
+          "seconds_dist_launch": round(seconds["dist"], 3),
+          "seconds_plain": round(seconds["plain"], 3), "gpu": gpu})
+
+
+def _rank_entry(fn, rank, world, port, queue, args):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        queue.put((rank, None, fn(rank, *args)))
+    except BaseException:  # reported to the parent, which fails the phase
+        import traceback
+        queue.put((rank, traceback.format_exc(), None))
+
+
+def spawn_world(fn, world: int, *args, timeout: float = DIST_WORLD_TIMEOUT) -> list:
+    """``fn(rank, *args)`` in ``world`` spawned processes joined by the
+    launcher's environment on a free localhost port; the ranks' results in
+    rank order (a rank's error as ``{"error": traceback}``). A world that
+    does not finish within ``timeout`` is killed."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = parallel.free_port()
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, port, queue, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, err, out = queue.get(timeout=timeout)
+            results[rank] = {"error": err} if err else out
+    except queue_mod.Empty:
+        pass
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results.get(r, {"error": f"no result within {timeout} s"}) for r in range(world)]
+
+
+def nccl_two_ranks_one_card(rank) -> dict:
+    """One all-reduce over NCCL with both ranks on cuda:0."""
+    import datetime
+
+    parallel.init_distributed("cuda:0", backend="nccl", timeout=datetime.timedelta(seconds=60))
+    try:
+        t = torch.ones(4, device="cuda:0")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        return {"all_reduce": t.tolist()}
+    finally:
+        parallel.shutdown()
+
+
+def gloo_draws() -> tuple:
+    """The global batch and one set of injected draws for (b): per step t
+    [4] and the standard noise [4, 224, 224, 1] (flagship_tpu.yml's engine
+    degrades nothing on the device)."""
+    rng = np.random.default_rng(60)
+    images = rng.uniform(-1, 1, (4, 224, 224, 1)).astype(np.float32)
+    data = {"input": images, "target": images[::-1].copy(), "type_idx": np.arange(4),
+            "A_emb": rng.standard_normal((4, 1, 512)).astype(np.float32)}
+    steps = load_options(TRAIN_CONFIGS[DIST_GLOO_CONFIG])["sdes"]["driftSDE"]["T"]
+    draws = {"t": rng.integers(1, steps + 1, (DIST_GLOO_STEPS, 4)),
+             "std_noise": rng.standard_normal((DIST_GLOO_STEPS, 4, 224, 224, 1)).astype(
+                 np.float32)}
+    return data, draws
+
+
+def gloo_engine(device, seeded: bool):
+    """A train engine of (b)'s config; with ``seeded`` its trained nets and
+    text tower drawn from one numpy seed (``seeded_tree``, as ``grad_check``
+    and the CPU goldens draw them: at its init conv2, conv_out and the
+    attention out projections are zero, and the gradients behind them)."""
+    torch.manual_seed(0)
+    opt = load_options(TRAIN_CONFIGS[DIST_GLOO_CONFIG])
+    eng = create_model(opt["train"], opt["models"]["DriftNoise"],
+                       sde=create_sde(opt["sdes"]["driftSDE"]), image_size=224, remat=True,
+                       device=device)
+    if seeded:
+        rng = np.random.default_rng(61)
+        for key in eng.optimizers:
+            load_flax_params(eng.nets[key], seeded_tree(flax_params(eng.nets[key]), rng))
+        load_flax_params(eng.text_encoder, seeded_tree(flax_params(eng.text_encoder), rng))
+    return eng
+
+
+def gloo_rank(rank) -> dict:
+    """(b) One rank of two sharing cuda:0 over gloo: rank 0's seeded weights
+    broadcast to rank 1, its half of the global batch and of the draws, ``DIST_GLOO_STEPS`` steps, each timed, the
+    gradient all-reduce timed; after step 1 rank 0 holds the averaged
+    gradients and the updated parameters to one process's step on the
+    global batch (``parity.check_grads``/``check_params``, the tolerances of
+    ``grad_check``) while rank 1 waits; the ranks' parameters' digests after
+    the last step."""
+    import datetime
+
+    dev = parallel.init_distributed("cuda:0", backend="gloo",
+                                    timeout=datetime.timedelta(seconds=DIST_WORLD_TIMEOUT))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    real_reduce = parallel.all_reduce_mean_
+    reduces = []
+
+    def timed_reduce(tensors, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        n = real_reduce(tensors, *args, **kwargs)
+        torch.cuda.synchronize()
+        reduces.append(((time.time() - t0) * 1e3, n))
+        return n
+
+    try:
+        data, draws = gloo_draws()
+        eng = gloo_engine(dev, seeded=rank == 0)  # rank 1 takes rank 0's by broadcast
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sent = parallel.broadcast_module_(eng.nets) + parallel.broadcast_module_(
+            eng.text_encoder)
+        torch.cuda.synchronize()
+        out = {"broadcast_bytes": sent, "broadcast_ms": round((time.time() - t0) * 1e3, 3)}
+        batch = parallel.shard_batch(data)
+        half = slice(rank * 2, rank * 2 + 2)
+        steps = []
+        with mock.patch.object(parallel, "all_reduce_mean_", timed_reduce):
+            for i in range(DIST_GLOO_STEPS):
+                reduces.clear()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                eng.optimize_parameters(
+                    batch, epoch=0, t=torch.tensor(draws["t"][i][half]),
+                    std_noise=torch.tensor(draws["std_noise"][i][half]))
+                torch.cuda.synchronize()
+                grad_ms, grad_bytes = max(reduces, key=lambda r: r[1])
+                steps.append({"ms": round((time.time() - t0) * 1e3, 3),
+                              "all_reduce_ms": round(grad_ms, 3),
+                              "all_reduce_bytes": grad_bytes})
+                if i == 0 and rank == 0:
+                    got = {k: {n: (p.grad.float().cpu().numpy(), p.detach().cpu().numpy())
+                               for n, p in eng.nets[k].named_parameters()}
+                           for k in eng.optimizers}
+                    out["check"] = gloo_reference(eng, got, data, draws)
+                if i == 0:
+                    parallel.barrier()
+        out["steps"] = steps
+        digest = hashlib.sha256()
+        for p in eng.nets.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        digests = [None, None]
+        torch.distributed.all_gather_object(digests, digest.hexdigest())
+        out["parameters_equal_over_ranks"] = digests[0] == digests[1]
+        out["parameters"] = sum(p.numel() for k in eng.optimizers
+                                for p in eng.nets[k].parameters())
+        return out
+    finally:
+        parallel.shutdown()
+
+
+def gloo_reference(eng, got, data, draws) -> dict:
+    """One process's first step on the global batch (a fresh engine from
+    the same seed; the process group hidden from the engine), against the
+    2-rank step's averaged gradients and parameters ``got``."""
+    ref = gloo_engine(eng.device, seeded=True)
+    with mock.patch.object(parallel, "world_size", lambda: 1):
+        ref.optimize_parameters(data, epoch=0, t=torch.tensor(draws["t"][0]),
+                                std_noise=torch.tensor(draws["std_noise"][0]))
+    read = {}
+    for key in ref.optimizers:
+        want = {n: (p.grad.float().cpu().numpy(), p.detach().cpu().numpy())
+                for n, p in ref.nets[key].named_parameters()}
+        g_w, p_w = ({n: v[i] for n, v in want.items()} for i in (0, 1))
+        g_g, p_g = ({n: v[i] for n, v in got[key].items()} for i in (0, 1))
+        what = f"2 ranks over gloo vs one process: {key} "
+        tols, read[key + "_gradients"] = check_grads(g_g, g_w, GRAD_TOL, GRAD_FLOOR,
+                                                     REDUCTION_TOL, what=what)
+        n = sum(v.size for v in p_w.values())
+        read[key + "_parameters"] = check_params(
+            p_g, p_w, GRAD_TOL, [(ref.lr0[key], g_w, tols)], max(16, int(ADAM_SHARE * n)),
+            what=what)
+    read["loss_one_process"] = ref.loss_info["latest"]["l"]
+    read["loss_two_ranks"] = eng.loss_info["latest"]["l"]
+    lerr = abs(read["loss_two_ranks"] - read["loss_one_process"]) / abs(read["loss_one_process"])
+    if lerr > GRAD_TOL:
+        raise AssertionError(f"2-rank loss {read['loss_two_ranks']} vs one process "
+                             f"{read['loss_one_process']}")
+    del ref
+    torch.cuda.empty_cache()
+    return read
+
+
+def dist_phase(gpu) -> None:
+    """Phase ``dist``: (a) one NCCL rank through ``torch.distributed.run``,
+    bit-identical to the run without a process group; (b) two ranks sharing
+    the card over gloo against one process's step; NCCL's refusal of two
+    ranks on one card."""
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        dist_nccl_one_rank(gpu, tmp)
+    t0 = time.time()
+    nccl = spawn_world(nccl_two_ranks_one_card, 2, timeout=120)
+    emit({"phase": "dist", "what": "NCCL, two ranks on one card: one all-reduce",
+          "refused": any("error" in r for r in nccl),
+          "ranks": [r.get("error", "")[-400:] or r for r in nccl],
+          "seconds": round(time.time() - t0, 3), "gpu": gpu})
+    t0 = time.time()
+    ranks = spawn_world(gloo_rank, 2)
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError("(b) gloo ranks failed:\n" + "\n".join(errors))
+    if not all(r["parameters_equal_over_ranks"] for r in ranks):
+        raise AssertionError("(b) the ranks' parameters differ after the steps")
+    emit({"phase": "dist", "what": f"(b) two ranks sharing the card over gloo, "
+                                   f"{os.path.basename(TRAIN_CONFIGS[DIST_GLOO_CONFIG])} (fp32, "
+                                   "remat), 224 px, global batch 4 (2 per rank), TF32 off, "
+                                   f"{DIST_GLOO_STEPS} steps; step 1 against one process's "
+                                   "step on the global batch",
+          "parameters": ranks[0]["parameters"],
+          "ms_per_step_per_rank": [[s["ms"] for s in r["steps"]] for r in ranks],
+          "all_reduce_ms_per_rank": [[s["all_reduce_ms"] for s in r["steps"]] for r in ranks],
+          "all_reduce_bytes": ranks[0]["steps"][0]["all_reduce_bytes"],
+          "broadcast_ms": [r["broadcast_ms"] for r in ranks],
+          "broadcast_bytes": ranks[0]["broadcast_bytes"],
+          "parameters_equal_over_ranks": True, **ranks[0]["check"],
+          "tols": {"grad_of_leaf": GRAD_TOL, "floor_of_largest_leaf": GRAD_FLOOR,
+                   "reductions_of_leaf": REDUCTION_TOL, "params_of_leaf": GRAD_TOL,
+                   "adam_allowance_share": ADAM_SHARE},
+          "seconds": round(time.time() - t0, 3), "gpu": gpu})
+    emit({"phase": "dist", "what": "the phase", "seconds": round(time.time() - t_phase, 3),
+          "gpu": gpu})
+
+
+# ---------------------------------------------------------------- IR-SDE
+
+IRSDE_OPT = {"class_name": "IRSDE", "T": 100}
+# per noise-net forward (one per sampler step / function evaluation): the
+# DDPM net on the unfused body; the drift engine's noise net on the fused body
+IRSDE_PATHS = {"ddpm": {"conv": 0, "flash": 1, "gn": 45, "affine": 0},
+               "drift_noise": {"conv": 45, "flash": 1, "gn": 0, "affine": 45}}
+# ode_sampler: fp32 at rtol = atol = IRSDE_ODE_RTOL, batch 8 at IRSDE_ODE_RES
+# px (cut from 256 for the script's time; the widths are the paths'). The
+# kernels' solve steps otherwise than the plain one (its roundoff moves error
+# ratios across 1, and random weights drive x to O(100)), so it is another
+# solve of the same ODE: held within IRSDE_ODE_TOL of the largest value plus
+# twice the solve's own error (the kernels' solve's distance to theirs at
+# rtol / 10)
+IRSDE_ODE_RES, IRSDE_ODE_RTOL, IRSDE_ODE_TOL = 128, 1e-5, 1e-3
+
+
+def irsde_noise_fn(eng, path, res):
+    """``noise_fn(x, t)`` of ``path``'s noise net (the EMA copy) on the
+    engine's call inputs for a seeded batch of ``BATCH`` at ``res`` px, and
+    mu: the net sees (x, mu), its timestep t and the call's encodings."""
+    rng = np.random.default_rng(70)
+    batch = {"input": rng.uniform(-1, 1, (BATCH, res, res, 1)).astype(np.float32),
+             "type_idx": np.arange(BATCH) % len(ARTIFACT_PROMPTS)}
+    inputs = eng._inputs(batch, use_ema=True)
+    mu, ty, img = inputs["mu"], inputs["type_idx"], inputs["img_ctx"]
+    net = eng.nets["n_ema"]
+    if path == "ddpm":
+        text, extra = inputs["text"], ()
+    else:
+        text, extra = inputs["n_text"], (inputs["degra_ctx"],)
+
+    def noise_fn(x, t):
+        return net(x, mu, t, ty, text, img, *extra)[0]
+
+    return noise_fn, mu
+
+
+def irsde_loops(sde, noise_fn, mu, init, steps, plain: bool) -> dict:
+    """reverse_sde (stochastic, injected noise) and reverse_ode at every
+    step, on the kernels or the plain path: results, ms per step, launches."""
+    out = {}
+    with contextlib.ExitStack() as stack:
+        for patch in plain_kernels() if plain else ():
+            stack.enter_context(patch)
+        for loop in ("reverse_sde", "reverse_ode"):
+            kw = {"step_noise": steps} if loop == "reverse_sde" else {}
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            x = getattr(sde, loop)(mu, noise_fn, init_noise=init, **kw)
+            torch.cuda.synchronize()
+            out[loop] = (x, (time.time() - t0) * 1e3 / sde.T, read_launches())
+    return out
+
+
+def irsde_phase(gpu) -> Counter:
+    """Phase ``irsde``: ``create_sde({"class_name": "IRSDE", "T": 100})``
+    driven by two noise predictors at full width with seeded random weights
+    (the DDPM net of flagship_ddpm_tpu.yml's widths, unfused body; the
+    flagship drift engine's noise net, fused body), 256 px, batch 8, bf16:
+    reverse_sde (stochastic, injected noise) and reverse_ode at all 100
+    steps on the kernels and on the plain path, held within ``TOL[bf16]``
+    of the plain result's largest value, launches per step held to
+    ``IRSDE_PATHS``, ms per step; then ``ode_sampler`` in fp32 (rtol = atol
+    = ``IRSDE_ODE_RTOL``) at ``IRSDE_ODE_RES`` px on both paths, and on the
+    kernels at a tenth of the tolerance (the solve's own error): function
+    evaluations, accepted and rejected steps, launches per evaluation.
+    Returns the kernels' launches (the kernels line's)."""
+    t_phase = time.time()
+    total = Counter()
+    sde = create_sde(dict(IRSDE_OPT))
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    with torch.inference_mode():
+        for path, make in (("ddpm", ddpm_engine), ("drift_noise", flagship_engine)):
+            per_fwd = IRSDE_PATHS[path]
+            eng = make(torch.bfloat16)
+            noise_fn, mu = irsde_noise_fn(eng, path, RES)
+            init = torch.randn(mu.shape, generator=gen, device="cuda")
+            steps = list(torch.randn((sde.T,) + tuple(mu.shape), generator=gen, device="cuda"))
+            k = irsde_loops(sde, noise_fn, mu, init, steps, plain=False)
+            p = irsde_loops(sde, noise_fn, mu, init, steps, plain=True)
+            for loop in ("reverse_sde", "reverse_ode"):
+                (xk, ms_k, nk), (xp, ms_p, npl) = k[loop], p[loop]
+                per_step = {kk: v / sde.T for kk, v in nk.items()}
+                if per_step != per_fwd or any(npl.values()):
+                    raise AssertionError(f"IR-SDE {path} {loop}: launches {nk} (plain {npl})")
+                total.update(nk)
+                err = (xk - xp).abs().max().item()
+                limit = TOL[torch.bfloat16] * max(1.0, xp.abs().max().item())
+                if not (err <= limit and torch.isfinite(xk).all()):
+                    raise AssertionError(f"IR-SDE {path} {loop}: kernels vs plain {err} > {limit}")
+                emit({"phase": "irsde", "what": f"{loop}, {path} noise net, bf16, {RES} px, "
+                                                f"batch {BATCH}, {sde.T} steps, kernels vs plain",
+                      "launches_per_step": per_step, "ms_per_step_kernels": round(ms_k, 3),
+                      "ms_per_step_plain": round(ms_p, 3), "max_abs_err": err, "tol": limit,
+                      "max_abs_plain": xp.abs().max().item(), "gpu": gpu})
+            del eng, k, p, steps
+            torch.cuda.empty_cache()
+
+            eng = make(torch.float32)
+            noise_fn, mu = irsde_noise_fn(eng, path, IRSDE_ODE_RES)
+            x_T = mu + sde.max_sigma * torch.randn(mu.shape, generator=gen, device="cuda")
+            res = {}
+            for plain, rtol in ((False, IRSDE_ODE_RTOL), (True, IRSDE_ODE_RTOL),
+                                (False, IRSDE_ODE_RTOL / 10)):
+                with contextlib.ExitStack() as stack:
+                    for patch in plain_kernels() if plain else ():
+                        stack.enter_context(patch)
+                    zero_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    x, info = sde.ode_sampler(x_T, mu, noise_fn, rtol=rtol, atol=rtol,
+                                              return_info=True)
+                    torch.cuda.synchronize()
+                    res[plain, rtol] = (x, info, time.time() - t0, read_launches())
+            (xk, ik, sk, nk), (xp, ip, sp, npl) = (res[False, IRSDE_ODE_RTOL],
+                                                   res[True, IRSDE_ODE_RTOL])
+            if {kk: v / ik["nfev"] for kk, v in nk.items()} != per_fwd or any(npl.values()):
+                raise AssertionError(f"IR-SDE ode_sampler {path}: launches {nk} for {ik}")
+            total.update(nk)
+            err = (xk - xp).abs().max().item()
+            # the solve's own error: the kernels' solve against theirs at rtol / 10
+            ref = res[False, IRSDE_ODE_RTOL / 10]
+            total.update(ref[3])
+            own = (xk - ref[0]).abs().max().item()
+            limit = IRSDE_ODE_TOL * max(1.0, xp.abs().max().item()) + 2 * own
+            if not (err <= limit and torch.isfinite(xk).all()):
+                raise AssertionError(f"IR-SDE ode_sampler {path}: kernels vs plain {err} > {limit}")
+            emit({"phase": "irsde", "what": f"ode_sampler, {path} noise net, fp32, "
+                                            f"{IRSDE_ODE_RES} px, batch {BATCH}, rtol = atol = "
+                                            f"{IRSDE_ODE_RTOL}, kernels vs plain",
+                  "kernels": {**ik, "seconds": round(sk, 3)},
+                  "plain": {**ip, "seconds": round(sp, 3)},
+                  "launches_per_evaluation": {kk: v / ik["nfev"] for kk, v in nk.items()},
+                  "kernels_at_rtol_over_10": ref[1],
+                  "ms_per_evaluation_kernels": round(sk * 1e3 / ik["nfev"], 3),
+                  "max_abs_err": err, "solve_own_error": own, "tol": limit,
+                  "max_abs_plain": xp.abs().max().item(),
+                  "gpu": gpu})
+            del eng, res
+            torch.cuda.empty_cache()
+    emit({"phase": "irsde", "what": "the phase: kernel launches (in the kernels line)",
+          "launches": dict(total), "seconds": round(time.time() - t_phase, 3), "gpu": gpu})
+    return total
+
+
 def sweep_conv(gpu) -> None:
     """Time the bf16 conv kernel at each flagship launch shape (batch 8) under
     every tile / N-block choice its plan picks from, beside cuDNN's conv on
@@ -2545,6 +3038,11 @@ def main() -> int:
     # 8. distillation: the teacher's rollouts on the kernels inside a
     # training loop, at flagship width and on the gate's tiny widths
     distill_phase_chip(gpu)
+
+    # 9. IR-SDE on the kernels (its launches count in the kernels line), and
+    # 10. data-parallel training
+    launches.update(irsde_phase(gpu))
+    dist_phase(gpu)
     entries = {k: dict(e, launches=launches[k], max_abs_err=worst[k]) for k, e in entries.items()}
     # the flash row is the UNet bottleneck's (bf16, the tensor-core kernel);
     # the image tower's launches (fp32, the FMA kernel) and its shapes'

@@ -18,12 +18,17 @@ def create_dataset(dataset_opt):
     raise NotImplementedError(f"Dataset mode [{mode}] is not recognized.")
 
 
-def create_dataloader(dataset, dataset_opt, sampler=None):
-    """The train phase: the option block's batch size in ``sampler``'s order
-    (the dataset's without one), a short last batch dropped. Test/validation:
-    the block's batch size (1 by default), in order, the last batch kept."""
+def create_dataloader(dataset, dataset_opt, sampler=None, world_size: int = 1):
+    """The train phase: this rank's part of the option block's global batch
+    (``batch_size // world_size``, which must divide exactly) in
+    ``sampler``'s order (the dataset's without one), a short last batch
+    dropped. Test/validation: the block's batch size (1 by default), in
+    order, the last batch kept."""
     if dataset_opt.get("phase") == "train":
-        return DataLoader(dataset, batch_size=dataset_opt["batch_size"], sampler=sampler,
+        batch_size = dataset_opt["batch_size"]
+        if batch_size % world_size:
+            raise ValueError(f"batch_size {batch_size} does not divide over {world_size} ranks")
+        return DataLoader(dataset, batch_size=batch_size // world_size, sampler=sampler,
                           drop_last=True)
     return DataLoader(dataset, batch_size=dataset_opt.get("batch_size") or 1)
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .. import parallel
 from ..device import resolve_device
 from ..ops.degradations import apply_degradation
 from ..ops.flash_attention import flash_attention
@@ -401,7 +402,9 @@ class SamplingEngine:
         ``deg_noise`` replace draws from ``generator`` (degradation first,
         then t, then the noise). A parameter the loss does not reach gets a
         zero gradient, so weight decay still moves it, as optax's update of
-        the whole tree does. Returns the loss."""
+        the whole tree does. In a process group the gradients and the
+        recorded loss terms are the ranks' means (``_apply_gradients``).
+        Returns the loss."""
         if not self.optimizers:
             raise RuntimeError("this engine samples only: build it with if_train=True "
                                "(create_model(..., phase='train'))")
@@ -415,18 +418,27 @@ class SamplingEngine:
         self._apply_gradients({key: cosine_annealing_lr(epoch, self.nepoch, self.lr0[key],
                                                         self.eta_min)
                                for key in self.optimizers})
-        values = torch.stack([v.detach().float().reshape(()) for v in terms.values()]).tolist()
+        values = torch.stack([v.detach().float().reshape(()) for v in terms.values()])
+        parallel.all_reduce_mean_([values])  # the global batch's loss terms
+        values = values.tolist()
         self._record_losses(dict(zip(terms, values)))
         return values[0]
 
     def _apply_gradients(self, lrs: Dict[str, float]) -> None:
         """After a backward: one Adam step per trained net at its learning
         rate in ``lrs`` (a parameter the loss did not reach gets a zero
-        gradient), the step counter, then the EMA shadows."""
-        for key, opt in self.optimizers.items():
+        gradient), the step counter, then the EMA shadows. In a process
+        group the gradients are first averaged over the ranks (every rank
+        reduces every trained net's every gradient, in one order), so each
+        rank steps on the global batch's mean loss."""
+        grads = []
+        for key in self.optimizers:
             for p in self.nets[key].parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+        parallel.all_reduce_mean_(grads)
+        for key, opt in self.optimizers.items():
             set_lr(opt, lrs[key])
             opt.step()
         self.step += 1

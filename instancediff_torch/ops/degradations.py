@@ -2,16 +2,18 @@
 speckle, low-dose CT and per-type selection functions of
 ``instancediff_tpu/ops/degradations.py``).
 
-Every function takes NHWC arrays in [-1, 1] and its standard-normal draw as
-a tensor (``noise``) or draws it from an explicit ``torch.Generator``: torch
-cannot reproduce JAX's threefry bits. The gamma speckle (``looks=``), the
-bicubic ``upscale`` and ``mask_to`` are not ported."""
+Every function takes NHWC arrays in [-1, 1] and its random draw (standard
+normal; for the L-look speckle Gamma(L, 1)) as a tensor (``noise``) or draws
+it from an explicit ``torch.Generator``: torch cannot reproduce JAX's
+threefry bits. Also the super-resolution ``upscale`` and the inpainting
+``mask_to``."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 ARTIFACT_TYPES = (
     "speckle in OCT",
@@ -38,12 +40,18 @@ def add_gaussian_noise(x, sigma, generator: Optional[torch.Generator] = None,
 def add_speckle(x, sigma=0.3, looks=None, generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None):
     """Multiplicative speckle on [0, 1] intensity: y = s (1 + sigma n),
-    n ~ N(0, 1), clipped to [0, 1]; input and output in [-1, 1]."""
-    if looks is not None:
-        raise NotImplementedError("the gamma speckle (looks=) is not ported "
-                                  "(ROADMAP queue 1)")
+    n ~ N(0, 1), or with ``looks`` L the L-look speckle y = s g / L, g ~
+    Gamma(L, 1) (``noise`` then holds g); clipped to [0, 1]; input and
+    output in [-1, 1]."""
     s01 = (x + 1.0) / 2.0
-    mult = 1.0 + sigma * _normal(x, generator, noise)
+    if looks is None:
+        mult = 1.0 + sigma * _normal(x, generator, noise)
+    else:
+        if noise is None:
+            noise = torch._standard_gamma(
+                torch.full(x.shape, float(looks), device=x.device, dtype=x.dtype),
+                generator=generator)
+        mult = noise.to(x.device, x.dtype) / looks
     return torch.clamp(s01 * mult, 0.0, 1.0) * 2.0 - 1.0
 
 
@@ -78,3 +86,21 @@ def apply_degradation(x, type_idx, sigma=25.0, generator: Optional[torch.Generat
     ])  # [5, B, H, W, C]
     idx = torch.as_tensor(type_idx, device=x.device).long().reshape((1, -1) + (1,) * (x.ndim - 1))
     return torch.take_along_dim(cands, idx.expand((1,) + tuple(x.shape)), dim=0)[0]
+
+
+def upscale(x: torch.Tensor, scale: int = 4, method: str = "bicubic") -> torch.Tensor:
+    """An NHWC batch upscaled by the integer ``scale``: ``bicubic`` is
+    torch's (a = -0.75, ``align_corners=False``, border taps clamped), which
+    the JAX package writes out by hand; ``bilinear`` and ``nearest`` sample
+    at half-pixel centres as ``jax.image.resize`` does when it upsamples."""
+    mode = {"bicubic": "bicubic", "bilinear": "bilinear", "nearest": "nearest-exact"}.get(method)
+    if mode is None:
+        raise ValueError(f"unknown upscale method '{method}'")
+    kw = {} if mode == "nearest-exact" else {"align_corners": False}
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=int(scale), mode=mode, **kw)
+    return y.permute(0, 2, 3, 1)
+
+
+def mask_to(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Inpainting: keep ``x`` where ``mask`` is 1, fill the rest with 1.0."""
+    return mask * x + (1.0 - mask)

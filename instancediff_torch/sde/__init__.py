@@ -1,6 +1,7 @@
 from .ddpm_sde import DDPMSDE, make_cosine_alphas_bar
 from .drift_sde import DriftSDE
-from .schedules import make_schedule, strided_sampling_grid
+from .ir_sde import IRSDE
+from .schedules import make_schedule, schedule_increment, strided_sampling_grid
 
 
 def create_sde(sde_opt):
@@ -18,9 +19,9 @@ def create_sde(sde_opt):
         return DDPMSDE(T=opt.get("T", 100), max_sigma=opt.get("max_sigma", 1.0),
                        schedule=opt.get("schedule", "cosine_alpha"))
     if class_name == "IRSDE":
-        raise NotImplementedError("IRSDE is not ported yet (ROADMAP queue 1 item 5)")
+        return IRSDE(**{k: v for k, v in opt.items() if k in ("T", "max_sigma", "schedule", "eps")})
     raise ValueError(f"unknown SDE class '{class_name}' (have driftSDE, DDPM, IRSDE)")
 
 
-__all__ = ["DDPMSDE", "DriftSDE", "create_sde", "make_cosine_alphas_bar", "make_schedule",
-           "strided_sampling_grid"]
+__all__ = ["DDPMSDE", "DriftSDE", "IRSDE", "create_sde", "make_cosine_alphas_bar",
+           "make_schedule", "schedule_increment", "strided_sampling_grid"]

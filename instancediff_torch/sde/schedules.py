@@ -33,6 +33,11 @@ def make_schedule(name: str, T: int, sigmoid_scale: float = 6.0) -> torch.Tensor
     return torch.from_numpy(s.astype(np.float32))
 
 
+def schedule_increment(schedule: torch.Tensor) -> torch.Tensor:
+    """Per-step increments ds[t] = s[t] - s[t-1], ds[0] = 0, shape [T+1]."""
+    return torch.diff(schedule, prepend=schedule[:1])
+
+
 def strided_sampling_grid(T: int, sample_steps=None):
     """Reverse-sampler timestep grid ``(t_hi, t_lo)``: lists of ints running
     T -> 0 over ``sample_steps`` (or all T) strided posterior pairs."""

@@ -236,7 +236,8 @@ def test_bf16_tensors_round_trip():
 def test_create_model_and_sde_build_the_jax_nets(jax_engine):
     """The port's factories on the golden's config: every net and the text
     tower have JAX's tree (paths and shapes), the prompt ids and the SDE's
-    schedules are JAX's; IRSDE is not ported."""
+    schedules are JAX's; an IRSDE block builds the port's IRSDE with JAX's
+    tables."""
     eng = _port_engine()
     for k in NETS:
         got = {p: v.shape for p, v in _flat(flax_params(eng.nets[k])).items()}
@@ -247,8 +248,12 @@ def test_create_model_and_sde_build_the_jax_nets(jax_engine):
     assert eng.type_map == jax_engine.type_map and eng.dtype == torch.float32
     assert eng.nets["drift"].use_fused_gnconv
     np.testing.assert_array_equal(eng.sde.sigmas.numpy(), np.asarray(jax_engine.sde.sigmas))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        create_sde({"class_name": "IRSDE", "T": 10})
+    ir = create_sde({"class_name": "IRSDE", "T": 10})
+    want = jax_create_sde({"class_name": "IRSDE", "T": 10})
+    assert type(ir).__name__ == "IRSDE" and ir.T == 10 and ir.dt == want.dt
+    np.testing.assert_array_equal(ir.sigma_bars.numpy(), np.asarray(want.sigma_bars))
+    with pytest.raises(ValueError, match="unknown SDE class"):
+        create_sde({"class_name": "VPSDE"})
 
 
 # ---------------------------------------------------------------- bundles

@@ -853,3 +853,73 @@ def test_distill_phase_then_test_captures_a_new_graph(cuda):
         torch.backends.cudnn.deterministic = False
     assert eng.captures == captures + 1
     _assert_graph_matches_eager(got, want, torch.float32)
+
+
+# ---------------------------------------------------------------- IR-SDE, ranks on one card
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("path", ["drift", "ddpm"])
+def test_irsde_steps_on_the_kernels_match_plain(deterministic, path, dtype, tol):
+    """IR-SDE's reverse SDE and probability-flow loops (T = 10) driven by the
+    tiny engine's noise net, on the kernels and on the plain path: the
+    same result within ``tol`` of the largest value, one net forward's
+    launches per step."""
+    from unittest import mock
+
+    from instancediff_torch.models import unet as unet_mod
+    from instancediff_torch.sde import IRSDE
+
+    plain_versions = {"fused_gn_silu_conv3x3": fused_gn_silu_conv3x3_plain,
+                      "flash_attention": flash_attention_plain,
+                      "group_norm_silu": group_norm_silu_plain,
+                      "gn_channel_affine": gn_channel_affine_plain}
+
+    eng = _graph_engine(path, dtype)
+    inputs = eng._inputs(_graph_batch(3), use_ema=True)
+    text = inputs["text"] if path == "ddpm" else inputs["n_text"]
+    mu, net = inputs["mu"], eng.nets["n_ema"]
+
+    def noise_fn(x, t):
+        return net(x, mu, t, inputs["type_idx"], text, inputs["img_ctx"])[0]
+
+    sde = IRSDE(T=10)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    init = torch.randn(mu.shape, generator=gen, device="cuda")
+    steps = list(torch.randn((10,) + tuple(mu.shape), generator=gen, device="cuda"))
+    out = {}
+    with torch.inference_mode():
+        for plain in (False, True):
+            patches = [mock.patch.object(unet_mod, name, fn)
+                       for name, fn in plain_versions.items()] if plain else []
+            for p in patches:
+                p.start()
+            try:
+                before = kernel_launches()
+                x = sde.reverse_sde(mu, noise_fn, init_noise=init, step_noise=steps)
+                y = sde.reverse_ode(mu, noise_fn, init_noise=init)
+                after = kernel_launches()
+            finally:
+                for p in patches:
+                    p.stop()
+            out[plain] = (x, y, {k: after[k] - before[k] for k in after})
+    launches = out[False][2]
+    assert launches["flash_attention"] == 20 and not any(out[True][2].values())
+    body = "fused_gn_silu_conv3x3" if path == "drift" else "group_norm_silu"
+    assert launches[body] > 0 and launches[body] % 20 == 0
+    for got, want in zip(out[False][:2], out[True][:2]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+
+def test_two_ranks_share_one_card_over_gloo(cuda):
+    """Two spawned ranks on cuda:0 over gloo: the gradient average and the
+    weight broadcast on CUDA tensors (NCCL takes one rank per card)."""
+    import torch_dist_workers as workers
+
+    ranks = workers.run_world(workers.cuda_gloo_rank, 2)
+    for r in ranks:
+        assert r["device"] == "cuda:0" and r["bytes"] == (15 + 7) * 4
+        np.testing.assert_array_equal(r["mean"][0], np.full((5, 3), 1.5, np.float32))
+        np.testing.assert_array_equal(r["mean"][1], np.arange(7.0, dtype=np.float32) * 1.5)
+        assert all(not p.any() for p in r["net"])

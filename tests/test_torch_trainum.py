@@ -3,7 +3,7 @@ CPU (``--platform cpu``) at ``Configurations/tiny_cpu.yml``'s widths over
 SpeckleMed phantoms (``chip_smoke.write_speckle_med``): a run preempted by
 SIGTERM at iteration 2 and resumed from its state equals the uninterrupted
 run bit for bit; the train loader's order is JAX's ``DistIterSampler``'s;
-``train.dist`` raises; ``parse``/``check_resume``/``dict2str`` equal the
+``train.dist`` without a launcher is a world of one, bit for bit; ``parse``/``check_resume``/``dict2str`` equal the
 JAX package's."""
 
 import os
@@ -109,9 +109,20 @@ def test_train_loader_order_is_jax_sampler_order(tmp_path):
 
 
 def test_dist_training_raises(tmp_path, monkeypatch):
+    """``train.dist: true`` without a launcher trains in a gloo world of one,
+    bit for bit as without it, and leaves no process group behind; a
+    global batch that does not divide over the ranks raises."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="one card"):
-        trainUM.main(["-opt", write_config(tmp_path, dist=True), "--platform", "cpu"])
+    runs = []
+    for sub, dist in (("plain", False), ("dist", True)):
+        (tmp_path / sub).mkdir()
+        runs.append(trainUM.main(["-opt", write_config(tmp_path / sub, dist=dist),
+                                  "--platform", "cpu"]))
+    assert not torch.distributed.is_initialized()
+    _assert_same_training(*runs)
+    opt = parse(write_config(tmp_path), is_train=True)["datasets"]["train"]
+    with pytest.raises(ValueError, match="does not divide over 4 ranks"):
+        data_pkg.create_dataloader(data_pkg.create_dataset(opt), opt, None, world_size=4)
 
 
 def test_options_equal_jax(tmp_path, monkeypatch):
