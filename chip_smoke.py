@@ -2,11 +2,16 @@
 plain PyTorch versions.
 
 Run from the repository root:  python3 chip_smoke.py
-(``python3 chip_smoke.py --sweep [conv|gn]`` builds the kernels and only times
-plan choices at each flagship launch shape: the bf16 fused conv under each
-tile / N-block choice beside cuDNN, and the GroupNorm kernels on the
-two-launch path and the cluster path (8 blocks per image) beside
-``F.group_norm`` + ``F.silu``; both without an argument.)
+(``python3 chip_smoke.py --sweep [conv|gn|flash]`` builds the kernels and
+only times plan choices at each flagship launch shape: the bf16 fused conv
+under each tile / N-block choice and the fp32 one under each N block,
+beside cuDNN; the GroupNorm kernels on the two-launch path and the cluster
+path (8 blocks per image) beside ``F.group_norm`` + ``F.silu``; the fp32
+flash kernel with 4 and 8 warps per block beside SDPA; all three without
+an argument. ``python3 chip_smoke.py --fp32-request ROOT [ROOT ...]`` runs
+only the served fp32 request of phase ``bundle`` on the package of each
+tree given, in turn, e.g. an unpacked parent commit and ".", to read the
+request before and after a change in one call.)
 
 Phases, one JSON line each, in order:
   1. build   -- nvcc builds every kernel of ``instancediff_torch/csrc`` for
@@ -20,7 +25,15 @@ Phases, one JSON line each, in order:
                 time included) and device_ms (the kernel's own device time
                 per call, summed by torch.profiler), the conv's achieved
                 TFLOP/s, plain ms, one library call's ms (a yardstick only:
-                the port never calls it) and the bound;
+                the port never calls it) and the bound: bytes at 3.35
+                TB/s or operations at 989 TFLOP/s (bf16) and, for the fp32
+                fused conv and flash, at the split-TF32 rate 495/3 = 165
+                TFLOP/s (``TC_FLOPS``; the GroupNorm kernels' fp32 work at
+                67 TFLOP/s), the larger; then the flash kernel at every
+                head width it takes (4 to 128, fp32 and bf16,
+                [8,4,1024,D]) with the kernel and warps the plan picks,
+                here, before the main paths: later, torch.profiler
+                undercounts the kernel libraries' launches;
   3. main    -- three paths at full width, each answering requests through
                 ``Restorer.restore`` on the compiled sampler (one CUDA graph of
                 the sampler step, captured at the path's first call and
@@ -89,7 +102,12 @@ Phases, one JSON line each, in order:
                 ``tools/testUM`` over a SpeckleMed dataset of numpy
                 phantoms (2 per artifact type, batch 5): per-type
                 RMSE/SSIM/PSNR and each batch's sampler seconds (a smoke
-                reading: the first batch captures the step);
+                reading: the first batch captures the step); last, the
+                config at its own dtype, fp32 (``fp32_request``): a seeded
+                fp32 engine saved and served by ``from_config``, 5 images
+                at 224 px, 4 steps, twice (capture, replay): ms per step of
+                the replaying request and the launches, on the split-TF32
+                fused conv and flash kernels;
   6. per_forward -- every kernel each main path launches, held against its
                 plain version and timed at that path's own launch shapes
                 (bf16, batch 8), summed over one UNet forward (ms and
@@ -102,7 +120,8 @@ Phases, one JSON line each, in order:
                 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are
                 its wrapper's counts over the graph-served main requests,
                 the bundle phase's flagship-width runs (the
-                ``from_config`` request and testUM; not the golden, whose
+                ``from_config`` requests in bf16 and fp32 and testUM; not
+                the golden, whose
                 config and fp32 are not a main path's) and the encoders
                 phase's requests and precompute_embeddings: the warm-up
                 steps' launches plus, per replay, the per-step count recorded at capture
@@ -158,12 +177,7 @@ Phases, one JSON line each, in order:
                 smoke reading, not a rate. It runs after ``per_forward``'s
                 timings (after its profiles of train steps torch.profiler
                 recorded no kernel of the kernel libraries on the card).
-  8. distill -- the flash kernel at every head width it takes (4 to 128,
-                fp32 and bf16, [8,4,1024,D]) against its plain version,
-                timed, with the kernel the plan picks (printed after
-                ``per_forward``, before any train step: afterwards
-                torch.profiler records no kernel of the kernel libraries);
-                (a) ``tools/distill``
+  8. distill -- (a) ``tools/distill``
                 at flagship_bf16_tpu.yml's widths (224 px, batch 4) on a
                 seeded bundle, phases 50 and 25 of 4 steps each: per phase
                 the median ms per distill step after 2 warm-ups, the
@@ -177,7 +191,8 @@ Phases, one JSON line each, in order:
                 eager loop); the tool's student recaptured after one more
                 distill step; (b) on weights that learned, nf 16 (8-wide
                 heads), fp32: ``demo_all_modalities`` (every modality
-                restored >= degraded + 6 dB), JAX's distillation gate (the
+                restored >= degraded + 6 dB; in a process of its own
+                beside the rest of the phase), JAX's distillation gate (the
                 fixture recipe's teacher, one phase T=16 -> 8: the student
                 >= degraded + 6 dB and within 1 dB of the teacher), and
                 ``eval_protocol`` tables for both on a port Synthetic set
@@ -200,14 +215,16 @@ Phases, one JSON line each, in order:
                 within ``IRSDE_ODE_TOL`` of the largest value plus twice the
                 solve's own error, the kernels' distance to their solve at a
                 tenth of the tolerance). Its kernel launches count in the
-                ``kernels`` line;
+                ``kernels`` line. Phase ``dist``'s (a) runs beside it, in
+                the background, so its ms per step read a shared host;
  10. dist   -- (a) ``tools/trainUM`` with ``train.dist: true`` launched by
                 ``python -m torch.distributed.run --nproc_per_node 1`` with
                 ``--launcher pytorch`` (one NCCL rank) at
                 flagship_bf16_tpu.yml's widths, 224 px, batch 4, 2
                 iterations, validated and saved at the end, against the
-                same run without a process group, both cuDNN deterministic:
-                the bundle and ``{iter}.state`` must hash alike; NCCL with two
+                same run without a process group, both cuDNN deterministic
+                (the two run at once, beside phase ``irsde``): the bundle
+                and ``{iter}.state`` must hash alike; NCCL with two
                 ranks on the card (reported: NCCL takes one rank per card);
                 (b) two spawned ranks sharing the card over gloo at
                 flagship_tpu.yml's widths (fp32, remat), 224 px, global batch
@@ -268,9 +285,12 @@ from instancediff_torch.utils.convert import flax_params, load_flax_params
 from instancediff_torch.utils.parity import check_grads, check_params
 
 # H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by operand type
-# (bf16 on the tensor cores; fp32 on the FMA units, which the fp32 kernels use)
+# (bf16 on the tensor cores; fp32 on the FMA units, which the GroupNorm
+# kernels use); the fused conv and flash take fp32 on the tensor cores in
+# split TF32, three TF32 products per fp32 product: 495 / 3 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TC_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 # kernel vs plain on the card: max |diff| <= TOL * max(1, max |plain|).
 # fp32: the same fp32 arithmetic in another summation order. bf16: both
 # round the activation and the result to bf16, so a result may differ by one
@@ -295,7 +315,8 @@ CONV_SHAPES = [  # (B, H, W, C, Cout, residual)
     # edges of the bf16 kernel's tiling: W not a multiple of the tile (the
     # 224 px decoder levels), and C not a multiple of 8 (the scalar halo path)
     (8, 28, 28, 528, 256, False), (8, 56, 56, 272, 128, False), (8, 64, 64, 20, 5, False)]
-FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64)]
+# the bottleneck at 256 and 224 px, and the ViT-B/16 tower at 224 and 256 px
+FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64), (8, 12, 197, 64), (8, 12, 257, 64)]
 GN_SHAPES = [  # (B, H, W, C, groups, silu)
     (8, 256, 256, 64, 32, True), (8, 256, 256, 144, 24, True), (8, 128, 128, 272, 17, True),
     (8, 64, 64, 528, 24, True), (8, 32, 32, 512, 32, True)]
@@ -328,8 +349,9 @@ PATHS = {"drift": {"conv": 90, "flash": 2, "gn": 0, "affine": 90},
 
 
 # kernels whose registers must not spill: a wgmma accumulator spilled while
-# the instruction runs would be lost
-NO_SPILL = ("fgc_tc_kernel", "flash_tc_kernel")
+# the instruction runs would be lost, and a spilled mma.sync fragment or
+# accumulator costs local-memory traffic on every tile
+NO_SPILL = ("fgc_tc_kernel", "fgc_tf32x3_kernel", "flash_tc_kernel", "flash_tf32x3_kernel")
 
 
 def ptxas_report(logs) -> tuple:
@@ -402,9 +424,9 @@ def device_ms(fn, kname: str, reps: int = 10, attempts: int = 3) -> float:
     raise AssertionError(f"torch.profiler recorded no {kname} kernel in {attempts} windows")
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple:
+def bound(nbytes: float, flops: float, dtype, peak=PEAK_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / peak[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -436,7 +458,7 @@ def conv_cost(shape, dtype):
     s = torch.finfo(dtype).bits // 8
     nbytes = (B * H * W * C * s + 2 * B * C * 4 + 9 * C * Cout * s + B * Cout * 4
               + B * H * W * Cout * s * (2 if residual else 1))
-    return bound(nbytes, 2.0 * B * H * W * 9 * C * Cout, dtype)
+    return bound(nbytes, 2.0 * B * H * W * 9 * C * Cout, dtype, TC_FLOPS)
 
 
 def measure_conv(shape, dtype, gen):
@@ -471,7 +493,7 @@ def measure_flash(shape, dtype, gen):
     err = check_err(f"flash {shape} {dtype}", got, flash_attention_plain(q, k, v), dtype)
     B, Hh, N, D = shape
     s = torch.finfo(dtype).bits // 8
-    bound_ms, bound_by = bound(4 * B * Hh * N * D * s, 4.0 * B * Hh * N * N * D, dtype)
+    bound_ms, bound_by = bound(4 * B * Hh * N * D * s, 4.0 * B * Hh * N * N * D, dtype, TC_FLOPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return dict(
         max_abs_err=err, ms=cuda_ms(lambda: flash_attention(q, k, v)),
@@ -746,8 +768,8 @@ def plain_kernels():
 
 
 KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match wins
-    ("fused_conv", ("fgc_tc_kernel", "fgc_fma_kernel")),
-    ("flash", ("flash_tc_kernel", "flash_fma_kernel")),
+    ("fused_conv", ("fgc_tc_kernel", "fgc_tf32x3_kernel")),
+    ("flash", ("flash_tc_kernel", "flash_tf32x3_kernel")),
     ("gn_affine", ("gns_affine_kernel",)),
     ("group_norm", ("gns_stats_kernel", "gns_apply_kernel", "gns_cluster_kernel")),
     ("library_conv", ("fprop", "conv", "dgrad", "wgrad")),
@@ -757,8 +779,8 @@ CLASS_OF = {"conv": "fused_conv", "flash": "flash", "gn": "group_norm", "affine"
 
 # the kernels each wrapper call launches, by name: one statistics or cluster
 # launch per GroupNorm call (the apply launch rides on the statistics one)
-LAUNCH_NAMES = {"conv": ("fgc_tc_kernel", "fgc_fma_kernel"),
-                "flash": ("flash_tc_kernel", "flash_fma_kernel"),
+LAUNCH_NAMES = {"conv": ("fgc_tc_kernel", "fgc_tf32x3_kernel"),
+                "flash": ("flash_tc_kernel", "flash_tf32x3_kernel"),
                 "gn": ("gns_stats_kernel", "gns_cluster_kernel"), "affine": ("gns_affine_kernel",)}
 # host runtime calls that put work on the device
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch",
@@ -1247,6 +1269,71 @@ def bundle_phase(gpu) -> Counter:
               "replayed_batch_img_per_s": [round(opt["test"]["batch_size"] / t, 4)
                                            for t in batch_s[1:]],
               "launches": got, "gpu": gpu})
+    return total
+
+
+# the served fp32 request: flagship_test.yml at its own dtype (no
+# models.DriftNoise.dtype: fp32), 224 px, batch 5, 4 steps
+FP32_BATCH = 5
+
+
+def fp32_request(gpu) -> Counter:
+    """``BUNDLE_CONFIG`` at its own dtype, fp32, as ``testUM`` and
+    ``Restorer.from_config`` serve it: a seeded fp32 engine saved in a
+    temporary directory and served by ``from_config``, one request of
+    ``FP32_BATCH`` images at 224 px of ``BUNDLE_STEPS`` steps on the compiled
+    sampler (captures), then the same again (replays; its ms per step is the
+    reading). Launches are held to the per-step counts. Returns them."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fp32_") as tmp:
+        cfg, opt = bundle_config(tmp)
+        opt["models"]["DriftNoise"].pop("dtype")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(opt, f)
+        model_opt, sde_opt = opt["models"]["DriftNoise"], opt["sdes"]["driftSDE"]
+        res, types = opt["resolution"], opt["artifact_type"]
+        eng = create_model(None, model_opt, phase="test", sde=create_sde(sde_opt), device="cuda")
+        for i, key in enumerate(("drift", "noise", "d_ema", "n_ema")):
+            randomize_(eng.nets[key], seed=50 + i)
+        randomize_(eng.text_encoder, seed=54)
+        eng.save(opt["test"]["pth_dir"], "latest")
+        del eng
+        torch.cuda.empty_cache()
+        r = Restorer.from_config(cfg, batch_size=FP32_BATCH, sample_steps=BUNDLE_STEPS, seed=0,
+                                 device="cuda")
+        if r.engine.dtype != torch.float32:
+            raise AssertionError(f"{BUNDLE_CONFIG} served in {r.engine.dtype}, not float32")
+        n_steps = len(strided_sampling_grid(sde_opt["T"], BUNDLE_STEPS)[0])
+        images = np.random.default_rng(5).uniform(-1, 1, (FP32_BATCH, res, res, 1)).astype(
+            np.float32)
+        names = [types[i % len(types)] for i in range(FP32_BATCH)]
+        total, seconds = Counter(), []
+        for capture in (True, False):
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = r.restore(images, names)
+            torch.cuda.synchronize()
+            seconds.append(time.time() - t0)
+            got = read_launches()
+            want = {k: n * (n_steps + capture) for k, n in PATHS["drift"].items()}
+            per_step = {k: r.engine.last_graph.launches[NAMES[k]] for k in PATHS["drift"]}
+            if per_step != PATHS["drift"] or got != want:
+                raise AssertionError(f"fp32 request: launches {got}, per step at capture "
+                                     f"{per_step} (want {want})")
+            if out.shape != images.shape or not np.isfinite(out).all():
+                raise AssertionError(f"fp32 request: output {out.shape}, finite "
+                                     f"{bool(np.isfinite(out).all())}")
+            total.update(got)
+        emit({"phase": "bundle", "what": f"{os.path.basename(BUNDLE_CONFIG)} at its own dtype "
+                                         "(fp32) saved and served by Restorer.from_config: "
+                                         "the split-TF32 fused conv and flash kernels",
+              "images": FP32_BATCH, "res": res, "sampler_steps": n_steps,
+              "capture_request_s": round(seconds[0], 4), "replay_request_s": round(seconds[1], 4),
+              "ms_per_step": round(seconds[1] / n_steps * 1e3, 3),
+              "img_per_s": round(FP32_BATCH / seconds[1], 4),
+              "launches_per_step": PATHS["drift"], "launches": dict(total), "gpu": gpu})
+        del r
+        torch.cuda.empty_cache()
     return total
 
 
@@ -1911,6 +1998,9 @@ DISTILL_PER_STEP = {k: 2 * n for k, n in PATHS["drift"].items()}
 # phantoms, then one phase T=16 -> 8 of 150 steps at lr 1e-3, raw teacher,
 # batches of 8 from default_rng(50_000 + i); scored on the first 4 images
 GATE_TEACHER_STEPS, GATE_PHASE_STEPS, GATE_LR, GATE_STUDENT = 300, 150, 1e-3, 8
+# (demo_all_modalities runs in a process of its own beside the rest of the
+# phase, within DEMO_TIMEOUT seconds)
+DEMO_TIMEOUT = 900
 # demo_all_modalities cut from its 800 steps to 500: a tiny train step is
 # host-bound (~0.2 s on the card) and the phase's time is the script's; at
 # 400 steps low-dose CT cleared its +6 dB by 0.7 dB only
@@ -1929,8 +2019,9 @@ def flash_widths(gpu) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             shape = (BATCH, 4, FLASH_WIDTH_N, D)
             m = measure_flash(shape, dtype, gen)
-            emit({"phase": "distill", "what": "flash at every head width", "shape": shape,
-                  "dtype": str(dtype), "path": flash_plan(D, dtype)["path"], "tol": TOL[dtype],
+            emit({"phase": "check", "what": "flash at every head width", "shape": shape,
+                  "dtype": str(dtype), "path": flash_plan(D, dtype)["path"],
+                  "warps": flash_plan(D, dtype, FLASH_WIDTH_N)["warps"], "tol": TOL[dtype],
                   **m, "gpu": gpu})
 
 
@@ -2172,6 +2263,52 @@ def gate_config(tmp, root) -> str:
     return path
 
 
+DEMO_SCRIPT = """import json, sys
+from instancediff_torch.models.engine import kernel_launches
+from instancediff_torch.tools import demo_all_modalities
+out = demo_all_modalities.main(sys.argv[1:])
+print(json.dumps({"per_modality": out, "launches": kernel_launches("launches")}))
+"""
+
+
+def start_demo(tmp) -> tuple:
+    """``demo_all_modalities`` (``DEMO_STEPS`` steps on the card) started in a
+    process of its own: a tiny net's train step is host-bound, so it runs
+    beside the phase's other work. Returns (process, start time)."""
+    script = os.path.join(tmp, "demo_all_modalities_json.py")
+    with open(script, "w") as f:
+        f.write(DEMO_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    demo_dir = os.path.join(tmp, "demo")
+    os.makedirs(demo_dir)
+    proc = start_logged([sys.executable, script, "--device", "cuda", "--steps",
+                         str(DEMO_STEPS)], demo_dir, env)
+    return proc, time.time()
+
+
+def finish_demo(gpu, started) -> Counter:
+    """Wait for ``start_demo``'s process; each modality restored >= degraded
+    + ``GATE_MIN_GAIN_DB``. Returns its kernel launches."""
+    proc, t0 = started
+    out, err = finish_logged(proc, DEMO_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"demo_all_modalities rc {proc.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    result = json.loads(out.strip().splitlines()[-1])
+    demo = result["per_modality"]
+    short = {m: s for m, s in demo.items()
+             if not s["restored"]["PSNR"] >= s["degraded"]["PSNR"] + GATE_MIN_GAIN_DB}
+    emit({"phase": "distill", "what": "demo_all_modalities on the card: one nf 16 model, all "
+                                      f"five modalities, {DEMO_STEPS} steps of batch 10, T=16, "
+                                      "eta 1 (a process of its own, beside the phase's other "
+                                      "work)",
+          "per_modality": demo, "seconds": round(time.time() - t0, 3), "gpu": gpu})
+    if short:
+        raise AssertionError(f"demo: restored < degraded + {GATE_MIN_GAIN_DB} dB for {short}")
+    return Counter({k: result["launches"][name] for k, name in NAMES.items()})
+
+
 def distill_gate(gpu, tmp) -> Counter:
     """(b) JAX's distillation gate on weights that learned, fp32 at nf 16,
     ch_mult [1, 2] (8-wide bottleneck heads): ``demo_all_modalities``
@@ -2182,24 +2319,12 @@ def distill_gate(gpu, tmp) -> Counter:
     scored by ``eval_protocol`` for the teacher and the student. Returns
     the phase's launches."""
     from instancediff_torch.models.distill import distill_phase
-    from instancediff_torch.tools import demo_all_modalities, eval_protocol, make_synth_dataset
+    from instancediff_torch.tools import eval_protocol, make_synth_dataset
     from instancediff_torch.tools.demo_restoration import (restore_and_score,
                                                            synthetic_arrays, tiny_engine, train)
 
     total = Counter()
     zero_launches()
-    t0 = time.time()
-    with contextlib.redirect_stdout(io.StringIO()):
-        demo = demo_all_modalities.main(["--device", "cuda", "--steps", str(DEMO_STEPS)])
-    short = {m: s for m, s in demo.items()
-             if not s["restored"]["PSNR"] >= s["degraded"]["PSNR"] + GATE_MIN_GAIN_DB}
-    emit({"phase": "distill", "what": "demo_all_modalities on the card: one nf 16 model, all "
-                                      f"five modalities, {DEMO_STEPS} steps of batch 10, T=16, "
-                                      "eta 1",
-          "per_modality": demo, "seconds": round(time.time() - t0, 3), "gpu": gpu})
-    if short:
-        raise AssertionError(f"demo: restored < degraded + {GATE_MIN_GAIN_DB} dB for {short}")
-
     t0 = time.time()
     data = synthetic_arrays(16, ["speckle in OCT"])
     eng = tiny_engine("cuda")
@@ -2278,14 +2403,19 @@ def distill_gate(gpu, tmp) -> Counter:
 
 def distill_phase_chip(gpu) -> None:
     """Phase ``distill``: (a) at flagship width and (b) the gate; its
-    launches in a line of its own. (``flash_widths`` runs before the train
-    steps of phases ``encoders`` and ``train``: after a train step
-    torch.profiler records no kernel of the kernel libraries.)"""
+    launches in a line of its own."""
     t0 = time.time()
     total = Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
-        total.update(distill_flagship(gpu, tmp))
-        total.update(distill_gate(gpu, tmp))
+        demo = start_demo(tmp)
+        try:
+            total.update(distill_flagship(gpu, tmp))
+            total.update(distill_gate(gpu, tmp))
+            total.update(finish_demo(gpu, demo))
+        finally:
+            if demo[0].poll() is None:
+                demo[0].kill()
+                demo[0].wait()
     if not all(total[k] for k in ("conv", "flash", "affine")):
         raise AssertionError(f"the distill phase launched {dict(total)}")
     emit({"phase": "distill", "what": "kernel launches of the phase (the teachers' rollouts, "
@@ -2317,11 +2447,11 @@ trainUM.main(sys.argv[1:])
 """
 
 
-def launch_trainum(root, cfg, dist: bool) -> tuple:
-    """``tools/trainUM`` on ``cfg`` in a process of its own from ``root``:
-    with ``dist`` under ``python -m torch.distributed.run --nproc_per_node
-    1`` with ``--launcher pytorch`` (one NCCL rank), else plainly; returns
-    (seconds, its standard output)."""
+def start_trainum(root, cfg, dist: bool) -> tuple:
+    """``tools/trainUM`` on ``cfg`` started in a process of its own from
+    ``root``: with ``dist`` under ``python -m torch.distributed.run
+    --nproc_per_node 1`` with ``--launcher pytorch`` (one NCCL rank), else
+    plainly; returns (process, start time, dist)."""
     wrapper = os.path.join(root, "trainum_deterministic.py")
     with open(wrapper, "w") as f:
         f.write(DETERMINISTIC_TRAINUM)
@@ -2332,21 +2462,46 @@ def launch_trainum(root, cfg, dist: bool) -> tuple:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
                "--master_addr", "127.0.0.1", "--master_port", str(parallel.free_port()),
                wrapper, "-opt", cfg, "--launcher", "pytorch"]
-    t0 = time.time()
-    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
-                          timeout=DIST_LAUNCH_TIMEOUT)
+    return start_logged(cmd, root, env), time.time(), dist
+
+
+def start_logged(cmd, cwd, env) -> subprocess.Popen:
+    """``cmd`` started in the background, its standard output and error
+    written to ``stdout.txt`` and ``stderr.txt`` in ``cwd`` (no pipe to fill)."""
+    with open(os.path.join(cwd, "stdout.txt"), "w") as out, \
+            open(os.path.join(cwd, "stderr.txt"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=err)
+    proc.log_dir = cwd
+    return proc
+
+
+def finish_logged(proc, timeout) -> tuple:
+    """Wait for a ``start_logged`` process; returns (standard output,
+    standard error)."""
+    proc.wait(timeout=timeout)
+    with open(os.path.join(proc.log_dir, "stdout.txt")) as out, \
+            open(os.path.join(proc.log_dir, "stderr.txt")) as err:
+        return out.read(), err.read()
+
+
+def finish_trainum(started) -> tuple:
+    """Wait for ``start_trainum``'s process; returns (seconds, its standard
+    output)."""
+    proc, t0, dist = started
+    out, err = finish_logged(proc, DIST_LAUNCH_TIMEOUT)
     if proc.returncode:
         raise AssertionError(f"trainUM ({'dist' if dist else 'plain'}) rc {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    return time.time() - t0, proc.stdout
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    return time.time() - t0, out
 
 
-def dist_nccl_one_rank(gpu, tmp) -> None:
-    """(a) trainUM with ``train.dist: true`` under ``torch.distributed.run``
-    (one NCCL rank) and the same run with ``train.dist: false``: the bundle
-    and ``{iter}.state`` they write must hash alike."""
+def start_dist_launches(tmp) -> dict:
+    """(a), started: trainUM with ``train.dist: true`` under
+    ``torch.distributed.run`` (one NCCL rank) and the same run with
+    ``train.dist: false``, both in the background (each mostly process
+    start, engine build and a 2.3 GB save), beside the next phase."""
     index = write_speckle_med(os.path.join(tmp, "data"), 2, 224, 512, ARTIFACT_PROMPTS)
-    hashes, seconds, logs = {}, {}, {}
+    started = {}
     for name, dist in (("dist", True), ("plain", False)):
         root = os.path.join(tmp, name)
         os.makedirs(root)
@@ -2356,8 +2511,24 @@ def dist_nccl_one_rank(gpu, tmp) -> None:
         opt["train"]["dist"] = dist
         with open(cfg, "w") as f:
             yaml.safe_dump(opt, f)
-        seconds[name], logs[name] = launch_trainum(root, cfg, dist)
-        exp = os.path.join(root, "experiments", opt["name"])
+        started[name] = (start_trainum(root, cfg, dist),
+                         os.path.join(root, "experiments", opt["name"]))
+    return started
+
+
+def stop_dist_launches(started) -> None:
+    for (proc, _, _), _ in started.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dist_nccl_one_rank(gpu, started) -> None:
+    """(a), finished: the bundle and ``{iter}.state`` the two runs of
+    ``start_dist_launches`` wrote must hash alike."""
+    hashes, seconds, logs = {}, {}, {}
+    for name, (run, exp) in started.items():
+        seconds[name], logs[name] = finish_trainum(run)
         hashes[name] = {f"{d}/{k}": v for d in ("models", "training_state")
                         for k, v in sha256_files(os.path.join(exp, d)).items()}
     if "world_size=1" not in logs["dist"] or f"VAL iter {DIST_ITERS}" not in logs["dist"]:
@@ -2369,7 +2540,7 @@ def dist_nccl_one_rank(gpu, tmp) -> None:
                                    f", 224 px, batch 4, {DIST_ITERS} iterations, validated and "
                                    "saved at the end: train.dist under torch.distributed.run "
                                    "(one NCCL rank) against train.dist false, both cuDNN "
-                                   "deterministic",
+                                   "deterministic, run at once beside phase irsde",
           "files": len(hashes["dist"]), "sha256_identical": True,
           "seconds_dist_launch": round(seconds["dist"], 3),
           "seconds_plain": round(seconds["plain"], 3), "gpu": gpu})
@@ -2565,14 +2736,13 @@ def gloo_reference(eng, got, data, draws) -> dict:
     return read
 
 
-def dist_phase(gpu) -> None:
+def dist_phase(gpu, started) -> None:
     """Phase ``dist``: (a) one NCCL rank through ``torch.distributed.run``,
-    bit-identical to the run without a process group; (b) two ranks sharing
-    the card over gloo against one process's step; NCCL's refusal of two
-    ranks on one card."""
+    bit-identical to the run without a process group (``started`` by
+    ``start_dist_launches``); (b) two ranks sharing the card over gloo
+    against one process's step; NCCL's refusal of two ranks on one card."""
     t_phase = time.time()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
-        dist_nccl_one_rank(gpu, tmp)
+    dist_nccl_one_rank(gpu, started)
     t0 = time.time()
     nccl = spawn_world(nccl_two_ranks_one_card, 2, timeout=120)
     emit({"phase": "dist", "what": "NCCL, two ranks on one card: one all-reduce",
@@ -2789,6 +2959,115 @@ def sweep_conv(gpu) -> None:
         emit(dict(row, gpu=gpu))
 
 
+def sweep_conv_fp32(gpu) -> None:
+    """Time the fp32 (split-TF32) conv kernel at each flagship launch shape
+    and the 224 px decoder's 28x28 (batch 8) under each N block near its
+    plan's, beside cuDNN's fp32 conv (TF32 off) on the normalised input;
+    one JSON line per shape (ms, median of 10)."""
+    # imported here: the module-level imports also serve fp32_request_ab on
+    # a tree from before this packing
+    from instancediff_torch.ops.fused_gn_conv import pack_weights_tf32x3
+
+    lib = _build.load("fused_gn_silu_conv3x3")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for H, W, C, Cout in SWEEP_SHAPES + [(28, 28, 528, 256)]:
+        shape = (BATCH, H, W, C, Cout, False)
+        x, scale, shift, w, bias, _ = conv_case(shape, torch.float32, gen)
+        out = torch.empty(BATCH, H, W, Cout, device="cuda")
+        want = fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias)
+        xn = torch.nn.functional.silu(
+            x * scale[:, None, None] + shift[:, None, None]).permute(0, 3, 1, 2)
+        wk = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        plan = conv_plan(BATCH, H, W, C, Cout, torch.float32)
+        row = {"phase": "sweep", "dtype": "float32", "shape": [BATCH, H, W, C, Cout],
+               "plan": f"{plan['th']}x{plan['tw']} nb{plan['nb']}",
+               "cudnn_ms": cuda_ms(lambda: torch.nn.functional.conv2d(xn, wk, padding=1))}
+        for nb in ((8, 16) if Cout <= 8 else (32, 64, 128)):
+            if nb > max(32, Cout):
+                continue
+            wpk = pack_weights_tf32x3(w, nb)
+
+            def run():
+                _build.check(lib.fgc_tf32_forward(
+                    x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wpk.data_ptr(),
+                    bias.data_ptr(), None, out.data_ptr(), BATCH, H, W, C, Cout, nb,
+                    torch.cuda.current_stream().cuda_stream), "sweep")
+
+            run()
+            check_err(f"sweep {row['shape']} fp32 nb{nb}", out, want, torch.float32)
+            row[f"8x16 nb{nb}"] = cuda_ms(run)
+        emit(dict(row, gpu=gpu))
+
+
+def sweep_flash(gpu) -> None:
+    """Time the fp32 (split-TF32) flash kernel with 4 and with 8 warps per
+    block at [8, 4, 1024, D] for every head width and at the image tower's
+    and the 224 px bottleneck's shapes, beside SDPA; one JSON line per shape
+    (ms: events around one call, and per call over 20 back-to-back calls,
+    medians of 10)."""
+    lib = _build.load("flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = [(BATCH, 4, FLASH_WIDTH_N, D) for D in HEAD_WIDTHS] + [
+        (BATCH, 12, 197, 64), (BATCH, 12, 257, 64), (BATCH, 4, 784, 64)]
+    for shape in shapes:
+        B, Hh, N, D = shape
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda") for _ in range(3))
+        out = torch.empty_like(q)
+        want = flash_attention_plain(q, k, v)
+
+        def back_to_back(fn, n=20):
+            def run():
+                for _ in range(n):
+                    fn()
+            return cuda_ms(run) / n
+
+        row = {"phase": "sweep", "dtype": "float32", "shape": list(shape),
+               "plan_warps": flash_plan(D, torch.float32, N)["warps"],
+               "sdpa_ms": [cuda_ms(lambda: sdpa(q, k, v)), back_to_back(lambda: sdpa(q, k, v))]}
+        for warps in (4, 8):
+            def run():
+                _build.check(lib.flash_forward(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * Hh, N, N, D,
+                    D ** -0.5, 0, 2, warps, torch.cuda.current_stream().cuda_stream), "sweep")
+
+            run()
+            check_err(f"sweep flash {shape} {warps} warps", out, want, torch.float32)
+            row[f"warps{warps}_ms"] = [cuda_ms(run), back_to_back(run)]
+        emit(dict(row, gpu=gpu))
+
+
+def fp32_request_ab(roots) -> int:
+    """``fp32_request`` on the package of each tree in ``roots`` in turn (a
+    directory holding an ``instancediff_torch`` and ``Configurations``, e.g.
+    an unpacked parent commit, and "." for this one), each in a process of
+    its own that builds that tree's kernels; this file's request code runs
+    on each. Prints each run's lines with its root; returns 1 if one failed."""
+    code = (f"import importlib.util, os, sys\nsys.path.insert(0, '.')\n"
+            f"spec = importlib.util.spec_from_file_location('chip_smoke_ab', "
+            f"{os.path.abspath(__file__)!r})\n"
+            "cs = importlib.util.module_from_spec(spec)\nspec.loader.exec_module(cs)\n"
+            "assert cs._build.__file__.startswith(os.getcwd() + os.sep), cs._build.__file__\n"
+            "cs._build.build_all()\n"
+            "for n in cs._build.SIGNATURES:\n    cs._build.load(n)\n"
+            "cs.torch.backends.cudnn.allow_tf32 = False\n"
+            "cs.torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "cs.fp32_request(cs.gpu_name_and_power())\n")
+    rc = 0
+    for root in roots:
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
+        for ln in p.stdout.splitlines():
+            if ln.startswith("{"):
+                emit(dict(json.loads(ln), root=root))
+        emit({"phase": "fp32_request_ab", "root": root, "rc": p.returncode,
+              "seconds": round(time.time() - t0, 1)})
+        if p.returncode:
+            print(p.stderr[-3000:], file=sys.stderr, flush=True)
+            rc = 1
+    return rc
+
+
 # GroupNorm launch shapes (H, W, C, G) of the flagship drift and DDPM forwards
 GN_SWEEP_SHAPES = [(256, 256, 64, 32), (256, 256, 144, 24), (128, 128, 64, 32),
                    (128, 128, 128, 32), (128, 128, 256, 32), (128, 128, 272, 17),
@@ -2867,8 +3146,11 @@ def main() -> int:
     t_start = time.time()
     gpu = gpu_name_and_power()
     kind = torch.cuda.get_device_name(0)
+    if "--fp32-request" in sys.argv:
+        return fp32_request_ab(sys.argv[sys.argv.index("--fp32-request") + 1:])
 
     # 1. build
+    marks = [("start", time.time())]
     t0 = time.time()
     logs = _build.build_all()
     for name in _build.SIGNATURES:
@@ -2885,11 +3167,14 @@ def main() -> int:
 
     args = sys.argv[1:]
     if "--sweep" in args:
-        which = set(args) & {"conv", "gn"} or {"conv", "gn"}
+        which = set(args) & {"conv", "gn", "flash"} or {"conv", "gn", "flash"}
         if "gn" in which:
             sweep_gn(gpu)
+        if "flash" in which:
+            sweep_flash(gpu)
         if "conv" in which:
             sweep_conv(gpu)
+            sweep_conv_fp32(gpu)
         return 0
 
     # 2. kernels against their plain versions at the main paths' shapes
@@ -2904,6 +3189,12 @@ def main() -> int:
                     worst[kname] = max(worst[kname], m["max_abs_err"])
                 emit({"phase": "check", "kernel": NAMES[kname], "shape": shape,
                       "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
+
+    # the flash kernel at every head width, profiled here: in later phases
+    # torch.profiler undercounts the kernel libraries' launches
+    flash_widths(gpu)
+
+    marks.append(("build, check", time.time()))
 
     # 3. the main paths at full width: requests through Restorer.restore on
     # the compiled sampler, against the eager loop
@@ -2925,6 +3216,8 @@ def main() -> int:
         emit({"phase": "profile", **profile_step(eng, gen, path), "gpu": gpu})
         del eng
         torch.cuda.empty_cache()
+
+    marks.append(("main, profile", time.time()))
 
     # 4. full-width fp32: sampler calls replayed from the graph against the
     # eager loop; UNet forwards, kernels vs plain versions, both bodies
@@ -2984,8 +3277,12 @@ def main() -> int:
     del eng32, got, want
     torch.cuda.empty_cache()
 
+    marks.append(("parity", time.time()))
+
     # 5. config -> bundle -> compiled sampler -> metrics, and the golden
     launches.update(bundle_phase(gpu))
+    launches.update(fp32_request(gpu))
+    marks.append(("bundle", time.time()))
 
 
     # 6. every kernel of every path, per UNet forward at that path's own
@@ -3020,32 +3317,45 @@ def main() -> int:
                 "bound_ms": tot["bound_ms"], "bound_by": bound_by.most_common(1)[0][0],
                 "library_ms": tot["library_ms"], "library": LIBRARY[kname]})
 
-    # the flash kernel at every head width (phase distill's first lines),
-    # profiled before any train step
-    flash_widths(gpu)
 
     # 6b. the conditioning encoders: the image tower on the card (on-device
     # emb_A through from_config), BiomedCLIP, precompute_embeddings; after
     # the kernels' timings: after its train step torch.profiler records no
     # kernel of the kernel libraries
+    marks.append(("per_forward", time.time()))
     encoded, tower = encoders_phase(gpu, gen, worst)
     launches.update(encoded)
+    marks.append(("encoders", time.time()))
 
     # 7. training: trainUM at flagship width, resume, serving what it
     # trained; after the kernels' timings, which its profiles would disturb
     train_phase(gpu)
+    marks.append(("train", time.time()))
 
     # 8. distillation: the teacher's rollouts on the kernels inside a
     # training loop, at flagship width and on the gate's tiny widths
     distill_phase_chip(gpu)
+    marks.append(("distill", time.time()))
 
     # 9. IR-SDE on the kernels (its launches count in the kernels line), and
     # 10. data-parallel training
-    launches.update(irsde_phase(gpu))
-    dist_phase(gpu)
+    # (dist's (a) runs in the background beside irsde: two trainUM processes,
+    # mostly process start, engine build and saves)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as dist_tmp:
+        started = start_dist_launches(dist_tmp)
+        try:
+            launches.update(irsde_phase(gpu))
+            marks.append(("irsde", time.time()))
+            dist_phase(gpu, started)
+            marks.append(("dist", time.time()))
+        finally:
+            stop_dist_launches(started)
+    emit({"phase": "timing", "what": "wall seconds of each stretch of the script, in order",
+          "seconds": {name: round(t - marks[i][1], 1) for i, (name, t) in
+                      enumerate(marks[1:])}, "gpu": gpu})
     entries = {k: dict(e, launches=launches[k], max_abs_err=worst[k]) for k, e in entries.items()}
-    # the flash row is the UNet bottleneck's (bf16, the tensor-core kernel);
-    # the image tower's launches (fp32, the FMA kernel) and its shapes'
+    # the flash row is the UNet bottleneck's (bf16, flash_tc_kernel); the
+    # image tower's launches (fp32, flash_tf32x3_kernel) and its shapes'
     # measurements are a field of their own
     entries["flash"]["image_tower"] = {
         "launches": launches["flash_tower"], "launches_dtype": "float32", "per_shape": [

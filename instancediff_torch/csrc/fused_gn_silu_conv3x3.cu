@@ -14,8 +14,10 @@
 // (C + Cout [+ Cout]) * sizeof(T) bytes and does 2*9*C*Cout FLOPs: ~290
 // FLOP/byte in bf16 at C = Cout = 64 (at the card's ~295 FLOP/byte ridge) up
 // to ~1550 at C = 528 -> 256, so every large launch of the flagship forward is
-// bound by the tensor cores (989 TFLOP/s bf16); the Cout=5 output head is
-// bound by bytes (it reads 64 channels to write 5).
+// bound by the tensor cores (989 TFLOP/s bf16; 165 TFLOP/s of fp32 work in
+// split TF32, where fp32 bytes halve the FLOP/byte and the ridge falls to
+// ~49); the Cout=5 output head is bound by bytes (it reads 64 channels to
+// write 5). Both dtypes run on the tensor cores.
 //
 // bf16 design (fgc_tc_kernel), for those bounds:
 //  * Normalise once per tile, as the Pallas kernel does. A block owns a TH x 8
@@ -55,9 +57,37 @@
 //  off the step pipeline (one 32-channel step per block-wide barrier) stays
 //  far from the rate (PERF.md, findings of the redesign).
 //
-// fp32 (fgc_fma_kernel, the parity path, not served): the first, simple
-// design kept in full fp32 (no TF32): an implicit GEMM of 128x64 tiles that
-// normalises each operand as it stages it, with plain FMA.
+// fp32 design (fgc_tf32x3_kernel), served wherever a net computes in fp32
+// (every config without models.<name>.dtype, flagship_test.yml among them):
+//  * Split TF32 (3xTF32) on mma.sync m16n8k8: each fp32 operand is
+//    big = rna_tf32(a) plus small = rna_tf32(a - big), and each product is
+//    small*big + big*small + big*big with fp32 accumulation: ~2^-22
+//    relative per product, within the fp32 tolerances, where one TF32 pass
+//    (2^-11) is not. The tensor-core rate is then 495/3 = 165 TFLOP/s of
+//    fp32 work, against 67 on the FMA units. (tf32 wgmma would take A and B
+//    K-major only, with 4 channels to a 16-byte core-matrix row and both
+//    halves of every tile in shared memory: 4x the bf16 kernel's bytes per
+//    slice; mma.sync keeps a simpler pipeline of plain-strided tiles.)
+//  * Normalise once per tile element: a block owns an 8 x 16 pixel tile of
+//    one image and an N block of NB = 8..128 output channels, the narrowest
+//    that covers Cout (8 for the Cout=5 head; 128-wide blocks past 128); per 32-channel slice the raw 10 x 18 halo arrives by
+//    cp.async (16-byte chunks when C % 4 == 0, else 4-byte ones) with its
+//    scale/shift, is normalised with SiLU in fp32 once and stored as its big
+//    and small halves; halo pixels outside the image are exactly 0 by
+//    coordinate. The nine taps read shifted windows of those tiles by
+//    ldmatrix (a 32-bit word is a pair of b16; each lane addresses its own
+//    pixel row, so a shift is a per-lane offset); rows of 144 bytes keep
+//    the reads free of bank conflicts.
+//  * The weights are packed once per parameter by the wrapper into
+//    [nblock][slice][tap][big | small][NB][32] TF32, zero past C and Cout:
+//    one (slice, tap) step is one contiguous run, copied by cp.async into a
+//    ring of 3 stages two steps ahead of the MMAs; the group of a slice's
+//    first tap also brings its raw halo.
+//  * The tensor cores' fp32 accumulation does not round to nearest; each
+//    step accumulates into its own registers, which fp32 adds fold into
+//    the tile's sum, so the error follows one step's 32 channels.
+//  * No split-K and no atomics: a repeated call gives the same bits. The
+//    epilogue adds bias[b,co] and the residual in fp32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -512,94 +542,270 @@ __global__ void __launch_bounds__(TH * TW * 2, 1) fgc_tc_kernel(const TcArgs a) 
 
 // ---------------------------------------------------------------- fp32 kernel
 
-constexpr int FBM = 128;   // output pixels per block
-constexpr int FBN = 64;    // output channels per block
-constexpr int FBK = 32;    // input channels per K step (within one tap)
-constexpr int FNT = 256;
-constexpr int FLDS = FBK + 1;
+constexpr int FTH = 8;            // tile rows
+constexpr int FTW = 16;           // tile columns: one row is one m16 tile
+constexpr int FHW = FTW + 2;      // halo row
+constexpr int FHP = (FTH + 2) * FHW;  // halo pixels
+constexpr int FBK = 32;           // channels per K slice
+constexpr int FPS = FBK + 4;      // shared row stride in floats (144 B: conflict-free ldmatrix)
+constexpr int FNT = 256;          // 8 warps
+constexpr int FST = 3;            // weight stages (one per tap step)
 
-struct FmaArgs {
+struct TfArgs {
   const float* x;
   const float* scale;
   const float* shift;
-  const float* w;
+  const float* wpk;  // packed weights: [nblock][slice][tap][big | small][NB][32], TF32
   const float* bias;
   const float* res;
   float* out;
   int B, H, W, C, Cout;
+  int slices, tiles_x, tiles_y, vec;
 };
 
-__global__ void __launch_bounds__(FNT) fgc_fma_kernel(FmaArgs a) {
-  __shared__ float As[FBM * FLDS];
-  __shared__ float Bs[FBN * FLDS];
-  __shared__ int rb[FBM], ry[FBM], rx[FBM];
+// dynamic shared memory of one fp32 block: the raw halo of one slice, its
+// scale/shift, the normalised halo's big and small halves, the weight ring
+__host__ __device__ constexpr int tf_smem_bytes(int nb) {
+  return (FHP * FBK + 2 * FBK + 2 * FHP * FPS + FST * 2 * nb * FPS) * 4;
+}
 
-  const int HW = a.H * a.W;
-  const long long M = (long long)a.B * HW;
-  const int m0 = blockIdx.x * FBM;
-  const int n0 = blockIdx.y * FBN;
-  for (int r = threadIdx.x; r < FBM; r += FNT) {
-    const long long m = (long long)m0 + r;
-    const int b = m < M ? (int)(m / HW) : -1;
-    const int rem = m < M ? (int)(m - (long long)b * HW) : 0;
-    rb[r] = b;
-    ry[r] = rem / a.W;
-    rx[r] = rem % a.W;
-  }
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int kk = threadIdx.x & (FBK - 1);
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma1688(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// round to nearest, ties away from zero, to TF32 (the low 13 bits zero)
+__device__ __forceinline__ float rna_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
 
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    for (int c0 = 0; c0 < a.C; c0 += FBK) {
-      __syncthreads();  // previous step's reads done (and the row table written)
-      const int c = c0 + kk;
-      for (int r = threadIdx.x / FBK; r < FBM; r += FNT / FBK) {
-        float v = 0.f;
-        const int b = rb[r];
-        const int yy = ry[r] + dy - 1, xx = rx[r] + dx - 1;
-        if (b >= 0 && c < a.C && yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
-          v = silu(a.x[(((size_t)b * a.H + yy) * a.W + xx) * a.C + c] * a.scale[b * a.C + c] +
-                   a.shift[b * a.C + c]);
+// One block: the FTH x FTW pixel tile blockIdx.x of one image, the N block
+// blockIdx.y of NB output channels. 8 warps as WM (pixels) x WN (channels);
+// warp (wm, wn) owns tile rows wm*MT .. +MT-1 (one m16 tile per 16-pixel
+// row) and NB/WN channels. The block walks steps (slice, tap), a ring of FST
+// weight stages FST-1 steps ahead (cp.async, one commit group per step);
+// the group of a slice's first step also carries the slice's raw halo and
+// scale/shift, which that step normalises (fp32 SiLU, split into TF32 big
+// and small halves, 0 outside the image by coordinate) into the halo tiles
+// every tap then reads as shifted windows. Each product is split TF32:
+// small*big + big*small + big*big on mma.sync m16n8k8, into a per-step
+// accumulator that fp32 adds fold into the tile's sum (the tensor cores'
+// fp32 accumulation does not round to nearest: its error then scales with
+// one step's sum, not with the running one).
+template <int NB>
+__global__ void __launch_bounds__(FNT, 1) fgc_tf32x3_kernel(const TfArgs a) {
+  constexpr int WN = NB >= 16 ? 2 : 1, WM = 8 / WN;
+  constexpr int MT = FTH / WM;       // m16 tiles (tile rows) per warp
+  constexpr int NTL = NB / WN / 8;   // n8 tiles per warp
+  constexpr int STAGE = 2 * NB * FPS;  // floats per weight stage: [big | small][NB][FPS]
+  static_assert(MT * WM == FTH && NTL >= 1, "warp layout");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* raw = reinterpret_cast<float*>(smem);  // [FHP][FBK]
+  float* coef = raw + FHP * FBK;                // [scale 32 | shift 32]
+  float* ab = coef + 2 * FBK;                   // [FHP][FPS] big
+  float* as = ab + FHP * FPS;                   // [FHP][FPS] small
+  float* ring = as + FHP * FPS;                 // [FST][2][NB][FPS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int tiles_img = a.tiles_x * a.tiles_y;
+  const int b = blockIdx.x / tiles_img, r = blockIdx.x % tiles_img;
+  const int oy = (r / a.tiles_x) * FTH, ox = (r % a.tiles_x) * FTW;
+  const int n0 = blockIdx.y * NB;
+  const int S = a.slices, steps = 9 * S;
+  const float* wblk = a.wpk + (size_t)blockIdx.y * steps * (2 * NB * FBK);
+
+  // one commit group per step g: its weights into stage g % FST, and at a
+  // slice's first tap the slice's raw halo and scale/shift
+  auto issue = [&](int g) {
+    if (g < steps) {
+      const float* src = wblk + (size_t)g * (2 * NB * FBK);
+      float* dst = ring + (g % FST) * STAGE;
+      for (int i = tid; i < 2 * NB * (FBK / 4); i += FNT) {
+        const int row = i >> 3, ch = i & 7;  // row: half * NB + n
+        cp_async16(dst + row * FPS + ch * 4, src + row * FBK + ch * 4, 16);
+      }
+      if (g % 9 == 0) {
+        const int c0 = (g / 9) * FBK;
+        if (a.vec) {
+          for (int i = tid; i < FHP * (FBK / 4); i += FNT) {
+            const int p = i >> 3, q = i & 7;
+            const int gy = oy - 1 + p / FHW, gx = ox - 1 + p % FHW, c = c0 + q * 4;
+            const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.C;
+            const size_t off = ok ? (((size_t)b * a.H + gy) * a.W + gx) * a.C + c : 0;
+            cp_async16(raw + p * FBK + q * 4, a.x + off, ok ? 16 : 0);
+          }
+        } else {
+          for (int i = tid; i < FHP * FBK; i += FNT) {
+            const int p = i / FBK, cc = i % FBK;
+            const int gy = oy - 1 + p / FHW, gx = ox - 1 + p % FHW, c = c0 + cc;
+            const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.C;
+            const size_t off = ok ? (((size_t)b * a.H + gy) * a.W + gx) * a.C + c : 0;
+            cp_async4(raw + i, a.x + off, ok ? 4 : 0);
+          }
         }
-        As[r * FLDS + kk] = v;
-      }
-      for (int i = threadIdx.x; i < FBN * FBK; i += FNT) {
-        const int n = i % FBN, k = i / FBN;
-        const int cc = c0 + k, nn = n0 + n;
-        Bs[n * FLDS + k] =
-            (cc < a.C && nn < a.Cout) ? a.w[((size_t)tap * a.C + cc) * a.Cout + nn] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < FBK; ++k) {
-        float av[8], bv[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = As[(ty + 16 * i) * FLDS + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * FLDS + k];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i * 4 + j] = fmaf(av[i], bv[j], acc[i * 4 + j]);
+        if (tid < 2 * FBK) {
+          const int c = c0 + (tid & (FBK - 1));
+          const float* src_c = (tid < FBK ? a.scale : a.shift) + (size_t)b * a.C;
+          cp_async4(coef + tid, src_c + (c < a.C ? c : 0), c < a.C ? 4 : 0);
+        }
       }
     }
+    cp_async_commit();
+  };
+
+  // the landed raw halo of one slice -> SiLU(x*scale + shift) in fp32, split
+  // into TF32 halves; exactly 0 outside the image (channels past C have
+  // scale = shift = 0, so SiLU gives 0 there)
+  auto normalize = [&]() {
+    for (int i = tid; i < FHP * (FBK / 4); i += FNT) {
+      const int p = i >> 3, q = i & 7;
+      const int gy = oy - 1 + p / FHW, gx = ox - 1 + p % FHW;
+      const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+      const float4 xv = *reinterpret_cast<const float4*>(raw + p * FBK + q * 4);
+      const float4 sc = *reinterpret_cast<const float4*>(coef + q * 4);
+      const float4 sh = *reinterpret_cast<const float4*>(coef + FBK + q * 4);
+      const float xs[4] = {xv.x, xv.y, xv.z, xv.w}, ss[4] = {sc.x, sc.y, sc.z, sc.w},
+                  hs[4] = {sh.x, sh.y, sh.z, sh.w};
+      float big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = in ? silu(xs[e] * ss[e] + hs[e]) : 0.f;
+        big[e] = rna_tf32(v);
+        small[e] = rna_tf32(v - big[e]);
+      }
+      *reinterpret_cast<float4*>(ab + p * FPS + q * 4) = make_float4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<float4*>(as + p * FPS + q * 4) =
+          make_float4(small[0], small[1], small[2], small[3]);
+    }
+  };
+
+  float acc[MT][NTL][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTL; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // ldmatrix lane roles on fp32 words. A: matrix i holds pixels 8*(i&1) +
+  // 0..7 of an m16 row at channels 4*(i>>1) + 0..3, giving a0..a3. B (rows
+  // n, k contiguous): matrix i holds channels n 8*(i>>1) + 0..7 at k
+  // 4*(i&1) + 0..3, giving b0, b1 of two n8 tiles.
+  const int a_px = (lane & 7) + ((lane >> 3) & 1) * 8, a_k = (lane >> 4) * 4;
+  const int b_n = (lane & 7) + ((lane >> 4) & 1) * 8, b_k = ((lane >> 3) & 1) * 4;
+  const uint32_t ab_s = smem_u32(ab), as_s = smem_u32(as), ring_s = smem_u32(ring);
+
+#pragma unroll 1
+  for (int g = 0; g < FST - 1; ++g) issue(g);
+#pragma unroll 1
+  for (int g = 0; g < steps; ++g) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(FST - 2) : "memory");
+    __syncthreads();  // step g's copies landed everywhere; step g-1's reads done
+    if (g % 9 == 0) {
+      normalize();
+      __syncthreads();
+    }
+    issue(g + FST - 1);
+    const int tap = g % 9, dy = tap / 3, dx = tap % 3;
+    const uint32_t wst = ring_s + (g % FST) * STAGE * 4;
+    float part[MT][NTL][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NTL; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < FBK / 8; ++kk) {
+      uint32_t fab[MT][4], fas[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int hp = (wm * MT + mt + dy) * FHW + a_px + dx;
+        const uint32_t off = (hp * FPS + kk * 8 + a_k) * 4;
+        ldsm_x4(fab[mt], ab_s + off);
+        ldsm_x4(fas[mt], as_s + off);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTL; nt += 2) {
+        const int n = wn * (NB / WN) + nt * 8 + b_n;
+        const uint32_t off_b = (n * FPS + kk * 8 + b_k) * 4;
+        const uint32_t off_s = ((NB + n) * FPS + kk * 8 + b_k) * 4;
+        uint32_t bb[4], bs[4];
+        if constexpr (NTL == 1) {
+          ldsm_x2(bb, wst + off_b);
+          ldsm_x2(bs, wst + off_s);
+        } else {
+          ldsm_x4(bb, wst + off_b);
+          ldsm_x4(bs, wst + off_s);
+        }
+#pragma unroll
+        for (int h = 0; h < (NTL == 1 ? 1 : 2); ++h)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            float* d = part[mt][nt + h];
+            mma1688(d, fas[mt], bb[2 * h], bb[2 * h + 1]);
+            mma1688(d, fab[mt], bs[2 * h], bs[2 * h + 1]);
+            mma1688(d, fab[mt], bb[2 * h], bb[2 * h + 1]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NTL; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // + bias[b,co] (+ residual) in fp32, masked store
+  const float* bias = a.bias + (size_t)b * a.Cout;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 16 * i;
-    const int b = rb[r];
+  for (int mt = 0; mt < MT; ++mt) {
+    const int gy = oy + wm * MT + mt;
+    if (gy >= a.H) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (b < 0 || n >= a.Cout) continue;
-      const size_t o = (size_t)(m0 + r) * a.Cout + n;
-      float v = acc[i * 4 + j] + a.bias[b * a.Cout + n];
-      if (a.res != nullptr) v += a.res[o];
-      a.out[o] = v;
+    for (int h = 0; h < 2; ++h) {
+      const int gx = ox + g8 + 8 * h;
+      if (gx >= a.W) continue;
+      const size_t obase = (((size_t)b * a.H + gy) * a.W + gx) * a.Cout;
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) {
+        const int co = n0 + wn * (NB / WN) + nt * 8 + t4 * 2;
+        float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        if (co + 1 < a.Cout && !(a.Cout & 1)) {
+          v0 += bias[co];
+          v1 += bias[co + 1];
+          if (a.res != nullptr) {
+            const float2 rv = *reinterpret_cast<const float2*>(a.res + obase + co);
+            v0 += rv.x;
+            v1 += rv.y;
+          }
+          *reinterpret_cast<float2*>(a.out + obase + co) = make_float2(v0, v1);
+        } else {
+          if (co < a.Cout)
+            a.out[obase + co] = v0 + bias[co] + (a.res != nullptr ? a.res[obase + co] : 0.f);
+          if (co + 1 < a.Cout)
+            a.out[obase + co + 1] =
+                v1 + bias[co + 1] + (a.res != nullptr ? a.res[obase + co + 1] : 0.f);
+        }
+      }
     }
   }
 }
@@ -659,6 +865,25 @@ cudaError_t launch_nb(const TcArgs& a, int nb, int n_blocks, cudaStream_t s) {
   }
 }
 
+template <int NB>
+cudaError_t launch_tf(const TfArgs& a, dim3 grid, cudaStream_t s) {
+  static int allowed[kMaxDevices] = {};
+  const int smem = tf_smem_bytes(NB);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    if ((e = cudaFuncSetAttribute(fgc_tf32x3_kernel<NB>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return e;
+    allowed[dev] = smem;
+  }
+  fgc_tf32x3_kernel<NB><<<grid, FNT, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory (bytes) of one bf16 block for a tile height, N block and stage count.
@@ -686,19 +911,33 @@ extern "C" int fgc_tc_forward(const void* x, const void* scale, const void* shif
   return (int)(th == 8 ? launch_nb<8>(a, nb, n_blocks, s) : launch_nb<16>(a, nb, n_blocks, s));
 }
 
-// fp32 in full fp32 on the FMA units. res may be NULL. Returns cudaGetLastError().
-extern "C" int fgc_fma_forward(const void* x, const void* scale, const void* shift, const void* w,
-                               const void* bias, const void* res, void* out, int B, int H, int W,
-                               int C, int Cout, void* stream) {
-  const long long M = (long long)B * H * W;
-  if (M <= 0 || C <= 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
-  const long long blocks_m = (M + FBM - 1) / FBM;
-  if (blocks_m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  FmaArgs a{static_cast<const float*>(x), static_cast<const float*>(scale),
-            static_cast<const float*>(shift), static_cast<const float*>(w),
-            static_cast<const float*>(bias), static_cast<const float*>(res),
-            static_cast<float*>(out), B, H, W, C, Cout};
-  const dim3 grid((unsigned)blocks_m, (unsigned)((Cout + FBN - 1) / FBN));
-  fgc_fma_kernel<<<grid, FNT, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+// Shared memory (bytes) of one fp32 block for an N block.
+extern "C" int fgc_tf32_smem_bytes(int nb) { return tf_smem_bytes(nb); }
+
+// fp32 on the tensor cores in split TF32. wpk: the packed weights of the
+// plan ([ceil(Cout/nb)][ceil(C/32)][9][2][nb][32] fp32, TF32 big and small
+// halves); nb: 8, 16, 32, 64 or 128. res may be NULL. Returns
+// cudaGetLastError().
+extern "C" int fgc_tf32_forward(const void* x, const void* scale, const void* shift,
+                                const void* wpk, const void* bias, const void* res, void* out,
+                                int B, int H, int W, int C, int Cout, int nb, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
+  TfArgs a{static_cast<const float*>(x), static_cast<const float*>(scale),
+           static_cast<const float*>(shift), static_cast<const float*>(wpk),
+           static_cast<const float*>(bias), static_cast<const float*>(res),
+           static_cast<float*>(out), B, H, W, C, Cout,
+           (C + FBK - 1) / FBK, (W + FTW - 1) / FTW, (H + FTH - 1) / FTH, C % 4 == 0};
+  const long long tiles = (long long)B * a.tiles_x * a.tiles_y;
+  const int n_blocks = (Cout + nb - 1) / nb;
+  if (tiles > 0x7fffffffLL || n_blocks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)n_blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nb) {
+    case 8: return (int)launch_tf<8>(a, grid, s);
+    case 16: return (int)launch_tf<16>(a, grid, s);
+    case 32: return (int)launch_tf<32>(a, grid, s);
+    case 64: return (int)launch_tf<64>(a, grid, s);
+    case 128: return (int)launch_tf<128>(a, grid, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

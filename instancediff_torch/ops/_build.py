@@ -34,14 +34,17 @@ SIGNATURES = {
         # x, scale, shift, packed w, bias, residual|NULL, out, B, H, W, C, Cout,
         # th, nb, stages, stream
         "fgc_tc_forward": ([_VP] * 7 + [_I] * 8 + [_VP], _I),
-        # x, scale, shift, w, bias, residual|NULL, out, B, H, W, C, Cout, stream
-        "fgc_fma_forward": ([_VP] * 7 + [_I] * 5 + [_VP], _I),
+        # x, scale, shift, packed w, bias, residual|NULL, out, B, H, W, C, Cout,
+        # nb, stream
+        "fgc_tf32_forward": ([_VP] * 7 + [_I] * 6 + [_VP], _I),
         # th, nb, stages
         "fgc_tc_smem_bytes": ([_I] * 3, _I),
+        # nb
+        "fgc_tf32_smem_bytes": ([_I], _I),
     },
     "flash_attention": {
-        # q, k, v, out, BH, N, Nk, D, scale, dtype, path, stream
-        "flash_forward": ([_VP] * 4 + [_I] * 4 + [_F, _I, _I, _VP], _I),
+        # q, k, v, out, BH, N, Nk, D, scale, dtype, path, warps, stream
+        "flash_forward": ([_VP] * 4 + [_I] * 4 + [_F, _I, _I, _I, _VP], _I),
     },
     "group_norm_silu": {
         # x, gamma, beta, out, partials, gstat, tickets, B, HW, C, G, eps, silu,
@@ -127,6 +130,12 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), or a copy when its address is not a multiple of
+    16 bytes: the kernels copy rows with 16-byte cp.async."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def refuse_autograd(what: str, *tensors) -> None:

@@ -2,14 +2,14 @@
 
 Port of ``instancediff_tpu/ops/pallas_kernels.py:flash_attention`` (Pallas
 kernel ``_flash_kernel``), which takes any head width. The CUDA kernels are
-in ``csrc/flash_attention.cu``: bf16 at D = 64 on the tensor cores
-(mma.sync; the softmax weights are rounded to bf16 before they multiply V,
-the one departure from the all-fp32 Pallas kernel), and every other head
-width of ``HEAD_WIDTHS``, in fp32 or bf16, on the FMA units in fp32;
-``flash_plan`` picks one. ``flash_attention_plain`` is the same function in
-plain PyTorch. The wrapper uses the plain version only for CPU tensors: for a
-CUDA tensor it launches a kernel or raises; it raises when an input requires
-grad and gradients are on (the kernel has no backward)."""
+in ``csrc/flash_attention.cu``, both on the tensor cores (mma.sync) at every
+head width of ``HEAD_WIDTHS``: bf16 (the softmax weights are rounded to bf16
+before they multiply V, the one departure from the all-fp32 Pallas kernel)
+and fp32 in split TF32 (three TF32 products per fp32 product, fp32
+accuracy); ``flash_plan`` picks one. ``flash_attention_plain`` is the same
+function in plain PyTorch. The wrapper uses the plain version only for CPU
+tensors: for a CUDA tensor it launches a kernel or raises; it raises when an
+input requires grad and gradients are on (the kernel has no backward)."""
 
 from __future__ import annotations
 
@@ -18,26 +18,33 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head widths the FMA kernel is instantiated for (``launch_fma`` in the
+# the head widths the kernels are instantiated for (``flash_forward`` in the
 # source): the UNet bottleneck's 4 heads give D = nf * ch_mult[-1] / 4
 HEAD_WIDTHS = (4, 8, 16, 32, 64, 128)
-_PATHS = {"fma": 0, "tc": 1}
+_PATHS = {"tc": 1, "tf32x3": 2}
 
 
-def flash_plan(D: int, dtype: torch.dtype) -> dict:
-    """The kernel that serves head width ``D`` in ``dtype``, mirrored from
-    ``flash_forward`` in ``csrc/flash_attention.cu``: ``path`` "tc" (the
-    tensor-core kernel: bf16 at D = 64, the UNet bottleneck's and the
-    tower's shape) or "fma" (every other width of ``HEAD_WIDTHS``, either
-    dtype, all in fp32). Raises for a width or dtype no kernel takes."""
+def flash_plan(D: int, dtype: torch.dtype, N: int = 1024) -> dict:
+    """The kernel that serves head width ``D`` in ``dtype`` for ``N`` query
+    rows, mirrored from ``flash_forward`` in ``csrc/flash_attention.cu``:
+    ``path`` "tc" (bf16, ``flash_tc_kernel``, 8 warps) or "tf32x3" (fp32 in
+    split TF32, ``flash_tf32x3_kernel``), both on the tensor cores at every
+    width of ``HEAD_WIDTHS``; ``warps`` per block (16 query rows each): the
+    fp32 kernel takes 8 unless 64-row blocks of 4 warps pad N to over a
+    tenth fewer rows. Raises for a width or dtype no kernel takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention: dtype {dtype} not supported "
                         "(float32 or bfloat16, all equal)")
     if int(D) not in HEAD_WIDTHS:
         raise ValueError(f"flash_attention: head width D={D} has no kernel; the kernels "
                          f"take D in {HEAD_WIDTHS}")
-    path = "tc" if dtype == torch.bfloat16 and int(D) == 64 else "fma"
-    return {"path": path, "D": int(D), "dtype": dtype}
+    if dtype == torch.bfloat16:
+        return {"path": "tc", "D": int(D), "dtype": dtype, "warps": 8}
+    # 8 warps (128-row blocks) ran faster per row; 4 where they pad N by
+    # over a tenth more rows than 64-row blocks (N = 257: 384 against 320)
+    # (``python3 chip_smoke.py --sweep flash``)
+    warps = 8 if -(-N // 128) * 128 <= 1.1 * (-(-N // 64) * 64) else 4
+    return {"path": "tf32x3", "D": int(D), "dtype": dtype, "warps": warps}
 
 
 def flash_attention_plain(q, k, v, scale=None):
@@ -69,14 +76,15 @@ def flash_attention(q, k, v, scale=None):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     B, H, N, D = q.shape
-    plan = flash_plan(D, q.dtype)
+    plan = flash_plan(D, q.dtype, N)
     scale = D**-0.5 if scale is None else float(scale)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_build.aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     rc = lib.flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                            B * H, N, k.shape[2], D, scale, _DTYPES[q.dtype],
-                           _PATHS[plan["path"]], torch.cuda.current_stream(q.device).cuda_stream)
+                           _PATHS[plan["path"]], plan["warps"],
+                           torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     _build.count_launch(flash_attention)
     return out

@@ -6,9 +6,11 @@ Port of ``instancediff_tpu/ops/pallas_kernels.py:fused_gn_silu_conv3x3``
 GroupNorm statistics kernel of ``csrc/group_norm_silu.cu``
 (``group_norm_silu.group_norm_affine_cuda``). The conv's CUDA kernels are in
 ``csrc/fused_gn_silu_conv3x3.cu``:
-bf16 on the tensor cores (``fgc_tc_forward``, launched with the plan of
-``conv_plan`` on weights packed by ``pack_weights`` once per parameter) and
-fp32 in full fp32 (``fgc_fma_forward``). ``fused_gn_silu_conv3x3_plain`` and
+both on the tensor cores, launched with the plan of ``conv_plan`` on weights
+packed once per parameter (``packed_weights``): bf16 on wgmma
+(``fgc_tc_forward``, ``pack_weights``) and fp32 in split TF32 on mma.sync
+(``fgc_tf32_forward``, ``pack_weights_tf32x3``: three TF32 products per fp32
+product, fp32 accuracy). ``fused_gn_silu_conv3x3_plain`` and
 ``gn_channel_affine_plain`` are the same functions in plain PyTorch. The
 wrappers use the plain versions only for CPU tensors: for a CUDA tensor they
 launch a kernel or raise."""
@@ -33,6 +35,11 @@ NB_CHOICES = (8, 64, 128, 256)  # the kernel's wgmma widths; 8 serves the Cout=5
 SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 N_SMS = 132
 STAGES = 4
+# The fp32 kernel's plan: 8x16 pixel tiles, 32-channel K slices, N blocks
+# from NB_CHOICES_F32, a ring of F32_STAGES weight stages (one per tap step)
+F32_TILE = (8, 16)
+NB_CHOICES_F32 = (8, 16, 32, 64, 128)
+F32_STAGES = 3
 
 
 def _cdiv(a, b):
@@ -46,9 +53,37 @@ def tc_smem_bytes(th, nb, stages):
     return stages * SLICE * nb * 2 + 4 * (th + 2) * 10 * SLICE * 2 + 4 * SLICE * 4 + stages * 8
 
 
+def tf32_smem_bytes(nb):
+    """Shared memory of one fp32 block: the raw halo (10 x 18 pixels x 32
+    channels) and its scale/shift, the normalised halo's big and small
+    halves (rows of 36 floats), and the weight ring (``F32_STAGES`` stages
+    of big and small [nb][36])."""
+    halo = (F32_TILE[0] + 2) * (F32_TILE[1] + 2)
+    return (halo * SLICE + 2 * SLICE + 2 * halo * (SLICE + 4)
+            + F32_STAGES * 2 * nb * (SLICE + 4)) * 4
+
+
+def _conv_plan_f32(B, H, W, C, Cout):
+    th, tw = F32_TILE
+    tiles = B * _cdiv(H, th) * _cdiv(W, tw)
+    # the narrowest N block that covers Cout, 128 past it: at 32x32 and
+    # 28x28 px, Cout 256, two 128-wide blocks ran faster than four 64-wide
+    # ones though they leave SMs idle (``python3 chip_smoke.py --sweep
+    # conv`` on the H100); Cout = 5 pays for 8 columns
+    nb = next((c for c in NB_CHOICES_F32 if c >= Cout), NB_CHOICES_F32[-1])
+    return dict(kernel="tf32x3", th=th, tw=tw, nb=nb, n_blocks=_cdiv(Cout, nb),
+                stages=F32_STAGES, load="cp.async" if C % 4 == 0 else "scalar",
+                weights="cp.async", stage_bytes=2 * SLICE * nb * 4, smem=tf32_smem_bytes(nb),
+                blocks=tiles * _cdiv(Cout, nb))
+
+
 @functools.lru_cache(maxsize=None)
-def conv_plan(B, H, W, C, Cout):
-    """Launch plan of the bf16 kernel for one input shape: tile ``th`` x
+def conv_plan(B, H, W, C, Cout, dtype=torch.bfloat16):
+    """Launch plan of the kernel for one input shape and dtype. fp32
+    (``kernel`` "tf32x3"): 8 x 16 tiles, the narrowest N block of
+    ``NB_CHOICES_F32`` that covers Cout (128-wide blocks past it); the
+    halo ``load`` path is "cp.async" (16-byte chunks) when C % 4 == 0,
+    "scalar" otherwise. bf16 (``kernel`` "tc"): tile ``th`` x
     ``tw``, N block ``nb`` (from ``NB_CHOICES``: multiples of 8 up to 256)
     and their count ``n_blocks``, weight ``stages``, the halo ``load`` path
     ("cp.async" needs C*2 bytes to be a multiple of 16; "scalar" otherwise),
@@ -59,6 +94,11 @@ def conv_plan(B, H, W, C, Cout):
     work items still give each of the card's 132 SMs one, then the 8x8
     tile, then narrower N blocks. Cached per shape: callers must not change
     the returned dict."""
+    if dtype == torch.float32:
+        return _conv_plan_f32(B, H, W, C, Cout)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv_plan: dtype {dtype} not supported")
+
     def cover(n):  # the narrowest choice >= n (256 past it: several N blocks)
         return next((c for c in NB_CHOICES if c >= n), NB_CHOICES[-1])
 
@@ -74,7 +114,7 @@ def conv_plan(B, H, W, C, Cout):
     while blocks(th, tw, nb) < N_SMS and nb > 64:
         nb = cover(_cdiv(Cout, split))
         split += 1
-    return dict(th=th, tw=tw, nb=nb, n_blocks=_cdiv(Cout, nb), stages=STAGES,
+    return dict(kernel="tc", th=th, tw=tw, nb=nb, n_blocks=_cdiv(Cout, nb), stages=STAGES,
                 load="cp.async" if (C * 2) % 16 == 0 else "scalar",
                 weights="tma_bulk", stage_bytes=SLICE * nb * 2,
                 smem=tc_smem_bytes(th, nb, STAGES), blocks=blocks(th, tw, nb))
@@ -98,35 +138,71 @@ def pack_weights(w, nb):
     return wp.reshape(nbl, S, 9, nb, SLICE).contiguous()
 
 
-def packed_weights(w, nb):
-    """``pack_weights`` of ``w`` in bf16, packed once per parameter: the copy is kept
-    on the weight tensor itself (attribute ``_fgc_packed``, freed with it) and
-    repacked when the tensor is updated in place. Inference tensors (made
-    inside ``torch.inference_mode``, e.g. a cast of the caller's weight) keep
-    no copy, so a CUDA graph capturing one would repack at every replay: that
-    raises. The engines pass the parameter itself (bf16, or a trained net's
-    float32 master weight: the copy is bf16 either way) and pack it in the
-    warm-up step before the capture."""
+def split_tf32(x):
+    """fp32 ``x`` as (big, small), both TF32 (fp32 with the low 13 mantissa
+    bits zero): big = x rounded to nearest, ties away from zero
+    (``cvt.rna.tf32.f32``), small = the remainder rounded the same way.
+    big + small carries x to ~2^-22 relative."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)  # & 0xFFFFE000
+
+    big = rna(x.float())
+    return big, rna(x.float() - big)
+
+
+def pack_weights_tf32x3(w, nb):
+    """HWIO [3,3,C,Cout] -> the fp32 kernel's layout
+    [ceil(Cout/nb)][ceil(C/32)][9][2][nb][32] float32: each weight's TF32
+    big half at [..., 0, n, c] and small half at [..., 1, n, c], zero past
+    C and Cout; one (N block, slice, tap) step is one contiguous run of
+    2*nb*32 floats."""
+    _, _, C, Cout = w.shape
+    S, nbl = _cdiv(C, SLICE), _cdiv(Cout, nb)
+    wp = w.new_zeros(3, 3, S * SLICE, nbl * nb, dtype=torch.float32)
+    wp[:, :, :C, :Cout] = w.float()
+    wp = wp.reshape(9, S, SLICE, nbl, nb).permute(3, 1, 0, 4, 2)  # nbl,S,9,nb,32
+    return torch.stack(split_tf32(wp), dim=3).contiguous()
+
+
+# the packed layout of each kernel's weights, by packing format
+PACKERS = {"bf16": lambda w, nb: pack_weights(w.to(torch.bfloat16), nb),
+           "tf32x3": pack_weights_tf32x3}
+
+
+def packed_weights(w, nb, fmt="bf16"):
+    """``w`` packed for the kernel of format ``fmt`` ("bf16": ``pack_weights``
+    of w in bf16; "tf32x3": ``pack_weights_tf32x3`` of w in fp32), once per
+    parameter and format: the copies are kept on the weight tensor itself
+    (attribute ``_fgc_packed``, {fmt: (key, copy)}, freed with it) and
+    repacked when the tensor is updated in place. A trained net's float32
+    master weight may be packed in both formats in one process. Inference
+    tensors (made inside ``torch.inference_mode``, e.g. a cast of the
+    caller's weight) keep no copy, so a CUDA graph capturing one would
+    repack at every replay: that raises. The engines pass the parameter
+    itself and pack it in the warm-up step before the capture."""
     if w.is_inference():
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("fused_gn_silu_conv3x3: an inference-mode weight would be "
                                "repacked at every replay of the captured graph")
-        return pack_weights(w.to(torch.bfloat16), nb)
+        return PACKERS[fmt](w, nb)
     key = (nb, w._version, w.data_ptr())
-    hit = getattr(w, "_fgc_packed", None)
+    cache = getattr(w, "_fgc_packed", None)
+    if cache is None:
+        cache = w._fgc_packed = {}
+    hit = cache.get(fmt)
     if hit is None or hit[0] != key:
         with torch.no_grad():
-            hit = (key, pack_weights(w.detach().to(torch.bfloat16), nb))
-        w._fgc_packed = hit
+            hit = cache[fmt] = (key, PACKERS[fmt](w.detach(), nb))
     return hit[1]
 
 
 def packed_copies(params) -> list:
     """The packed copies ``packed_weights`` holds for ``params`` (those packed
-    so far). A CUDA graph reads its copies by address, and a repack after an
-    in-place update drops the parameter's reference, so the graph's owner
-    keeps this list."""
-    return [p._fgc_packed[1] for p in params if getattr(p, "_fgc_packed", None) is not None]
+    so far, every format). A CUDA graph reads its copies by address, and a
+    repack after an in-place update drops the parameter's reference, so the
+    graph's owner keeps this list."""
+    return [copy for p in params for _, copy in getattr(p, "_fgc_packed", {}).values()]
 
 
 def gn_channel_affine_plain(x, gamma, beta, num_groups, eps=1e-5):
@@ -195,27 +271,27 @@ def fused_gn_silu_conv3x3(x, scale_c, shift_c, w, bias_bc, residual=None):
     tensors = [x, scale_c, shift_c, w, bias_bc] + ([residual] if residual is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError("fused_gn_silu_conv3x3: inputs on different devices")
-    x = x.contiguous()
+    x = _build.aligned(x.contiguous())
     scale_c = scale_c.float().contiguous()
     shift_c = shift_c.float().contiguous()
     bias_bc = bias_bc.float().contiguous()
-    residual = residual.contiguous() if residual is not None else None
+    residual = _build.aligned(residual.contiguous()) if residual is not None else None
     res_ptr = residual.data_ptr() if residual is not None else None
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     lib = _build.load("fused_gn_silu_conv3x3")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    plan = conv_plan(B, H, W, C, Cout, x.dtype)
     if x.dtype == torch.bfloat16:
-        plan = conv_plan(B, H, W, C, Cout)
-        wpk = packed_weights(w, plan["nb"])  # in bf16, from w in its own dtype
+        wpk = packed_weights(w, plan["nb"], "bf16")  # in bf16, from w in its own dtype
         rc = lib.fgc_tc_forward(x.data_ptr(), scale_c.data_ptr(), shift_c.data_ptr(),
                                 wpk.data_ptr(), bias_bc.data_ptr(), res_ptr, out.data_ptr(),
                                 B, H, W, C, Cout, plan["th"], plan["nb"], plan["stages"],
                                 stream)
     else:
-        w = w.float().contiguous()
-        rc = lib.fgc_fma_forward(x.data_ptr(), scale_c.data_ptr(), shift_c.data_ptr(),
-                                 w.data_ptr(), bias_bc.data_ptr(), res_ptr, out.data_ptr(),
-                                 B, H, W, C, Cout, stream)
+        wpk = packed_weights(w, plan["nb"], "tf32x3")  # TF32 halves of w in fp32
+        rc = lib.fgc_tf32_forward(x.data_ptr(), scale_c.data_ptr(), shift_c.data_ptr(),
+                                  wpk.data_ptr(), bias_bc.data_ptr(), res_ptr, out.data_ptr(),
+                                  B, H, W, C, Cout, plan["nb"], stream)
     _build.check(rc, "fused_gn_silu_conv3x3")
     _build.count_launch(fused_gn_silu_conv3x3)
     return out

@@ -1,7 +1,8 @@
-"""The bf16 fused-conv kernel's launch plan and weight packing, on the CPU.
+"""The fused-conv kernels' launch plans and weight packing, on the CPU.
 
 ``conv_plan`` chooses the tile, the N block, the weight stages and the halo
-load path of ``csrc/fused_gn_silu_conv3x3.cu`` in plain Python; these tests
+load path of ``csrc/fused_gn_silu_conv3x3.cu`` in plain Python, for the bf16
+kernel and for the fp32 (split-TF32) one; these tests
 hold it to the kernel's limits at every fused-conv launch of the flagship
 UNet forward (batch 8, at 256 px and at 224 px). Nothing here imports
 triton or CUDA code, or JAX.
@@ -15,10 +16,13 @@ import torch
 from instancediff_torch.ops.fused_gn_conv import (
     N_SMS,
     NB_CHOICES,
+    NB_CHOICES_F32,
     SMEM_LIMIT,
     conv_plan,
     pack_weights,
+    packed_copies,
     packed_weights,
+    tf32_smem_bytes,
 )
 
 # (H, W, C, Cout, launches) of one flagship drift UNet forward at 256 px:
@@ -98,3 +102,57 @@ def test_packed_once_per_parameter():
         p.mul_(2)  # an in-place update repacks
     again = packed_weights(p, 8)
     assert again is not first and torch.equal(again, 2 * first)
+
+
+@pytest.mark.parametrize("H,W,C,Cout", SHAPES)
+def test_fp32_plan_fits_the_kernel_and_fills_the_card(H, W, C, Cout):
+    """The split-TF32 kernel: 8x16 tiles, the narrowest N block of
+    NB_CHOICES_F32 that covers Cout (128-wide blocks past it), shared
+    memory within the card's limit."""
+    plan = conv_plan(BATCH, H, W, C, Cout, torch.float32)
+    nb = plan["nb"]
+    assert plan["kernel"] == "tf32x3" and (plan["th"], plan["tw"]) == (8, 16)
+    assert nb == min(c for c in NB_CHOICES_F32 if c >= min(Cout, 128))
+    assert plan["n_blocks"] * nb >= Cout > (plan["n_blocks"] - 1) * nb
+    assert plan["smem"] == tf32_smem_bytes(nb) <= SMEM_LIMIT
+    assert plan["load"] == ("cp.async" if C % 4 == 0 else "scalar")
+    assert plan["stages"] == 3 and plan["stage_bytes"] == 2 * 32 * nb * 4
+    tiles = BATCH * -(-H // 8) * -(-W // 16)
+    assert plan["blocks"] == tiles * plan["n_blocks"]
+    # every launch of >= 56x56 pixels fills the 132 SMs; at 32x32 and 28x28
+    # (Cout 256) the two 128-wide N blocks leave a few idle
+    if H * W >= 56 * 56:
+        assert plan["blocks"] >= N_SMS, plan
+    # the Cout = 5 head pays for 8 columns, not 64
+    if Cout == 5:
+        assert nb == 8
+
+
+def test_fp32_plan_shared_memory():
+    """The Python mirror of the kernel's count: the raw halo (180 pixels x 32
+    channels) and scale/shift, the big and small halo tiles (rows of 36
+    floats), 3 weight stages of big and small [nb][36]; two blocks fit an
+    SM up to nb = 32."""
+    assert tf32_smem_bytes(128) == (180 * 32 + 64 + 2 * 180 * 36 + 3 * 2 * 128 * 36) * 4
+    assert tf32_smem_bytes(128) == 185728 <= SMEM_LIMIT
+    assert 2 * tf32_smem_bytes(32) <= SMEM_LIMIT < 2 * tf32_smem_bytes(64)
+    assert conv_plan(2, 19, 23, 7, 3, torch.float32)["load"] == "scalar"
+    with pytest.raises(TypeError, match="float16"):
+        conv_plan(2, 8, 8, 16, 16, torch.float16)
+
+
+def test_bf16_and_fp32_copies_of_one_parameter():
+    """A trained net's fp32 master weight is packed for the bf16 kernel and
+    for the fp32 one in one process: two copies under two keys, both kept
+    for a graph, each repacked after an in-place update."""
+    p = torch.nn.Parameter(torch.randn(3, 3, 16, 8))
+    bf, tf = packed_weights(p, 8, "bf16"), packed_weights(p, 8, "tf32x3")
+    assert bf.dtype == torch.bfloat16 and tf.dtype == torch.float32
+    assert packed_weights(p, 8, "bf16") is bf and packed_weights(p, 8, "tf32x3") is tf
+    kept = packed_copies([p])
+    assert len(kept) == 2 and any(k is bf for k in kept) and any(k is tf for k in kept)
+    with torch.no_grad():
+        p.mul_(2)
+    again = packed_weights(p, 8, "tf32x3")
+    assert again is not tf and torch.equal(again, 2 * tf)
+    assert packed_weights(p, 8, "bf16") is not bf

@@ -26,7 +26,9 @@ from instancediff_torch.ops.fused_gn_conv import (
     fused_gn_silu_conv3x3_plain,
     gn_channel_affine,
     gn_channel_affine_plain,
+    conv_plan,
     tc_smem_bytes,
+    tf32_smem_bytes,
 )
 from instancediff_torch.ops.group_norm_silu import (
     CLUSTER,
@@ -118,8 +120,9 @@ def test_kernels_repeat_bit_for_bit(cuda, dtype):
     a = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
     b = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
     assert torch.equal(a, b)
-    q, k, v = (_randn(gen, 2, 4, 784, 64).to(dtype) for _ in range(3))
-    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+    for D in (8, 64, 128):
+        q, k, v = (_randn(gen, 2, 4, 784, D).to(dtype) for _ in range(3))
+        assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
 
 
 def test_conv_plan_matches_kernel_shared_memory(cuda):
@@ -129,6 +132,13 @@ def test_conv_plan_matches_kernel_shared_memory(cuda):
         for nb in (8, 64, 128, 256):
             for stages in (2, 4):
                 assert lib.fgc_tc_smem_bytes(th, nb, stages) == tc_smem_bytes(th, nb, stages)
+
+
+def test_fp32_conv_plan_matches_kernel_shared_memory(cuda):
+    """The fp32 plan's shared-memory count is the split-TF32 kernel's own."""
+    lib = _build.load("fused_gn_silu_conv3x3")
+    for nb in (8, 16, 32, 64, 128):
+        assert lib.fgc_tf32_smem_bytes(nb) == tf32_smem_bytes(nb)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
@@ -748,17 +758,37 @@ def _flash_kernel_names(q):
     return [e.name for e in prof.events() if "flash_" in e.name]
 
 
-@pytest.mark.parametrize("D,dtype", [(64, torch.bfloat16), (64, torch.float32),
-                                     (8, torch.bfloat16), (128, torch.float32)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", HEAD_WIDTHS)
 def test_flash_plan_picks_the_kernel_the_card_runs(cuda, D, dtype):
-    """bf16 at D = 64 (the bottleneck's and the tower's shape) stays on the
-    tensor-core kernel; every other (D, dtype) runs the FMA kernel, by the
-    profiler's kernel name."""
+    """Every (D, dtype) runs a tensor-core kernel, by the profiler's kernel
+    name: bf16 on ``flash_tc_kernel``, fp32 on ``flash_tf32x3_kernel``."""
     q = torch.zeros(1, 4, 128, D, device=cuda, dtype=dtype)
     names = _flash_kernel_names(q)
-    want = "flash_tc_kernel" if flash_plan(D, dtype)["path"] == "tc" else "flash_fma_kernel"
+    want = {"tc": "flash_tc_kernel", "tf32x3": "flash_tf32x3_kernel"}[flash_plan(D, dtype)["path"]]
     assert len(names) == 1 and want in names[0], names
-    assert (want == "flash_tc_kernel") == (D == 64 and dtype == torch.bfloat16)
+    assert (want == "flash_tc_kernel") == (dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,Cout", [(64, 64), (20, 5), (528, 256)])
+def test_conv_plan_picks_the_kernel_the_card_runs(cuda, dtype, C, Cout):
+    """Both dtypes run a tensor-core kernel, by the profiler's kernel name:
+    bf16 on ``fgc_tc_kernel`` (wgmma), fp32 on ``fgc_tf32x3_kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    x, scale, shift, w, bias, _ = _conv_case(gen, 2, 16, 16, C, Cout, False, dtype)
+    fused_gn_silu_conv3x3(x, scale, shift, w, bias)  # loaded and packed before the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_gn_silu_conv3x3(x, scale, shift, w, bias)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "fgc_" in e.name]
+    want = {"tc": "fgc_tc_kernel", "tf32x3": "fgc_tf32x3_kernel"}[
+        conv_plan(2, 16, 16, C, Cout, dtype)["kernel"]]
+    assert len(names) == 1 and want in names[0], names
+    assert (want == "fgc_tc_kernel") == (dtype == torch.bfloat16)
 
 
 # a tiny engine of the demos' and the distillation gate's widths: nf 16,

@@ -80,11 +80,11 @@ def test_flash_plain_matches_pallas_interpret_at_other_head_widths(D):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_plan_per_head_width_and_dtype(dtype):
-    """The tensor-core kernel for bf16 at D = 64 only, the FMA kernel for
-    every other width it is instantiated for, a named refusal elsewhere."""
+    """A tensor-core kernel at every width they are instantiated for: "tc"
+    for bf16, "tf32x3" (split TF32) for fp32; a named refusal elsewhere."""
     for D in HEAD_WIDTHS:
         plan = flash_plan(D, dtype)
-        assert plan["path"] == ("tc" if (D == 64 and dtype == torch.bfloat16) else "fma")
+        assert plan["path"] == ("tc" if dtype == torch.bfloat16 else "tf32x3")
         assert plan["D"] == D
     assert HEAD_WIDTHS == (4, 8, 16, 32, 64, 128)
     for D in (1, 2, 12, 48, 96, 256):
@@ -92,6 +92,14 @@ def test_flash_plan_per_head_width_and_dtype(dtype):
             flash_plan(D, dtype)
     with pytest.raises(TypeError, match="float16"):
         flash_plan(64, torch.float16)
+
+
+@pytest.mark.parametrize("N,warps", [(1024, 8), (197, 8), (200, 8), (257, 4), (784, 8), (64, 4)])
+def test_flash_plan_warps_follow_n(N, warps):
+    """The fp32 kernel runs 8 warps (128 query rows) per block unless 64-row
+    blocks pad N to over a tenth fewer rows; the bf16 kernel always runs 8."""
+    assert flash_plan(64, torch.float32, N)["warps"] == warps
+    assert flash_plan(64, torch.bfloat16, N)["warps"] == 8
 
 
 def test_flash_plain_ragged_n_matches_reference():
