@@ -23,9 +23,11 @@ Phases, one JSON line each, in order:
                 in bf16 and fp32: max abs error (with the stated tolerance),
                 kernel ms (CUDA events around one call, the wrapper's host
                 time included) and device_ms (the kernel's own device time
-                per call, summed by torch.profiler), the conv's achieved
-                TFLOP/s, plain ms, one library call's ms (a yardstick only:
-                the port never calls it) and the bound: bytes at 3.35
+                per call from torch.profiler's records, the mean over a
+                window's launches; every call on a cold L2), the conv's
+                achieved TFLOP/s, plain ms, one library call's ms (a
+                yardstick only: the port never calls it) and the bound:
+                bytes at 3.35
                 TB/s or operations at 989 TFLOP/s (bf16) and, for the fp32
                 fused conv and flash, at the split-TF32 rate 495/3 = 165
                 TFLOP/s (``TC_FLOPS``; the GroupNorm kernels' fp32 work at
@@ -70,12 +72,13 @@ Phases, one JSON line each, in order:
                                   Configurations/flagship_ddpm_tpu.yml's widths
                                   (single score map, T=100, max_sigma 1): 45
                                   GroupNorm, 1 flash launch;
-                then ``profile``: one request's replayed steps, each alone on
-                the device (a synchronise before and after each replay),
-                under torch.profiler: per replayed step the device time by
-                kernel class, the device's idle share, the launches of each
-                kernel counted by name over the replays against steps x the
-                per-step counts, and the
+                then phase ``per_forward`` (6. below) on the three paths'
+                launch shapes, and then ``profile``: one request's replayed
+                steps per path, each alone on the device (a synchronise
+                before and after each replay), under torch.profiler: per
+                replayed step the device time by kernel class, the device's
+                idle share, the launches of each kernel counted by name over
+                the replays against steps x the per-step counts, and the
                 host's kernel and graph launches per step (the call's text
                 encodings counted apart); the SM clock before and after;
   4. parity  -- full-width fp32 sampler calls (batch 2, 2 steps, eta 0)
@@ -108,10 +111,33 @@ Phases, one JSON line each, in order:
                 at 224 px, 4 steps, twice (capture, replay): ms per step of
                 the replaying request and the launches, on the split-TF32
                 fused conv and flash kernels;
-  6. per_forward -- every kernel each main path launches, held against its
+  5b. breadth -- on phase ``bundle``'s bundle and phantoms: (a)
+                ``tools/testUM --knob fused_gnconv=0`` (an unknown knob must
+                raise before any batch; the per-step launches at capture
+                ``PATHS["drift_unfused"]``; per-type RMSE/SSIM/PSNR beside
+                the fused run's; the restored images within
+                ``BF16_FORWARD_TOL`` of the fused run's); (b) the UNet
+                without SMM text conditioning (``create_net`` on
+                flagship_tpu.yml's ``nnet_settings`` with ``text_module:
+                none``), one forward at bf16, batch 8, 256 px and one at
+                fp32, batch 2, on each body, through the kernels against the
+                plain versions, with launches per forward and its new conv
+                shapes (held in ``check``); (c) ``utils.tracing``: three
+                requests timed by a ``StepTimer``, then one replayed request
+                inside ``trace()`` under ``annotate()``: the exported Chrome
+                trace must hold the annotation and each kernel by name,
+                steps x its per-step count, and ``device_memory_stats()``;
+                (d) ``utils.metrics.psnr_tensor``/``ssim_tensor`` on (a)'s
+                outputs on the card against the host's
+                ``eval_restoration`` (``METRIC_TOL``). (a)'s and (c)'s
+                launches count in the ``kernels`` line;
+  6. per_forward -- (right after the main requests, before ``profile``)
+                every kernel each main path launches, held against its
                 plain version and timed at that path's own launch shapes
                 (bf16, batch 8), summed over one UNet forward (ms and
-                device_ms); then, after phase ``train``, the
+                device_ms; each call on a cold L2, ``flush_l2``; a profiler
+                window that lost records is taken again, and a ``profiler``
+                line reports the loss); then, after phase ``dist``, the
                 ``{"kernels": [...]}`` line (each
                 kernel's times from the first path that launches it:
                 fused-conv, flash and gn_channel_affine from drift, GroupNorm
@@ -120,7 +146,8 @@ Phases, one JSON line each, in order:
                 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are
                 its wrapper's counts over the graph-served main requests,
                 the bundle phase's flagship-width runs (the
-                ``from_config`` requests in bf16 and fp32 and testUM; not
+                ``from_config`` requests in bf16 and fp32 and testUM, and
+                the breadth phase's testUM and traced requests; not
                 the golden, whose
                 config and fp32 are not a main path's) and the encoders
                 phase's requests and precompute_embeddings: the warm-up
@@ -241,6 +268,7 @@ doing anything."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -266,6 +294,7 @@ from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
 from instancediff_torch.models.drift_model import CLIPDriftEngine
 from instancediff_torch.models.engine import ARTIFACT_PROMPTS, KERNELS, TEXT_SIDECAR
 from instancediff_torch.models.layers import ConvParams, cast_compute_
+from instancediff_torch.models.modules import create_net
 from instancediff_torch.ops import _build
 from instancediff_torch.ops.flash_attention import (HEAD_WIDTHS, flash_attention,
                                                      flash_attention_plain, flash_plan)
@@ -281,7 +310,9 @@ from instancediff_torch.sde.schedules import strided_sampling_grid
 from instancediff_torch.serving import Restorer
 from instancediff_torch.tools import testUM, trainUM
 from instancediff_torch.utils import checkpoint as ckpt
+from instancediff_torch.utils import metrics, tracing
 from instancediff_torch.utils.convert import flax_params, load_flax_params
+from instancediff_torch.utils.metrics import eval_restoration
 from instancediff_torch.utils.parity import check_grads, check_params
 
 # H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by operand type
@@ -314,15 +345,23 @@ CONV_SHAPES = [  # (B, H, W, C, Cout, residual)
     (8, 64, 64, 528, 256, False), (8, 32, 32, 256, 256, True), (8, 256, 256, 64, 5, False),
     # edges of the bf16 kernel's tiling: W not a multiple of the tile (the
     # 224 px decoder levels), and C not a multiple of 8 (the scalar halo path)
-    (8, 28, 28, 528, 256, False), (8, 56, 56, 272, 128, False), (8, 64, 64, 20, 5, False)]
+    (8, 28, 28, 528, 256, False), (8, 56, 56, 272, 128, False), (8, 64, 64, 20, 5, False),
+    # the SMM-less UNet's first decoder block of each level (no score-map
+    # channels: 144 -> 128, 272 -> 256, 528 -> 512 wide)
+    (8, 256, 256, 128, 64, False), (8, 128, 128, 256, 128, False),
+    (8, 64, 64, 512, 256, False), (8, 32, 32, 512, 256, False)]
 # the bottleneck at 256 and 224 px, and the ViT-B/16 tower at 224 and 256 px
 FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64), (8, 12, 197, 64), (8, 12, 257, 64)]
 GN_SHAPES = [  # (B, H, W, C, groups, silu)
     (8, 256, 256, 64, 32, True), (8, 256, 256, 144, 24, True), (8, 128, 128, 272, 17, True),
-    (8, 64, 64, 528, 24, True), (8, 32, 32, 512, 32, True)]
+    (8, 64, 64, 528, 24, True), (8, 32, 32, 512, 32, True),
+    # the SMM-less UNet's GroupNorm over [h, skip] (32 groups)
+    (8, 256, 256, 128, 32, True), (8, 128, 128, 256, 32, True), (8, 64, 64, 512, 32, True)]
 AFFINE_SHAPES = [  # (B, H, W, C, groups); C = 20 with odd H and W: the one-element path
     (8, 256, 256, 64, 32), (8, 256, 256, 144, 24), (8, 128, 128, 272, 17), (8, 64, 64, 528, 24),
-    (8, 32, 32, 256, 32), (3, 19, 23, 20, 5)]
+    (8, 32, 32, 256, 32), (3, 19, 23, 20, 5),
+    # the SMM-less UNet's statistics over [h, skip]
+    (8, 256, 256, 128, 32), (8, 128, 128, 256, 32), (8, 64, 64, 512, 32), (8, 32, 32, 512, 32)]
 # per kernel: its CUDA source and the TPU kernel it replaces
 SOURCES = {"conv": ("instancediff_torch/csrc/fused_gn_silu_conv3x3.cu",
                     "instancediff_tpu/ops/pallas_kernels.py:373"),
@@ -384,14 +423,34 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+# the H100's L2 holds 50 MB: a write of FLUSH_BYTES between timed calls
+# evicts what the previous call left there, so each timed call reads its
+# inputs from HBM, as a forward finds the activations of the layer before a
+# level's worth of other work back
+FLUSH_BYTES = 256 << 20
+
+
+@functools.lru_cache(maxsize=1)
+def flush_buffer() -> torch.Tensor:
+    return torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+
+def flush_l2() -> None:
+    """Overwrite the L2 with ``FLUSH_BYTES`` (a fill kernel, which the
+    device-time sums leave out by name)."""
+    flush_buffer().fill_(0.0)
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls,
+    each call on a cold L2 (``flush_l2`` before its start event)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush_l2()
         start.record()
         fn()
         end.record()
@@ -400,28 +459,49 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kname: str, reps: int = 10, attempts: int = 3) -> float:
+def device_ms(fn, kname: str, per_call: int = 1, reps: int = 10, attempts: int = 5) -> float:
     """Device time per call of ``fn`` spent in kernel ``kname``'s own CUDA
-    kernels (names in ``KERNEL_CLASSES``), summed by torch.profiler over
-    ``reps`` calls after a warm-up: the kernel time without the host's. A
-    profiling window that records no kernel at all (it happens, rarely, on
-    the card's machine) is taken again, up to ``attempts`` windows."""
+    kernels (names in ``KERNEL_CLASSES``), from torch.profiler over ``reps``
+    calls after a warm-up, each call on a cold L2 (the flush's fill kernel is
+    not summed): the kernel time without the host's. ``per_call`` is the
+    number of distinct kernels one call launches, each once; the reading is
+    the sum of their mean times. A window should record each of them
+    ``reps`` times, but the profiler can lose records (seen on the card:
+    9 of 10, 5 of 10, none): a short window is taken again, up to
+    ``attempts`` windows, and then the fullest one is read by its means and
+    reported in a ``profiler`` line. A window without every kernel raises:
+    dividing what it recorded by ``reps`` would lie under the kernel's
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     keys = dict(KERNEL_CLASSES)[CLASS_OF[kname]]
     fn()
     torch.cuda.synchronize()
+    seen, best = [], {}
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                flush_l2()
                 fn()
             torch.cuda.synchronize()
-        us = sum(evt.time_range.elapsed_us() for evt in prof.events()
-                 if evt.device_type == torch.autograd.DeviceType.CUDA
-                 and any(k in evt.name.lower() for k in keys))
-        if us > 0:
-            return us / reps / 1e3
-    raise AssertionError(f"torch.profiler recorded no {kname} kernel in {attempts} windows")
+        us = {}
+        for evt in prof.events():
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in evt.name.lower() for k in keys)):
+                us.setdefault(evt.name, []).append(evt.time_range.elapsed_us())
+        seen.append(sum(map(len, us.values())))
+        if len(us) == per_call and sum(map(len, us.values())) > sum(map(len, best.values())):
+            best = us
+        if seen[-1] == reps * per_call and len(us) == per_call:
+            break
+    if len(best) != per_call:
+        raise AssertionError(f"torch.profiler recorded {seen} {kname} kernels in windows of "
+                             f"{reps} calls, not every one of its {per_call} kernels")
+    if seen[-1] != reps * per_call:
+        emit({"phase": "profiler", "what": "windows that lost kernel records", "kernel": kname,
+              "recorded_per_window": seen, "want": reps * per_call,
+              "read_from": {n[:60]: len(v) for n, v in best.items()}})
+    return sum(statistics.fmean(v) for v in best.values()) / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype, peak=PEAK_FLOPS) -> tuple:
@@ -510,6 +590,10 @@ def gn_case(B, H, W, C, dtype, gen):
     return x, gamma, beta
 
 
+# kernels one group_norm_silu call launches on each path of ``gn_plan``
+GN_LAUNCHES = {"two_launch": 2, "cluster": 1}
+
+
 def gn_cost(shape, dtype):
     B, H, W, C, G, silu = shape
     n = B * H * W * C
@@ -528,6 +612,7 @@ def measure_gn(shape, dtype, gen):
     want = group_norm_silu_plain(x, gamma, beta, G, silu=silu)
     err = check_err(f"group_norm_silu {shape} {dtype}", got, want, dtype)
     bound_ms, bound_by = gn_cost(shape, dtype)
+    path = gn_plan(B, H * W, C, G, x.element_size())["path"]
     # library yardstick: torch's GroupNorm then SiLU on the NCHW view
     # (channels-last) of the same tensor
     xn, g, b = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
@@ -538,8 +623,9 @@ def measure_gn(shape, dtype, gen):
 
     return dict(
         max_abs_err=err, ms=cuda_ms(lambda: group_norm_silu(x, gamma, beta, G, silu=silu)),
-        device_ms=device_ms(lambda: group_norm_silu(x, gamma, beta, G, silu=silu), "gn"),
-        path=gn_plan(B, H * W, C, G, x.element_size())["path"],
+        device_ms=device_ms(lambda: group_norm_silu(x, gamma, beta, G, silu=silu), "gn",
+                            per_call=GN_LAUNCHES[path]),
+        path=path,
         plain_ms=cuda_ms(lambda: group_norm_silu_plain(x, gamma, beta, G, silu=silu)),
         library_ms=cuda_ms(library), bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1165,111 +1251,112 @@ def serve_golden(gpu) -> None:
     del r
 
 
-def bundle_phase(gpu) -> Counter:
+def bundle_phase(gpu, tmp) -> tuple:
     """This slice's path at flagship width: a seeded engine of a bf16 copy of
-    ``BUNDLE_CONFIG``, ``engine.save``d (bundle and text sidecar) into a
-    temporary directory; ``Restorer.from_config`` on it; one 8-image request
-    of ``BUNDLE_STEPS`` steps on the compiled sampler, bit-identical to the
+    ``BUNDLE_CONFIG``, ``engine.save``d (bundle and text sidecar) into
+    ``tmp``; ``Restorer.from_config`` on it; one 8-image request of
+    ``BUNDLE_STEPS`` steps on the compiled sampler, bit-identical to the
     in-memory engine's on the same generator seed; the golden; then
     ``tools/testUM`` over the config's test set (2 phantoms per artifact
     type, batch 5). Launches are counted from 0 around each run and held to
     the per-step counts. Returns the launches of the flagship-width runs
-    (the request and testUM)."""
+    (the request and testUM), the config's path and options (the bundle
+    and the phantoms stay in ``tmp`` for phase ``breadth``) and testUM's
+    results."""
     total = Counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as tmp:
-        cfg, opt = bundle_config(tmp)
-        model_opt, sde_opt = opt["models"]["DriftNoise"], opt["sdes"]["driftSDE"]
-        res, types = opt["resolution"], opt["artifact_type"]
-        eng = create_model(None, model_opt, phase="test", sde=create_sde(sde_opt), device="cuda")
-        for i, key in enumerate(("drift", "noise", "d_ema", "n_ema")):
-            randomize_(eng.nets[key], seed=40 + i)
-        randomize_(eng.text_encoder, seed=44)
-        t0 = time.time()
-        nbytes = eng.save(opt["test"]["pth_dir"], "latest")
-        save_s = time.time() - t0
-        files = sorted(os.listdir(opt["test"]["pth_dir"]))
-        images = np.random.default_rng(4).uniform(-1, 1, (BATCH, res, res, 1)).astype(np.float32)
-        names = [types[i % len(types)] for i in range(BATCH)]
-        want = Restorer(eng, batch_size=BATCH, sample_steps=BUNDLE_STEPS, seed=0,
-                        device="cuda").restore(images, names)
-        del eng
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        r = Restorer.from_config(cfg, batch_size=BATCH, sample_steps=BUNDLE_STEPS, seed=0,
-                                 device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.time() - t0
-        n_steps = len(strided_sampling_grid(sde_opt["T"], BUNDLE_STEPS)[0])
-        zero_launches()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = r.restore(images, names)
-        first_s = time.time() - t0
-        got = read_launches()
-        per_step = {k: r.engine.last_graph.launches[NAMES[k]] for k in PATHS["drift"]}
-        if per_step != PATHS["drift"] or got != {k: n * (n_steps + 1)  # its warm-up step
-                                                 for k, n in PATHS["drift"].items()}:
-            raise AssertionError(f"bundle request: launches {got}, per step at capture "
-                                 f"{per_step} (want {PATHS['drift']} x {n_steps + 1})")
-        total.update(got)
-        if not np.array_equal(out, want):
-            raise AssertionError("the request served from the bundle differs from the "
-                                 "in-memory engine's: max abs diff "
-                                 f"{float(np.abs(out - want).max())}")
-        emit({"phase": "bundle", "what": f"{os.path.basename(BUNDLE_CONFIG)} (bf16) saved by "
-                                         "engine.save and served by Restorer.from_config",
-              "files": files, "bundle_bytes": nbytes, "save_s": round(save_s, 3),
-              "from_config_s": round(load_s, 3), "text_weights": r.engine.text_weights,
-              "first_request": {"images": BATCH, "res": res, "sampler_steps": n_steps,
-                                "seconds": round(first_s, 4),
-                                "img_per_s": round(BATCH / first_s, 4), "captured": True},
-              "bit_identical_to_in_memory_engine": True, "launches": got, "gpu": gpu})
-        del r
-        torch.cuda.empty_cache()
+    cfg, opt = bundle_config(tmp)
+    model_opt, sde_opt = opt["models"]["DriftNoise"], opt["sdes"]["driftSDE"]
+    res, types = opt["resolution"], opt["artifact_type"]
+    eng = create_model(None, model_opt, phase="test", sde=create_sde(sde_opt), device="cuda")
+    for i, key in enumerate(("drift", "noise", "d_ema", "n_ema")):
+        randomize_(eng.nets[key], seed=40 + i)
+    randomize_(eng.text_encoder, seed=44)
+    t0 = time.time()
+    nbytes = eng.save(opt["test"]["pth_dir"], "latest")
+    save_s = time.time() - t0
+    files = sorted(os.listdir(opt["test"]["pth_dir"]))
+    images = np.random.default_rng(4).uniform(-1, 1, (BATCH, res, res, 1)).astype(np.float32)
+    names = [types[i % len(types)] for i in range(BATCH)]
+    want = Restorer(eng, batch_size=BATCH, sample_steps=BUNDLE_STEPS, seed=0,
+                    device="cuda").restore(images, names)
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    r = Restorer.from_config(cfg, batch_size=BATCH, sample_steps=BUNDLE_STEPS, seed=0,
+                             device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    n_steps = len(strided_sampling_grid(sde_opt["T"], BUNDLE_STEPS)[0])
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = r.restore(images, names)
+    first_s = time.time() - t0
+    got = read_launches()
+    per_step = {k: r.engine.last_graph.launches[NAMES[k]] for k in PATHS["drift"]}
+    if per_step != PATHS["drift"] or got != {k: n * (n_steps + 1)  # its warm-up step
+                                             for k, n in PATHS["drift"].items()}:
+        raise AssertionError(f"bundle request: launches {got}, per step at capture "
+                             f"{per_step} (want {PATHS['drift']} x {n_steps + 1})")
+    total.update(got)
+    if not np.array_equal(out, want):
+        raise AssertionError("the request served from the bundle differs from the "
+                             "in-memory engine's: max abs diff "
+                             f"{float(np.abs(out - want).max())}")
+    emit({"phase": "bundle", "what": f"{os.path.basename(BUNDLE_CONFIG)} (bf16) saved by "
+                                     "engine.save and served by Restorer.from_config",
+          "files": files, "bundle_bytes": nbytes, "save_s": round(save_s, 3),
+          "from_config_s": round(load_s, 3), "text_weights": r.engine.text_weights,
+          "first_request": {"images": BATCH, "res": res, "sampler_steps": n_steps,
+                            "seconds": round(first_s, 4),
+                            "img_per_s": round(BATCH / first_s, 4), "captured": True},
+          "bit_identical_to_in_memory_engine": True, "launches": got, "gpu": gpu})
+    del r
+    torch.cuda.empty_cache()
 
-        serve_golden(gpu)
+    serve_golden(gpu)
 
-        batch_s = []  # each batch's sampler seconds, the device drained
-        real_test = CLIPDriftEngine.test
+    batch_s = []  # each batch's sampler seconds, the device drained
+    real_test = CLIPDriftEngine.test
 
-        def timed_test(self, *args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.time()
-            out = real_test(self, *args, **kwargs)
-            torch.cuda.synchronize()
-            batch_s.append(time.time() - t)
-            return out
-
-        zero_launches()
+    def timed_test(self, *args, **kwargs):
         torch.cuda.synchronize()
-        t0 = time.time()
-        with mock.patch.object(CLIPDriftEngine, "test", timed_test):
-            results = testUM.main(["-opt", cfg, "--sample-steps", str(BUNDLE_STEPS)])
-        wall_s = time.time() - t0
-        got = read_launches()
-        n_img = sum(v["num"] for v in results.values())
-        batches = -(-n_img // opt["test"]["batch_size"])
-        if got != {k: n * (n_steps * batches + 1) for k, n in PATHS["drift"].items()}:
-            raise AssertionError(f"testUM: launches {got} over {batches} batches")
-        total.update(got)
-        means = {name: {k: float(np.mean(v[k])) for k in ("RMSE", "SSIM", "PSNR")}
-                 for name, v in results.items() if v["num"]}
-        if sorted(means) != sorted(types) or not all(
-                np.isfinite(list(m.values())).all() for m in means.values()):
-            raise AssertionError(f"testUM: bad results {means}")
-        if len(batch_s) != batches:
-            raise AssertionError(f"testUM: {len(batch_s)} sampler calls, {batches} batches")
-        emit({"phase": "bundle", "what": "testUM on the bundle: SpeckleMed phantoms, 2 per "
-                                         f"artifact type, batch {opt['test']['batch_size']}, "
-                                         f"{res} px, {n_steps} steps, bf16; a smoke reading, "
-                                         "not a throughput: the first batch captures the step",
-              "images": n_img, "per_type_mean": means, "seconds_with_setup": round(wall_s, 3),
-              "batch_sampler_s": [round(t, 4) for t in batch_s],
-              "replayed_batch_img_per_s": [round(opt["test"]["batch_size"] / t, 4)
-                                           for t in batch_s[1:]],
-              "launches": got, "gpu": gpu})
-    return total
+        t = time.time()
+        out = real_test(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        batch_s.append(time.time() - t)
+        return out
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with mock.patch.object(CLIPDriftEngine, "test", timed_test):
+        results = testUM.main(["-opt", cfg, "--sample-steps", str(BUNDLE_STEPS)])
+    wall_s = time.time() - t0
+    got = read_launches()
+    n_img = sum(v["num"] for v in results.values())
+    batches = -(-n_img // opt["test"]["batch_size"])
+    if got != {k: n * (n_steps * batches + 1) for k, n in PATHS["drift"].items()}:
+        raise AssertionError(f"testUM: launches {got} over {batches} batches")
+    total.update(got)
+    means = {name: {k: float(np.mean(v[k])) for k in ("RMSE", "SSIM", "PSNR")}
+             for name, v in results.items() if v["num"]}
+    if sorted(means) != sorted(types) or not all(
+            np.isfinite(list(m.values())).all() for m in means.values()):
+        raise AssertionError(f"testUM: bad results {means}")
+    if len(batch_s) != batches:
+        raise AssertionError(f"testUM: {len(batch_s)} sampler calls, {batches} batches")
+    emit({"phase": "bundle", "what": "testUM on the bundle: SpeckleMed phantoms, 2 per "
+                                     f"artifact type, batch {opt['test']['batch_size']}, "
+                                     f"{res} px, {n_steps} steps, bf16; a smoke reading, "
+                                     "not a throughput: the first batch captures the step",
+          "images": n_img, "per_type_mean": means, "seconds_with_setup": round(wall_s, 3),
+          "batch_sampler_s": [round(t, 4) for t in batch_s],
+          "replayed_batch_img_per_s": [round(opt["test"]["batch_size"] / t, 4)
+                                       for t in batch_s[1:]],
+          "launches": got, "gpu": gpu})
+    return total, cfg, opt, means
 
 
 # the served fp32 request: flagship_test.yml at its own dtype (no
@@ -1334,6 +1421,244 @@ def fp32_request(gpu) -> Counter:
               "launches_per_step": PATHS["drift"], "launches": dict(total), "gpu": gpu})
         del r
         torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------- breadth
+
+# the SMM-less UNet: this config's net with text_module none
+SMM_LESS_CONFIG = "Configurations/flagship_tpu.yml"
+# bf16 at full width, relative to the largest output, as FORWARD_TOL holds
+# fp32: a UNet forward through the kernels against the plain versions, and
+# testUM's restored images on the unfused body against the fused run (4
+# sampler steps of two nets). Each kernel lies within one bf16 ulp (2^-8)
+# of its plain version, and the bodies round at different points (the
+# fused one normalises in fp32 and rounds once per conv; the unfused one
+# rounds the normalised input, the conv's output and each add); the
+# differences compound over 22 ResBlocks: read 1.0e-2 and 1.2e-2 (forwards)
+# and 8.7e-3 (testUM) on the card
+BF16_FORWARD_TOL = 2e-2
+# the on-device metrics (float32) against eval_restoration (float64): PSNR
+# in dB, SSIM
+METRIC_TOL = {"PSNR": 1e-3, "SSIM": 1e-4}
+# the kernels a drift request runs, by the names the trace records
+TRACE_KERNELS = {"conv": "fgc_tc_kernel", "flash": "flash_tc_kernel",
+                 "affine": "gns_affine_kernel"}
+TRACE_ANNOTATION = "chip_smoke.request"
+
+
+def triptychs(result_dir, res) -> dict:
+    """testUM's ``LQ|pred|GT`` files under ``result_dir``: {path relative to
+    it: (pred, GT)}, each [res, res] float32."""
+    out = {}
+    for name in sorted(os.listdir(result_dir)):
+        for f in sorted(os.listdir(os.path.join(result_dir, name))):
+            trip = np.fromfile(os.path.join(result_dir, name, f), np.float32).reshape(res, 3 * res)
+            out[os.path.join(name, f)] = (trip[:, res:2 * res], trip[:, 2 * res:])
+    return out
+
+
+def knob_testum(gpu, cfg, opt, fused_means) -> Counter:
+    """(a) ``testUM --knob fused_gnconv=0`` on phase ``bundle``'s bundle and
+    phantoms: an unknown knob raises before any batch; the engine serves the
+    unfused body (per-step launches at capture ``PATHS["drift_unfused"]``),
+    its restored images held to the fused run's within ``BF16_FORWARD_TOL``; then
+    (d) ``metrics.psnr_tensor``/``ssim_tensor`` on its outputs on the card
+    against the host's ``eval_restoration``. Returns its launches."""
+    res, batch = opt["resolution"], opt["test"]["batch_size"]
+    result_dir = opt["test"]["result_dir"]
+    os.replace(result_dir, result_dir + "_fused")
+    engines, calls = [], []
+    real_build, real_test = testUM.engine_from_config, CLIPDriftEngine.test
+
+    def build(*args, **kwargs):
+        engines.append(real_build(*args, **kwargs))
+        return engines[-1]
+
+    def counted_test(self, *args, **kwargs):
+        calls.append(1)
+        return real_test(self, *args, **kwargs)
+
+    argv = ["-opt", cfg, "--sample-steps", str(BUNDLE_STEPS)]
+    with mock.patch.object(testUM, "engine_from_config", build), \
+            mock.patch.object(CLIPDriftEngine, "test", counted_test):
+        zero_launches()
+        try:
+            testUM.main(argv + ["--knob", "no_such_knob=1"])
+            raise AssertionError("testUM --knob no_such_knob=1 did not raise")
+        except KeyError as e:
+            refused = str(e)
+        if engines or calls or any(read_launches().values()):
+            raise AssertionError("testUM --knob no_such_knob=1 ran a batch before raising")
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        results = testUM.main(argv + ["--knob", "fused_gnconv=0"])
+        wall_s = time.time() - t0
+    got = read_launches()
+    eng = engines[0]
+    per_step = {k: eng.last_graph.launches[NAMES[k]] for k in WRAPPERS}
+    n_steps = len(strided_sampling_grid(opt["sdes"]["driftSDE"]["T"], BUNDLE_STEPS)[0])
+    n_img = sum(v["num"] for v in results.values())
+    batches = -(-n_img // batch)
+    want = {k: n * (n_steps * batches + 1) for k, n in PATHS["drift_unfused"].items()}
+    if (eng.engine_opts != {"fused_gnconv": 0} or per_step != PATHS["drift_unfused"]
+            or any(net.use_fused_gnconv for net in eng.nets.values()) or got != want
+            or len(calls) != batches):
+        raise AssertionError(f"testUM --knob fused_gnconv=0: engine_opts {eng.engine_opts}, "
+                             f"per step at capture {per_step}, launches {got} (want {want}), "
+                             f"{len(calls)} batches")
+    means = {name: {k: float(np.mean(v[k])) for k in ("RMSE", "SSIM", "PSNR")}
+             for name, v in results.items() if v["num"]}
+    fused, knob = triptychs(result_dir + "_fused", res), triptychs(result_dir, res)
+    if sorted(fused) != sorted(knob) or len(knob) != n_img:
+        raise AssertionError(f"testUM --knob: outputs {sorted(knob)}, fused {sorted(fused)}")
+    err = max(float(np.abs(knob[f][0] - fused[f][0]).max()) for f in fused)
+    largest = max(float(np.abs(fused[f][0]).max()) for f in fused)
+    limit = BF16_FORWARD_TOL * max(1.0, largest)
+    emit({"phase": "breadth", "what": "(a) testUM --knob fused_gnconv=0 on the bundle's "
+                                      "phantoms against the fused run, bf16",
+          "unknown_knob_raised": refused, "engine_opts": eng.engine_opts,
+          "per_step_at_capture": per_step, "launches": got, "images": n_img,
+          "seconds_with_setup": round(wall_s, 3), "per_type_mean": means,
+          "fused_per_type_mean": fused_means, "max_abs_err_vs_fused": err,
+          "fused_max_abs": largest, "tol": limit, "tol_rel": BF16_FORWARD_TOL, "gpu": gpu})
+    if not err <= limit:
+        raise AssertionError(f"testUM --knob fused_gnconv=0: restored images {err} from the "
+                             f"fused run's (limit {limit})")
+
+    # (d) the on-device metrics on these outputs, against the host's
+    files = sorted(knob)
+    pred = torch.tensor(np.stack([knob[f][0] for f in files]), device="cuda") / 2 + 0.5
+    gt = torch.tensor(np.stack([knob[f][1] for f in files]), device="cuda") / 2 + 0.5
+    device = {"PSNR": metrics.psnr_tensor(pred, gt).cpu().numpy(),
+              "SSIM": metrics.ssim_tensor(pred, gt).cpu().numpy()}
+    host = [eval_restoration(*knob[f]) for f in files]
+    errs = {k: float(np.abs(device[k] - [h[k] for h in host]).max()) for k in METRIC_TOL}
+    emit({"phase": "breadth", "what": "(d) psnr_tensor / ssim_tensor on the card against the "
+                                      "host's eval_restoration, (a)'s outputs",
+          "images": len(files), "max_abs_err": errs, "tol": METRIC_TOL,
+          "device_psnr": [round(float(v), 4) for v in device["PSNR"]],
+          "device_ssim": [round(float(v), 5) for v in device["SSIM"]], "gpu": gpu})
+    if not all(errs[k] <= METRIC_TOL[k] for k in METRIC_TOL):
+        raise AssertionError(f"on-device metrics against the host's: {errs} (tol {METRIC_TOL})")
+    return Counter(got)
+
+
+def smm_less_forwards(gpu) -> None:
+    """(b) The UNet without SMM text conditioning, built by ``create_net`` from
+    ``SMM_LESS_CONFIG``'s ``nnet_settings`` with ``text_module: none`` (and
+    the model block's ``use_image_context``, as the engine passes it),
+    seeded random weights: one forward at bf16, batch 8, 256 px, and one at
+    fp32, batch 2, on the fused body and on the unfused body, each through
+    the kernels and through their plain versions (bf16 within
+    ``BF16_FORWARD_TOL``, fp32 within ``FORWARD_TOL``), with the launches per
+    forward by kernel and the new conv launch shapes (in ``CONV_SHAPES``)."""
+    model_opt = load_options(SMM_LESS_CONFIG)["models"]["DriftNoise"]
+    settings = dict(model_opt["nnet_settings"], text_module="none",
+                    use_image_context=bool(model_opt.get("use_image_context")))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype, batch, tol in ((torch.bfloat16, BATCH, BF16_FORWARD_TOL),
+                              (torch.float32, 2, FORWARD_TOL)):
+        net = create_net(settings, dtype=dtype, device="cuda")
+        randomize_(net, seed=60)
+        args = unet_args(batch, gen)
+        for body, path in (("fused", "drift"), ("unfused", "drift_unfused")):
+            net.use_fused_gnconv = body == "fused"
+            shapes = record_launch_shapes(net, args)
+            with torch.inference_mode():
+                zero_launches()
+                got = net(*args)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                with contextlib.ExitStack() as stack:
+                    for patch in plain_kernels():
+                        stack.enter_context(patch)
+                    want = net(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            limit = tol * max(1.0, want.float().abs().max().item())
+            per_forward = {k: n // 2 for k, n in PATHS[path].items()}
+            conv_shapes = sorted({s for s, _ in shapes["conv"]})
+            emit({"phase": "breadth", "what": f"(b) SMM-less UNet (text_module none) from "
+                                              f"create_net, {body} body, kernels vs plain",
+                  "dtype": str(dtype), "batch": batch, "res": RES,
+                  "pred_shape": list(got.shape), "max_abs_err": err, "tol": limit,
+                  "launches_per_forward": launches, "conv_shapes": conv_shapes, "gpu": gpu})
+            if not (err <= limit and torch.isfinite(got).all()) or launches != per_forward:
+                raise AssertionError(f"SMM-less UNet, {body} body, {dtype}: err {err} (limit "
+                                     f"{limit}), launches {launches} (want {per_forward})")
+            # the first decoder conv of each level reads [h, skip] alone: C =
+            # 2 Cout, a width no drift forward launches (there C = 2 Cout + 16)
+            concat = [s for s in conv_shapes if s[3] == 2 * s[4]]
+            if (dtype, body) == (torch.bfloat16, "fused") and (not concat or any(
+                    s not in CONV_SHAPES for s in concat)):
+                raise AssertionError(f"SMM-less decoder conv shapes {concat} are not all "
+                                     "held in check (CONV_SHAPES)")
+        del net
+        torch.cuda.empty_cache()
+
+
+def traced_requests(gpu, cfg) -> Counter:
+    """(c) ``utils.tracing`` on phase ``bundle``'s bundle served by
+    ``Restorer.from_config`` (bf16, batch 8, ``BUNDLE_STEPS`` steps): three
+    requests timed by a ``StepTimer`` (the first, which captures the step,
+    its warm-up), then one replayed request inside ``tracing.trace``, each
+    request under ``annotate``. The exported trace must hold the annotation
+    and each kernel, by name, steps x its per-step count; the device's
+    memory statistics. Returns the requests' launches."""
+    r = Restorer.from_config(cfg, batch_size=BATCH, sample_steps=BUNDLE_STEPS, seed=0,
+                             device="cuda")
+    opt = load_options(cfg)
+    res, types = opt["resolution"], opt["artifact_type"]
+    n_steps = len(strided_sampling_grid(opt["sdes"]["driftSDE"]["T"], BUNDLE_STEPS)[0])
+    images = np.random.default_rng(8).uniform(-1, 1, (BATCH, res, res, 1)).astype(np.float32)
+    names = [types[i % len(types)] for i in range(BATCH)]
+    timer = tracing.StepTimer(warmup=1)
+    total = Counter()
+    for _ in range(3):
+        zero_launches()
+        with timer, tracing.annotate(TRACE_ANNOTATION):
+            r.restore(images, names)
+            torch.cuda.synchronize()
+        total.update(read_launches())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as log_dir:
+        zero_launches()
+        with tracing.trace(log_dir), tracing.annotate(TRACE_ANNOTATION):
+            out = r.restore(images, names)
+        got = read_launches()
+        path = os.path.join(log_dir, tracing.TRACE_FILE)
+        nbytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    total.update(got)
+    want = {k: n * n_steps for k, n in PATHS["drift"].items()}
+    traced = {k: sum(1 for e in events if e.get("cat") == "kernel" and name in e.get("name", ""))
+              for k, name in TRACE_KERNELS.items()}
+    annotations = Counter(e.get("cat") for e in events if e.get("name") == TRACE_ANNOTATION)
+    emit({"phase": "breadth", "what": "(c) utils.tracing: one replayed drift request "
+                                      "(flagship_test.yml bundle, bf16, batch 8) inside "
+                                      "trace(), under annotate()",
+          "launches": got, "trace_kernels": traced,
+          "want": {k: want[k] for k in TRACE_KERNELS}, "annotation_events": dict(annotations),
+          "trace_bytes": nbytes, "trace_events": len(events),
+          "step_timer": timer.summary(), "step_timer_message": timer.message(),
+          "device_memory_stats": tracing.device_memory_stats(), "gpu": gpu})
+    if (traced != {k: want[k] for k in TRACE_KERNELS} or got != want or not annotations
+            or not np.isfinite(out).all()):
+        raise AssertionError(f"trace: kernels by name {traced} (want {want}), launches {got}, "
+                             f"annotation events {dict(annotations)}")
+    del r
+    torch.cuda.empty_cache()
+    return total
+
+
+def breadth_phase(gpu, cfg, opt, fused_means) -> Counter:
+    """Phase ``breadth``: (a) and (d) ``knob_testum``, (b)
+    ``smm_less_forwards``, (c) ``traced_requests``, on phase ``bundle``'s
+    bundle and phantoms. Returns the launches of (a) and (c)."""
+    total = knob_testum(gpu, cfg, opt, fused_means)
+    smm_less_forwards(gpu)
+    total.update(traced_requests(gpu, cfg))
     return total
 
 
@@ -3107,7 +3432,7 @@ def sweep_gn(gpu) -> None:
                 return group_norm_silu_cuda(x, gamma, beta, G, plan=p)
 
             check_err(f"sweep_gn {row['shape']} {name}", run(), want, dt)
-            row[name] = [cuda_ms(run), device_ms(run, "gn")]
+            row[name] = [cuda_ms(run), device_ms(run, "gn", per_call=GN_LAUNCHES[name])]
 
         def run_affine():
             return group_norm_affine_cuda(x, gamma, beta, G)
@@ -3134,6 +3459,45 @@ def sweep_gn(gpu) -> None:
         "group_norm_silu": host_us(lambda: group_norm_silu(x, gamma, beta, 32)),
         "gn_channel_affine": host_us(lambda: gn_channel_affine(x, gamma, beta, 32)),
         "x.add(1) (one small aten launch)": host_us(lambda: x.add(1))}, "gpu": gpu})
+
+
+def per_forward(shapes, gen, worst, gpu) -> dict:
+    """Phase ``per_forward``: every kernel of every path held against its
+    plain version and timed at that path's own launch shapes (``shapes``,
+    from ``record_launch_shapes``), summed over one UNet forward; one line
+    per kernel and path. Updates ``worst`` (max abs error per kernel) and
+    returns the kernels line's entries without their launches: each
+    kernel's times from the first path that launches it."""
+    entries = {}
+    for path, per_step in PATHS.items():
+        for kname in (k for k, n in per_step.items() if n):
+            tot = Counter()
+            bound_by = Counter()
+            per_shape = []
+            for (shape, dtype), count in shapes[path][kname].items():
+                m = MEASURE[kname](shape, dtype, gen)
+                per_shape.append([list(shape), count, round(m["ms"], 4),
+                                  round(m["device_ms"], 4), round(m["bound_ms"], 4),
+                                  round(m["library_ms"], 4)]
+                                 + ([round(m["tflops"], 2)] if "tflops" in m else [])
+                                 + ([m["path"]] if "path" in m else []))
+                for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+                    tot[key] += m[key] * count
+                bound_by[m["bound_by"]] += m["bound_ms"] * count
+                tot["max_abs_err"] = max(tot["max_abs_err"], m["max_abs_err"])
+            emit({"phase": "per_forward", "kernel": kname, "path": path,
+                  "launches_per_forward": sum(shapes[path][kname].values()),
+                  "distinct_shapes": len(per_shape), **{k: round(v, 4) for k, v in tot.items()},
+                  "shapes_count_ms_device_bound_library"
+                  + {"conv": "_tflops", "gn": "_path"}.get(kname, ""): per_shape, "gpu": gpu})
+            worst[kname] = max(worst[kname], tot["max_abs_err"])
+            entries.setdefault(kname, {
+                "name": NAMES[kname], "route": "cuda", "source": SOURCES[kname][0],
+                "replaces": SOURCES[kname][1],
+                "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
+                "bound_ms": tot["bound_ms"], "bound_by": bound_by.most_common(1)[0][0],
+                "library_ms": tot["library_ms"], "library": LIBRARY[kname]})
+    return entries
 
 
 def main() -> int:
@@ -3199,13 +3563,13 @@ def main() -> int:
     # 3. the main paths at full width: requests through Restorer.restore on
     # the compiled sampler, against the eager loop
     launches = Counter()
-    shapes = {}
+    shapes, engines = {}, {}
     for path, make in (("drift", lambda: flagship_engine(torch.bfloat16)),
                        ("drift_unfused",
                         lambda: flagship_engine(torch.bfloat16, {"fused_gnconv": False})),
                        ("ddpm", lambda: ddpm_engine(torch.bfloat16))):
         t0 = time.time()
-        eng = make()
+        eng = engines[path] = make()
         torch.cuda.synchronize()
         build_s = time.time() - t0
         net_key, n_text = ("n_ema", 1) if path == "ddpm" else ("d_ema", len(FLAGSHIP["ch_mult"]))
@@ -3213,11 +3577,18 @@ def main() -> int:
         launches.update(serve(path, eng, build_s, gpu))
         if path == "drift":
             launches.update(serve_full_steps(eng, gpu))
-        emit({"phase": "profile", **profile_step(eng, gen, path), "gpu": gpu})
-        del eng
-        torch.cuda.empty_cache()
+    marks.append(("main", time.time()))
 
-    marks.append(("main, profile", time.time()))
+    # 6. every kernel of every path, per UNet forward at that path's own
+    # launch shapes; the kernels line takes the first path that launches it
+    entries = per_forward(shapes, gen, worst, gpu)
+    marks.append(("per_forward", time.time()))
+
+    # 3b. one replayed step alone on the device, profiled, per path
+    for path in list(engines):
+        emit({"phase": "profile", **profile_step(engines.pop(path), gen, path), "gpu": gpu})
+        torch.cuda.empty_cache()
+    marks.append(("profile", time.time()))
 
     # 4. full-width fp32: sampler calls replayed from the graph against the
     # eager loop; UNet forwards, kernels vs plain versions, both bodies
@@ -3279,50 +3650,22 @@ def main() -> int:
 
     marks.append(("parity", time.time()))
 
-    # 5. config -> bundle -> compiled sampler -> metrics, and the golden
-    launches.update(bundle_phase(gpu))
-    launches.update(fp32_request(gpu))
-    marks.append(("bundle", time.time()))
-
-
-    # 6. every kernel of every path, per UNet forward at that path's own
-    # launch shapes; the kernels line takes the first path that launches it
-    entries = {}
-    for path, per_step in PATHS.items():
-        for kname in (k for k, n in per_step.items() if n):
-            tot = Counter()
-            bound_by = Counter()
-            per_shape = []
-            for (shape, dtype), count in shapes[path][kname].items():
-                m = MEASURE[kname](shape, dtype, gen)
-                per_shape.append([list(shape), count, round(m["ms"], 4),
-                                  round(m["device_ms"], 4), round(m["bound_ms"], 4),
-                                  round(m["library_ms"], 4)]
-                                 + ([round(m["tflops"], 2)] if "tflops" in m else [])
-                                 + ([m["path"]] if "path" in m else []))
-                for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
-                    tot[key] += m[key] * count
-                bound_by[m["bound_by"]] += m["bound_ms"] * count
-                tot["max_abs_err"] = max(tot["max_abs_err"], m["max_abs_err"])
-            emit({"phase": "per_forward", "kernel": kname, "path": path,
-                  "launches_per_forward": sum(shapes[path][kname].values()),
-                  "distinct_shapes": len(per_shape), **{k: round(v, 4) for k, v in tot.items()},
-                  "shapes_count_ms_device_bound_library"
-                  + {"conv": "_tflops", "gn": "_path"}.get(kname, ""): per_shape, "gpu": gpu})
-            worst[kname] = max(worst[kname], tot["max_abs_err"])
-            entries.setdefault(kname, {
-                "name": NAMES[kname], "route": "cuda", "source": SOURCES[kname][0],
-                "replaces": SOURCES[kname][1],
-                "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
-                "bound_ms": tot["bound_ms"], "bound_by": bound_by.most_common(1)[0][0],
-                "library_ms": tot["library_ms"], "library": LIBRARY[kname]})
+    # 5. config -> bundle -> compiled sampler -> metrics, and the golden;
+    # 5b. testUM --knob, the SMM-less UNet, tracing, on-device metrics, on
+    # the same bundle and phantoms
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as bundle_tmp:
+        got, cfg, opt, fused_means = bundle_phase(gpu, bundle_tmp)
+        launches.update(got)
+        launches.update(fp32_request(gpu))
+        marks.append(("bundle", time.time()))
+        launches.update(breadth_phase(gpu, cfg, opt, fused_means))
+        marks.append(("breadth", time.time()))
 
 
     # 6b. the conditioning encoders: the image tower on the card (on-device
     # emb_A through from_config), BiomedCLIP, precompute_embeddings; after
     # the kernels' timings: after its train step torch.profiler records no
     # kernel of the kernel libraries
-    marks.append(("per_forward", time.time()))
     encoded, tower = encoders_phase(gpu, gen, worst)
     launches.update(encoded)
     marks.append(("encoders", time.time()))

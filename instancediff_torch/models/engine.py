@@ -300,8 +300,15 @@ class SamplingEngine:
         """One UNet from a ``net_settings`` block, computing in the compute
         dtype on the engine's device (float32 master weights when the engine
         trains), its parameters frozen until ``_init_training`` trains it;
-        ``kw`` gives the engine-level fields."""
+        ``kw`` gives the engine-level fields. A net without SMM text
+        conditioning (``text_module`` other than ``"scoremap"``) is refused:
+        the JAX engines unpack ``(pred, score maps)`` from every forward, so
+        no JAX engine serves or trains one."""
         s = dict(settings)
+        if s.get("text_module", "scoremap") != "scoremap":
+            raise ValueError(f"net_settings text_module {s['text_module']!r}: the engines "
+                             "take only text_module 'scoremap' (build the net alone with "
+                             "models.modules.create_net)")
         net = LearnableForwardUNetMultiScoreMap(
             in_nc=s.get("in_nc", 2), out_nc=s.get("out_nc", 5), nf=s.get("nf", 64),
             ch_mult=tuple(s.get("ch_mult", (1, 2, 4, 4))),

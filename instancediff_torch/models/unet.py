@@ -209,7 +209,10 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
     [K, context_dim] text encoding per SMM, computed once per sampler call by
     the engine; ``num_prompts`` is their K (the score maps' width). With
     ``if_MultiScoreMap`` every level has an SMM and a score map; without it
-    (the DDPM baseline's single-score-map UNet) only level 0 has one.
+    (the DDPM baseline's single-score-map UNet) only level 0 has one. A
+    ``text_module`` other than ``"scoremap"`` builds no SMM: each level's
+    first decoder block takes ``[h, skip]`` alone, ``text_embs`` is not
+    read, and ``forward`` returns ``pred`` alone.
     ``use_fused_gnconv`` selects the ResBlock body and the output head (see
     ``ResBlock``); the context is [image | degradation] tokens. ``plain``
     runs the differentiable path (see the module's docstring); ``remat``
@@ -226,9 +229,7 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
                  num_res_blocks: int = 2, num_prompts: int = 5,
                  use_fused_gnconv: bool = True):
         super().__init__()
-        if text_module != "scoremap":
-            raise NotImplementedError(f"text_module {text_module!r} is not ported "
-                                      "(only 'scoremap')")
+        self.text_module = text_module
         self.in_nc, self.out_nc, self.nf = in_nc, out_nc, nf
         self.ch_mult = tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
@@ -282,16 +283,18 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
 
     @property
     def n_smms(self) -> int:
+        if self.text_module != "scoremap":
+            return 0
         return len(self.ch_mult) if self.if_MultiScoreMap else 1
 
     def _has_smm(self, level: int) -> bool:
-        return self.if_MultiScoreMap or level == 0
+        return self.text_module == "scoremap" and (self.if_MultiScoreMap or level == 0)
 
     def smm_contexts(self):
         """Each SMM's learnable context tokens, for the text tower."""
         return [getattr(self, f"smm_{i}").context for i in range(self.n_smms)]
 
-    def forward(self, x_a, x_b, t, type_idx, text_embs: Sequence[torch.Tensor],
+    def forward(self, x_a, x_b, t, type_idx, text_embs: Optional[Sequence[torch.Tensor]] = None,
                 image_context: Optional[torch.Tensor] = None,
                 degra_context: Optional[torch.Tensor] = None, plain: bool = False):
         dtype = compute_dtype(self.conv_in)
@@ -356,4 +359,15 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
             pred = torch.gather(out, -1, gather_idx.expand(*out.shape[:3], 1))
         else:
             pred = out
+        if self.text_module != "scoremap":
+            return pred
         return pred, scoremaps
+
+
+class LearnableForwardUNet(LearnableForwardUNetMultiScoreMap):
+    """The single-score-map UNet (the DDPM baseline's; JAX's
+    ``LearnableForwardUNet``): the same body with ``if_MultiScoreMap``
+    False by default."""
+
+    def __init__(self, *args, if_MultiScoreMap: bool = False, **kwargs):
+        super().__init__(*args, if_MultiScoreMap=if_MultiScoreMap, **kwargs)

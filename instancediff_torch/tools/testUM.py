@@ -11,8 +11,12 @@ the image tower's too, which then embeds each batch's input in place of its
 scores each image with RMSE/SSIM/PSNR on ``x/2 + 0.5`` at the reference's
 settings, writes ``LQ|pred|GT`` triptychs as raw float32 under
 ``test.result_dir/<artifact type>/`` and prints per-type averages. The flags
-are those of ``testUM.py`` less ``--platform``, ``--spatial`` and ``--knob``,
-plus ``--device``. Noise comes from one ``torch.Generator`` on the device
+are those of ``testUM.py`` less ``--platform`` and ``--spatial``, plus
+``--device``. ``--knob name=value`` (repeatable) overrides one key of the
+``models.<which_model>.engine`` block, as in ``testUM.py``: the value is an
+int when it is digits with an optional ``-``, else a string (``--knob
+fused_gnconv=0`` serves the unfused ResBlock body); an unknown key raises
+``KeyError`` when the engine is built, before any batch. Noise comes from one ``torch.Generator`` on the device
 seeded with ``test.seed``, advancing from batch to batch (the JAX driver
 folds the batch index into its key). Returns the per-type lists."""
 
@@ -33,6 +37,17 @@ from ..utils.img_utils import save_raw
 from ..utils.metrics import eval_restoration
 
 
+def parse_knobs(pairs) -> dict:
+    """``name=value`` strings as engine knobs, parsed as ``testUM.py`` parses
+    them: an int when the value is digits with an optional ``-``, else the
+    string."""
+    knobs = {}
+    for kv in pairs:
+        name, _, val = kv.partition("=")
+        knobs[name] = int(val) if val.lstrip("-").isdigit() else val
+    return knobs
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True)
@@ -47,6 +62,9 @@ def main(argv=None):
     parser.add_argument("--iter", default=None, help="override test.iter")
     parser.add_argument("--use-ema", type=int, default=None, choices=(0, 1),
                         help="override test.use_ema (1 = EMA shadows)")
+    parser.add_argument("--knob", action="append", default=[],
+                        help="engine knob override, name=value (e.g. --knob fused_gnconv=0); "
+                             "the keys of the models.*.engine block")
     args = parser.parse_args(argv)
 
     opt = load_options(args.opt)
@@ -77,6 +95,9 @@ def main(argv=None):
     if not loaders:
         raise ValueError("no test/val dataset entries in config")
 
+    if args.knob:
+        model_opt = opt["models"][(opt.get("train") or {}).get("which_model") or "DriftNoise"]
+        model_opt["engine"] = dict(model_opt.get("engine") or {}, **parse_knobs(args.knob))
     use_ema = bool(test_opt.get("use_ema"))
     model = engine_from_config(opt, device=args.device, pth_dir=test_opt.get("pth_dir"),
                                iteration=test_opt.get("iter"), use_ema=use_ema)

@@ -40,8 +40,12 @@ def _launches(res):
     return [(int(H * k), int(W * k), C, Cout) for H, W, C, Cout, _ in FLAGSHIP_256]
 
 
+# the SMM-less UNet (text_module none): each level's first decoder conv
+# without the 16 score-map channels
+SMM_LESS = [(256, 256, 128, 64), (128, 128, 256, 128), (64, 64, 512, 256), (32, 32, 512, 256)]
 # plus chip_smoke.py's edge shape (8,56,56,272->128): W not a multiple of 16
-SHAPES = sorted(set(_launches(256) + _launches(224) + [(56, 56, 272, 128)]))
+SHAPES = sorted(set(_launches(256) + _launches(224) + [(56, 56, 272, 128)] + SMM_LESS
+                    + [(H * 7 // 8, W * 7 // 8, C, Cout) for H, W, C, Cout in SMM_LESS]))
 
 
 def test_the_launch_list_is_one_forward():

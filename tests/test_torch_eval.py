@@ -245,6 +245,44 @@ def test_testUM_end_to_end(bundle, tmp_path):
         assert trip.size == 3 * RES * RES
 
 
+def test_testUM_knob_selects_the_engine_body(bundle, tmp_path, monkeypatch):
+    """``--knob name=value`` overrides the ``engine`` block as ``testUM.py``
+    does: ``fused_gnconv=0`` builds every net on the unfused ResBlock body,
+    whose metrics equal the fused run's within float32 summation order (the
+    two bodies' rule in ``test_torch_engine.py``: 1e-5); an unknown knob
+    raises ``KeyError`` when the engine is built, before any batch. (The
+    file runs no JAX testUM, so the fused run is the reference.)"""
+    names = ("speckle in OCT", "Gaussian noise in MRI")
+    index = chip_smoke.write_speckle_med(str(tmp_path / "data"), 2, RES, EMB, names)
+    opt = yaml.safe_load(open(CONFIG))
+    opt["datasets"] = {"test": dict(_dataset_opt(index, 1), use_artifact_type=list(names))}
+    opt["test"].update(pth_dir=bundle, iter=ITER, batch_size=2,
+                       result_dir=str(tmp_path / "results"))
+    cfg = tmp_path / "test.yml"
+    cfg.write_text(yaml.safe_dump(opt))
+    argv = ["-opt", str(cfg), "--device", "cpu", "--sample-steps", "2"]
+    engines = []
+    real = testUM.engine_from_config
+    monkeypatch.setattr(testUM, "engine_from_config",
+                        lambda *a, **kw: engines.append(real(*a, **kw)) or engines[-1])
+    fused = testUM.main(argv)
+    unfused = testUM.main(argv + ["--knob", "fused_gnconv=0", "--knob", "flash_mid=-1"])
+    assert engines[0].engine_opts == {}
+    assert engines[1].engine_opts == {"fused_gnconv": 0, "flash_mid": -1}
+    assert all(net.use_fused_gnconv for net in engines[0].nets.values())
+    assert not any(net.use_fused_gnconv for net in engines[1].nets.values())
+    assert sorted(unfused) == sorted(fused) == sorted(names)
+    for name in names:
+        assert unfused[name]["num"] == fused[name]["num"] == 2
+        for k in ("RMSE", "SSIM", "PSNR"):
+            np.testing.assert_allclose(unfused[name][k], fused[name][k], rtol=1e-5, atol=1e-5)
+    assert testUM.parse_knobs(["a=1", "b=-2", "c=x", "d=1.5", "e="]) == {
+        "a": 1, "b": -2, "c": "x", "d": "1.5", "e": ""}
+    with pytest.raises(KeyError, match="no_such_knob"):
+        testUM.main(argv + ["--knob", "no_such_knob=1"])
+    assert len(engines) == 2
+
+
 @pytest.mark.slow
 def test_trained_bundle_quality_equals_jax(tiny_trained_setup, tmp_path):
     """A trained bundle (the tiny trained fixture) served by the port: PSNR

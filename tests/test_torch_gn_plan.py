@@ -30,13 +30,16 @@ DRIFT_256 = [
 # the DDPM net: one score map (level 0), so the deeper concats are [h | skip]
 DDPM_256 = [s for s in DRIFT_256 if s[2] not in (272, 528)] + [
     (128, 128, 256, 32, 1), (64, 64, 512, 32, 1), (32, 32, 512, 32, 1)]
+# the SMM-less UNet (text_module none): every decoder concat is [h | skip]
+SMM_LESS_256 = [s for s in DDPM_256 if s[2] != 144] + [(256, 256, 128, 32, 1)]
 BATCH = 8
-SHAPES = sorted({s[:4] for s in DRIFT_256 + DDPM_256})
+SHAPES = sorted({s[:4] for s in DRIFT_256 + DDPM_256 + SMM_LESS_256})
 
 
 def test_the_launch_lists_are_one_forward():
     assert sum(s[-1] for s in DRIFT_256) == 45
     assert sum(s[-1] for s in DDPM_256) == 45
+    assert sum(s[-1] for s in SMM_LESS_256) == 45
 
 
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])

@@ -953,3 +953,89 @@ def test_two_ranks_share_one_card_over_gloo(cuda):
         np.testing.assert_array_equal(r["mean"][0], np.full((5, 3), 1.5, np.float32))
         np.testing.assert_array_equal(r["mean"][1], np.arange(7.0, dtype=np.float32) * 1.5)
         assert all(not p.any() for p in r["net"])
+
+
+# ---------------------------------------------------------------- the SMM-less UNet, tracing
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("H,W,C,Cout", [(64, 64, 128, 64), (32, 32, 256, 128),
+                                        (16, 16, 512, 256), (8, 8, 512, 256)])
+def test_fused_conv_at_the_smm_less_widths(cuda, dtype, tol, H, W, C, Cout):
+    """The SMM-less UNet's first decoder convs, whose inputs lose the 16
+    score-map channels (144 -> 128, 272 -> 256, 528 -> 512), at batch 2."""
+    gen = torch.Generator(device=cuda).manual_seed(C + H)
+    x, scale, shift, w, bias, _ = _conv_case(gen, 2, H, W, C, Cout, False, dtype)
+    got = fused_gn_silu_conv3x3(x, scale, shift, w, bias)
+    torch.cuda.synchronize()
+    want = fused_gn_silu_conv3x3_plain(x, scale, shift, w, bias)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+SMM_LESS_NET = dict(GRAPH_NET, text_module="none", use_image_context=True)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_body", "unfused_body"])
+def test_smm_less_unet_kernels_match_plain(cuda, dtype, tol, fused):
+    """``create_net`` with ``text_module: none`` at the graph tests' widths:
+    the forward through the kernels against the plain versions, and the
+    launches per forward (a fused conv and a statistics launch per conv, or
+    a GroupNorm per conv, and the bottleneck's flash)."""
+    from unittest import mock
+
+    from instancediff_torch.models import unet as unet_mod
+    from instancediff_torch.models.modules import create_net
+
+    net = create_net(SMM_LESS_NET, dtype=dtype, device=cuda, use_fused_gnconv=fused)
+    _randomize_(net, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, R = GRAPH_B, GRAPH_RES
+    args = (_randn(gen, B, R, R, 1), _randn(gen, B, R, R, 1), torch.full((B,), 5, device=cuda),
+            torch.tensor([0, 3], device=cuda), None, _randn(gen, B, 1, 32))
+    before = kernel_launches()
+    with torch.inference_mode():
+        got = net(*args)
+        torch.cuda.synchronize()
+        after = kernel_launches()
+        with mock.patch.object(unet_mod, "fused_gn_silu_conv3x3", fused_gn_silu_conv3x3_plain), \
+                mock.patch.object(unet_mod, "gn_channel_affine", gn_channel_affine_plain), \
+                mock.patch.object(unet_mod, "group_norm_silu", group_norm_silu_plain), \
+                mock.patch.object(unet_mod, "flash_attention", flash_attention_plain):
+            want = net(*args)
+    assert got.shape == (B, R, R, 1) and torch.isfinite(got).all()
+    n_convs = 2 * sum(isinstance(m, unet_mod.ResBlock) for m in net.modules()) + 1  # and the head
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched == {"fused_gn_silu_conv3x3": n_convs if fused else 0,
+                        "gn_channel_affine": n_convs if fused else 0,
+                        "group_norm_silu": 0 if fused else n_convs, "flash_attention": 1}
+    scale = max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * scale)
+
+
+def test_tracing_sees_the_kernels(cuda, tmp_path):
+    """``utils.tracing.trace`` around a compiled drift request: the exported
+    Chrome trace holds the annotation and every replayed kernel by name, as
+    many times as the steps ran them; the device's memory statistics."""
+    import json
+
+    from instancediff_torch.utils import tracing
+
+    eng = _graph_engine("drift", torch.bfloat16)
+    batch = _graph_batch(5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    eng.test(batch, gen, sample_steps=4)  # captures the step
+    per_step = eng.last_graph.launches
+    with tracing.trace(str(tmp_path)), tracing.annotate("request"):
+        eng.test(batch, gen, sample_steps=4)
+    with open(tmp_path / tracing.TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    steps = len(strided_sampling_grid(GRAPH_T, 4)[0])
+    for name, wrapper in (("fgc_tc_kernel", "fused_gn_silu_conv3x3"),
+                          ("gns_affine_kernel", "gn_channel_affine"),
+                          ("flash_tc_kernel", "flash_attention")):
+        assert sum(name in k for k in kernels) == steps * per_step[wrapper] > 0, name
+    assert any(e.get("name") == "request" for e in events)
+    stats = tracing.device_memory_stats()["cuda:0"]
+    assert 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"] <= stats["bytes_limit"]
