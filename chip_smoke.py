@@ -181,10 +181,39 @@ Phases, one JSON line each, in order:
                 in the row's ``max_abs_err`` too. It runs after
                 ``per_forward``'s timings
                 (its profiles record kernels before its train step);
+  6c. towers -- (after ``encoders``, before ``train``) the tower breadth at
+                full width, seeded random weights in each checkpoint's own
+                key layout written to a temporary directory: (a)
+                ``load_openai_model`` on an OpenAI RN50 (layers (3,4,6,3),
+                width 64, embed 1024, text width 512; ``torch.save``d) and
+                an OpenAI ViT-B/16 (``torch.save``d and ``torch.jit.save``d,
+                the archive's embeddings equal to the state dict's): 8
+                images at 224 px and the 5 prompts on the card against the
+                CPU in fp32 (``FORWARD_TOL``), 1 flash launch per RN50
+                ``encode_image`` (the attention pool, [8,32,50,64]) and 12
+                per ViT; (b) BiomedCLIP (ViT-B/16, PubMedBERT) at fp16 and
+                pure_fp16 against its fp32 run of the same weights
+                (``FP16_TOL``), 12 fp16 flash launches per ``encode_image``;
+                (c) ``CLIPDenseVisionTransformer`` ViT-B/16 with the patch-16
+                necks and embeddings, batch 8, at 224 and 320 px (the
+                bilinear position resize), then ``ContextDecoderRef`` (width
+                256, 6 layers, unscaled and scaled; 6 flash launches of
+                [8,4,5,64]) and ``ContextDecoder`` (512, 3 layers, no flash)
+                on its maps with 5 text queries, each against the CPU in
+                fp32; (d) one train-mode ViT-B/16 forward (PatchDropout 0.5,
+                DropPath 0.1) from a seeded CUDA generator: 99 tokens kept,
+                the same seed the same output. Then every distinct flash
+                launch of (a)-(c) held against its plain version and timed,
+                one ``per_forward`` line per tower path. ``check`` holds the
+                fp16 instantiation at [8,4,1024,D] for every D and at
+                ``FLASH_FP16_SHAPES``; the kernels line's flash row gains
+                ``towers`` (the phase's launches by dtype and its shapes'
+                measurements) and ``fp16`` (its launches and its check);
   7. train  -- ``tools/trainUM`` at flagship width (224 px, batch 4) over
                 SpeckleMed phantoms: drift fp32 (``flagship_tpu.yml``, remat
-                on) 12 iterations with checkpoints at 6 and 12 and inline
-                validation at 12, resumed from 6 (no validation or
+                on) 8 iterations (cut from 12 for the script's time) with
+                checkpoints at 4 and 8 and inline validation at 8, resumed
+                from 4 (no validation or
                 checkpoint before its end) and held equal to the
                 uninterrupted run (nets, EMA, Adam moments), these two runs
                 alone under cuDNN deterministic; its bundle served by
@@ -218,14 +247,16 @@ Phases, one JSON line each, in order:
                 eager loop); the tool's student recaptured after one more
                 distill step; (b) on weights that learned, nf 16 (8-wide
                 heads), fp32: ``demo_all_modalities`` (every modality
-                restored >= degraded + 6 dB; in a process of its own
-                beside the rest of the phase), JAX's distillation gate (the
+                restored >= degraded + 6 dB; in a process of its own,
+                run beside phases ``irsde`` and ``dist``), JAX's
+                distillation gate (the
                 fixture recipe's teacher, one phase T=16 -> 8: the student
                 >= degraded + 6 dB and within 1 dB of the teacher), and
                 ``eval_protocol`` tables for both on a port Synthetic set
                 pinned by its manifest. Its launches are printed in a line
                 of its own, not in the ``kernels`` line.
-  9. irsde  -- ``create_sde({"class_name": "IRSDE", "T": 100})`` driven by
+  9. irsde  -- ``create_sde({"class_name": "IRSDE", "T": 50})`` (cut from
+                the config's T=100 for the script's time) driven by
                 two noise predictors with seeded random weights, each on the
                 kernels and on the plain path: the DDPM net at
                 flagship_ddpm_tpu.yml's widths (unfused body: 45
@@ -233,7 +264,7 @@ Phases, one JSON line each, in order:
                 engine's noise net (fused body: 45 fused conv + 45
                 ``gn_channel_affine`` + 1 flash); 256 px, batch 8, bf16:
                 ``reverse_sde`` (stochastic, injected noise) and
-                ``reverse_ode`` at all 100 steps, kernels vs plain within
+                ``reverse_ode`` at all 50 steps, kernels vs plain within
                 ``TOL[bf16]`` of the plain result's largest value, launches
                 per step held to ``IRSDE_PATHS``, ms per step; then
                 ``ode_sampler`` in fp32 (rtol = atol = 1e-5) at
@@ -268,6 +299,7 @@ doing anything."""
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import hashlib
 import io
@@ -320,13 +352,13 @@ from instancediff_torch.utils.parity import check_grads, check_params
 # kernels use); the fused conv and flash take fp32 on the tensor cores in
 # split TF32, three TF32 products per fp32 product: 495 / 3 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TC_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+TC_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 495e12 / 3}
 # kernel vs plain on the card: max |diff| <= TOL * max(1, max |plain|).
 # fp32: the same fp32 arithmetic in another summation order. bf16: both
 # round the activation and the result to bf16, so a result may differ by one
 # bf16 ulp (2^-8 relative) where the fp32 sums straddle a rounding boundary.
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 # full-width fp32 UNet forward, kernels vs plain: 22 ResBlocks of fp32 sums
 # in another order; relative to the largest output
 FORWARD_TOL = 1e-3
@@ -352,6 +384,9 @@ CONV_SHAPES = [  # (B, H, W, C, Cout, residual)
     (8, 64, 64, 512, 256, False), (8, 32, 32, 512, 256, False)]
 # the bottleneck at 256 and 224 px, and the ViT-B/16 tower at 224 and 256 px
 FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64), (8, 12, 197, 64), (8, 12, 257, 64)]
+# fp16 (BiomedCLIP at fp16 / pure_fp16): the ViT-B/16 tower's shapes and
+# OpenAI RN50's attention pool (32 heads of 64 over 1 + 7x7 tokens)
+FLASH_FP16_SHAPES = [(8, 12, 197, 64), (8, 12, 257, 64), (8, 32, 50, 64)]
 GN_SHAPES = [  # (B, H, W, C, groups, silu)
     (8, 256, 256, 64, 32, True), (8, 256, 256, 144, 24, True), (8, 128, 128, 272, 17, True),
     (8, 64, 64, 528, 24, True), (8, 32, 32, 512, 32, True),
@@ -1741,7 +1776,6 @@ def serve_with_tower(gpu) -> Counter:
     tower against itself on the plain attention (fp32); its ms per call
     and device busy; a request with the tower and one with ``A_emb``
     given. Returns the graph-served requests' launches."""
-    from instancediff_torch.models import text_encoder as text_mod
     from instancediff_torch.models.clip_vit import build_image_tower, image_context
     from instancediff_torch.serving import IMAGE_SIDECAR
 
@@ -1777,10 +1811,10 @@ def serve_with_tower(gpu) -> Counter:
         with torch.inference_mode():
             emb = image_context(eng.image_tower, mu)
             norms = torch.linalg.vector_norm(emb.float(), dim=-1).flatten()
-            with mock.patch.object(text_mod, "flash_attention", flash_attention_plain):
+            with tower_flash_shapes(plain=True):
                 plain = image_context(eng.image_tower, mu)
             raw = eng.image_tower(mu)
-            with mock.patch.object(text_mod, "flash_attention", flash_attention_plain):
+            with tower_flash_shapes(plain=True):
                 raw_plain = eng.image_tower(mu)
             tower_ms = cuda_ms(lambda: image_context(eng.image_tower, mu))
             busy = device_busy(lambda: image_context(eng.image_tower, mu))
@@ -1951,15 +1985,443 @@ def encoders_phase(gpu, gen, worst) -> tuple:
     return total, tower
 
 
+# ---------------------------------------------------------------- towers
+
+# phase ``towers``: OpenAI RN50 (load_openai_model's own geometry read from
+# the checkpoint), the OpenAI ViT-B/16, BiomedCLIP at fp16, the dense ViT
+# and the context decoders, batch 8 at 224 px
+TOWER_BATCH = 8
+RN50 = dict(layers=(3, 4, 6, 3), width=64, embed=1024)
+CLIP_TEXT = dict(width=512, layers=12, vocab=49408, ctx=77)
+DENSE_RES = (224, 320)  # the table's 14x14 grid and an off-grid 20x20 one
+# unit-norm embeddings at fp16 against the fp32 model's (fp16 rounds every
+# matmul input and output: 2^-11 relative, summed over 12 blocks)
+FP16_TOL = 1e-2
+
+
+def openai_state_dict(rng, visual: str) -> dict:
+    """A seeded random OpenAI CLIP state dict in the checkpoint's own key
+    layout: the text tower (``token_embedding``, 77 positions,
+    ``transformer.resblocks.*`` with ``in_proj_weight``, ``ln_final``,
+    ``text_projection``), ``logit_scale``, and the visual tower of
+    ``visual``: "rn50" (``visual.conv1..3``/``bn1..3``, ``visual.layer{s}.
+    {b}.*`` with ``downsample.0/.1``, ``visual.attnpool.*`` over a 7x7
+    grid) or "vit_b16" (``visual.conv1``, ``class_embedding``, 197
+    positions, ``ln_pre``, 12 resblocks, ``ln_post``, ``proj``). Weights ~
+    N(0, 1/fan_in), norm scales and BatchNorm variances ~ 1 + 0.1 N, the
+    rest ~ 0.1 N (tables 0.02 N)."""
+    def w(*shape):
+        return torch.from_numpy((rng.standard_normal(shape, dtype=np.float32)
+                                 / np.sqrt(int(np.prod(shape[1:])))))
+
+    def n(*shape, scale=0.1, mean=0.0):
+        return torch.from_numpy(mean + scale * rng.standard_normal(shape, dtype=np.float32))
+
+    sd = {}
+
+    def resblocks(prefix, width, layers):
+        for i in range(layers):
+            R = f"{prefix}transformer.resblocks.{i}."
+            sd.update({R + "attn.in_proj_weight": w(3 * width, width),
+                       R + "attn.in_proj_bias": n(3 * width),
+                       R + "attn.out_proj.weight": w(width, width),
+                       R + "attn.out_proj.bias": n(width),
+                       R + "mlp.c_fc.weight": w(4 * width, width), R + "mlp.c_fc.bias": n(4 * width),
+                       R + "mlp.c_proj.weight": w(width, 4 * width), R + "mlp.c_proj.bias": n(width),
+                       R + "ln_1.weight": n(width, mean=1.0), R + "ln_1.bias": n(width),
+                       R + "ln_2.weight": n(width, mean=1.0), R + "ln_2.bias": n(width)})
+
+    def bn(key, c):
+        sd.update({key + ".weight": n(c, mean=1.0), key + ".bias": n(c),
+                   key + ".running_mean": n(c), key + ".running_var": n(c, mean=1.0)})
+
+    tw = CLIP_TEXT["width"]
+    embed = RN50["embed"] if visual == "rn50" else 512
+    sd.update({"token_embedding.weight": n(CLIP_TEXT["vocab"], tw, scale=0.02),
+               "positional_embedding": n(CLIP_TEXT["ctx"], tw, scale=0.01),
+               "ln_final.weight": n(tw, mean=1.0), "ln_final.bias": n(tw),
+               "text_projection": w(embed, tw).T.contiguous(),
+               "logit_scale": torch.tensor(float(np.log(1 / 0.07)))})
+    resblocks("", tw, CLIP_TEXT["layers"])
+    if visual == "rn50":
+        width = RN50["width"]
+        for i, (cin, cout) in enumerate(((3, width // 2), (width // 2, width // 2),
+                                         (width // 2, width)), 1):
+            sd[f"visual.conv{i}.weight"] = w(cout, cin, 3, 3)
+            bn(f"visual.bn{i}", cout)
+        inp = width
+        for s, blocks in enumerate(RN50["layers"]):
+            planes = width * 2 ** s
+            for b in range(blocks):
+                L = f"visual.layer{s + 1}.{b}"
+                sd[f"{L}.conv1.weight"] = w(planes, inp, 1, 1)
+                sd[f"{L}.conv2.weight"] = w(planes, planes, 3, 3)
+                sd[f"{L}.conv3.weight"] = w(planes * 4, planes, 1, 1)
+                for j, c in ((1, planes), (2, planes), (3, planes * 4)):
+                    bn(f"{L}.bn{j}", c)
+                if b == 0:
+                    sd[f"{L}.downsample.0.weight"] = w(planes * 4, inp, 1, 1)
+                    bn(f"{L}.downsample.1", planes * 4)
+                inp = planes * 4
+        C = width * 32
+        sd["visual.attnpool.positional_embedding"] = n(50, C, scale=C ** -0.5)
+        for name in ("q_proj", "k_proj", "v_proj"):
+            sd[f"visual.attnpool.{name}.weight"], sd[f"visual.attnpool.{name}.bias"] = \
+                w(C, C), n(C)
+        sd["visual.attnpool.c_proj.weight"], sd["visual.attnpool.c_proj.bias"] = \
+            w(embed, C), n(embed)
+    else:
+        vw = 768
+        sd.update({"visual.conv1.weight": w(vw, 3, 16, 16), "visual.class_embedding": n(vw),
+                   "visual.positional_embedding": n(197, vw, scale=0.02),
+                   "visual.ln_pre.weight": n(vw, mean=1.0), "visual.ln_pre.bias": n(vw),
+                   "visual.ln_post.weight": n(vw, mean=1.0), "visual.ln_post.bias": n(vw),
+                   "visual.proj": w(embed, vw).T.contiguous()})
+        resblocks("visual.", vw, 12)
+    return sd
+
+
+class _Buffers(torch.nn.Module):
+    def forward(self, x):
+        return x
+
+
+def save_torchscript(sd, path) -> None:
+    """``sd`` as a ``torch.jit.save``d archive of nested modules holding its
+    tensors as buffers, as OpenAI ships its checkpoints."""
+    root = _Buffers()
+    for key, value in sd.items():
+        *mods, leaf = key.split(".")
+        m = root
+        for name in mods:
+            if not hasattr(m, name):
+                m.add_module(name, _Buffers())
+            m = getattr(m, name)
+        m.register_buffer(leaf, value)
+    torch.jit.save(torch.jit.script(root), path)
+
+
+@contextlib.contextmanager
+def tower_flash_shapes(plain: bool = False):
+    """While open, the towers' unmasked attention (``multi_head_flash`` as
+    ``text_encoder`` and ``vision_towers`` call it) records each launch's
+    ([B, H, N, D], dtype) into the yielded Counter, through the kernel or,
+    with ``plain``, through its plain version."""
+    from instancediff_torch.models import text_encoder as text_mod
+    from instancediff_torch.models import vision_towers as vt_mod
+    from instancediff_torch.ops import flash_attention as flash_mod
+
+    seen = Counter()
+
+    def rec(q, k, v, heads):
+        B, N, C = q.shape
+        seen[((B, heads, N, C // heads), q.dtype)] += 1
+        if not plain:
+            return flash_mod.multi_head_flash(q, k, v, heads)
+        with mock.patch.object(flash_mod, "flash_attention", flash_attention_plain):
+            return flash_mod.multi_head_flash(q, k, v, heads)
+
+    with mock.patch.object(text_mod, "multi_head_flash", rec), \
+            mock.patch.object(vt_mod, "multi_head_flash", rec):
+        yield seen
+
+
+def _leaves(out) -> list:
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _leaves(o)]
+    return [out]
+
+
+def tower_err(what, got, want, tol) -> float:
+    """The largest |got - want| over every output tensor, relative to
+    max(1, the largest |want|); raises past ``tol`` or on a non-finite or
+    misshapen output."""
+    errs = []
+    for g, w in zip(_leaves(got), _leaves(want), strict=True):
+        g, w = g.float().cpu(), w.float().cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: shape {tuple(g.shape)} vs {tuple(w.shape)} or not finite")
+        errs.append((g - w).abs().max().item() / max(1.0, w.abs().max().item()))
+    if not max(errs) <= tol:
+        raise AssertionError(f"{what}: max relative err {max(errs)} > {tol}")
+    return max(errs)
+
+
+def towers_openai(gpu, tmp) -> tuple:
+    """(a) ``load_openai_model`` on seeded RN50 and ViT-B/16 OpenAI
+    checkpoints (``torch.save``d, the ViT once more as a ``torch.jit.save``d
+    archive): 8 images at 224 px and the 5 prompts on the card against the
+    same model on the CPU in fp32 (``FORWARD_TOL``), the flash launches per
+    ``encode_image`` (1 for RN50's attention pool, 12 for the ViT), the
+    archive's embeddings equal to the state dict's. Returns (launches by
+    (shape, dtype), per-call shapes by path)."""
+    from instancediff_torch.models.openai import load_openai_model
+
+    images = np.random.default_rng(70).uniform(-1, 1, (TOWER_BATCH, 224, 224, 1)).astype(
+        np.float32)
+    texts = list(ARTIFACT_PROMPTS)
+    launched, per_call = Counter(), {}
+    for name, visual, per_image in (("rn50", "rn50", 1), ("vit_b16", "vit_b16", TOWER_LAYERS)):
+        sd = openai_state_dict(np.random.default_rng(71 if visual == "rn50" else 72), visual)
+        path = os.path.join(tmp, f"{name}.pt")
+        torch.save(sd, path)
+        paths = {"state_dict": path}
+        if visual == "vit_b16":
+            paths["torchscript"] = os.path.join(tmp, f"{name}_jit.pt")
+            save_torchscript(sd, paths["torchscript"])
+        del sd
+        cpu, _ = load_openai_model(path, device="cpu")
+        with torch.no_grad():
+            want = cpu.encode_image(images), cpu.encode_text(texts)
+        del cpu
+        embs = {}
+        for archive, p in paths.items():
+            t0 = time.time()
+            model, preprocess = load_openai_model(p, device="cuda")
+            load_s = time.time() - t0
+            before = flash_attention.launches
+            with tower_flash_shapes() as seen:
+                got = model.encode_image(images), model.encode_text(texts)
+            torch.cuda.synchronize()
+            calls = flash_attention.launches - before
+            if calls != per_image or sum(seen.values()) != per_image:
+                raise AssertionError(f"{name} ({archive}): {calls} flash launches per "
+                                     f"encode_image, want {per_image}")
+            launched.update(seen)
+            per_call[f"openai_{name}"] = dict(seen)
+            err = tower_err(f"{name} ({archive}) card vs CPU", got, want, FORWARD_TOL)
+            embs[archive] = got
+            pre = preprocess(np.random.default_rng(73).integers(0, 256, (256, 320, 3),
+                                                                 dtype=np.uint8))
+            emit({"phase": "towers", "what": f"(a) load_openai_model, OpenAI {name} "
+                                             f"({archive}), fp32: {TOWER_BATCH} images at 224 "
+                                             f"px and {len(texts)} prompts, card vs CPU",
+                  "embed_dim": model.embed_dim, "visual": type(model.visual).__name__,
+                  "rn_geometry": [RN50["width"], list(RN50["layers"])] if name == "rn50" else None,
+                  "logit_scale": model.logit_scale, "load_seconds": round(load_s, 3),
+                  "flash_per_encode_image": calls, "flash_shapes": [[list(s), str(d)] for
+                                                                    (s, d) in seen],
+                  "max_rel_err": err, "tol": FORWARD_TOL, "preprocess_shape": list(pre.shape),
+                  "gpu": gpu})
+            del model
+        if "torchscript" in embs and not all(torch.equal(a, b) for a, b in
+                                             zip(embs["torchscript"], embs["state_dict"])):
+            raise AssertionError("the TorchScript archive's model differs from the state dict's")
+        for p in paths.values():
+            os.remove(p)
+        torch.cuda.empty_cache()
+    return launched, per_call
+
+
+def towers_biomedclip_fp16(gpu) -> tuple:
+    """(b) BiomedCLIP (ViT-B/16, PubMedBERT) at fp16 and pure_fp16 from the
+    same seeded weights as at fp32, batch 8 at 224 px and the 5 prompts:
+    unit-norm float16 embeddings within ``FP16_TOL`` of the fp32 model's,
+    12 fp16 flash launches per ``encode_image``."""
+    from instancediff_torch.models.biomedclip import get_BiomedCLIP
+    from instancediff_torch.models.clip_vit import CLIPVisionTower
+    from instancediff_torch.models.text_encoder import HFContextTextEncoder
+
+    visual, text = CLIPVisionTower(), HFContextTextEncoder()
+    randomize_(visual, seed=74)
+    randomize_(text, seed=75)
+    trees = dict(params=flax_params(visual), text_params=flax_params(text))
+    del visual, text
+    images = np.random.default_rng(76).uniform(-1, 1, (TOWER_BATCH, 224, 224, 1)).astype(
+        np.float32)
+    texts = list(ARTIFACT_PROMPTS)
+    ref = get_BiomedCLIP(precision="fp32", device="cuda", **trees)
+    want = ref.encode_image(images), ref.encode_text(texts)
+    del ref
+    launched, per_call = Counter(), {}
+    for precision in ("fp16", "pure_fp16"):
+        model = get_BiomedCLIP(precision=precision, device="cuda", **trees)
+        before = flash_attention.launches
+        with tower_flash_shapes() as seen:
+            got = model.encode_image(images), model.encode_text(texts)
+        torch.cuda.synchronize()
+        calls = flash_attention.launches - before
+        fp16 = sum(c for (_, d), c in seen.items() if d == torch.float16)
+        if calls != TOWER_LAYERS or fp16 != TOWER_LAYERS or \
+                any(g.dtype != torch.float16 for g in got):
+            raise AssertionError(f"BiomedCLIP {precision}: {calls} flash launches ({fp16} "
+                                 f"fp16), outputs {[g.dtype for g in got]}")
+        err = tower_err(f"BiomedCLIP {precision} vs fp32", got, want, FP16_TOL)
+        launched.update(seen)
+        per_call[f"biomedclip_{precision}"] = dict(seen)
+        emit({"phase": "towers", "what": f"(b) BiomedCLIP at {precision} against the same "
+                                         f"weights at fp32: {TOWER_BATCH} images at 224 px and "
+                                         f"{len(texts)} prompts",
+              "flash_per_encode_image": calls, "fp16_launches": fp16,
+              "flash_shapes": [[list(s), str(d)] for (s, d) in seen],
+              "max_abs_err_unit_norm": err, "tol": FP16_TOL,
+              "norms": [round(float(g.float().norm(dim=-1).max()), 4) for g in got], "gpu": gpu})
+        del model
+    torch.cuda.empty_cache()
+    return launched, per_call
+
+
+def towers_dense(gpu) -> tuple:
+    """(c) ``CLIPDenseVisionTransformer`` at ViT-B/16 width (12 blocks of
+    768, the patch-16 necks, ``get_embeddings``), batch 8, at 224 px and at
+    an off-grid 320 px (the run-time bilinear position resize), then
+    ``ContextDecoderRef`` (width 256, 6 layers, unscaled and scaled) and
+    ``ContextDecoder`` (512, 3 layers) on its 224 px embeddings with 5 text
+    queries; each against the same module on the CPU in fp32
+    (``FORWARD_TOL``), with its flash launches (12 per tower call, 6 per
+    ``ContextDecoderRef``, none for ``ContextDecoder``)."""
+    from instancediff_torch.models.vision_towers import (CLIPDenseVisionTransformer,
+                                                         ContextDecoder, ContextDecoderRef)
+
+    tower = CLIPDenseVisionTransformer(get_embeddings=True).eval()
+    randomize_(tower, seed=77)
+    cuda = {"tower": copy.deepcopy(tower).cuda()}
+    launched, per_call = Counter(), {}
+    memory = None
+    for res in DENSE_RES:
+        x = torch.from_numpy(np.random.default_rng(78 + res).uniform(
+            -1, 1, (TOWER_BATCH, res, res, 1)).astype(np.float32))
+        with torch.no_grad():
+            want = tower(x)
+            before = flash_attention.launches
+            with tower_flash_shapes() as seen:
+                got = cuda["tower"](x.cuda())
+            torch.cuda.synchronize()
+        calls = flash_attention.launches - before
+        if calls != TOWER_LAYERS:
+            raise AssertionError(f"dense ViT {res} px: {calls} flash launches")
+        err = tower_err(f"dense ViT {res} px card vs CPU", got, want, FORWARD_TOL)
+        launched.update(seen)
+        per_call[f"dense_vit_{res}"] = dict(seen)
+        emit({"phase": "towers", "what": f"(c) CLIPDenseVisionTransformer ViT-B/16, patch-16 "
+                                         f"necks and embeddings, {res} px, batch {TOWER_BATCH}, "
+                                         "fp32, card vs CPU",
+              "outputs": [list(t.shape) for t in _leaves(got)], "flash_per_call": calls,
+              "flash_shapes": [[list(s), str(d)] for (s, d) in seen], "max_rel_err": err,
+              "tol": FORWARD_TOL, "gpu": gpu})
+        if res == 224:
+            memory = want[4][1].reshape(TOWER_BATCH, -1, 512), got[4][1].reshape(
+                TOWER_BATCH, -1, 512)
+    del cuda, tower
+    queries = torch.from_numpy(np.random.default_rng(79).standard_normal(
+        (TOWER_BATCH, len(ARTIFACT_PROMPTS), 512)).astype(np.float32))
+    for name, make, per_call_launches in (
+            ("context_decoder_ref", lambda: ContextDecoderRef(), 6),
+            ("context_decoder_ref_scaled", lambda: ContextDecoderRef(scaled=True), 6),
+            ("context_decoder", lambda: ContextDecoder(), 0)):
+        dec = make().eval()
+        randomize_(dec, seed=80)
+        dec_cuda = copy.deepcopy(dec).cuda()
+        with torch.no_grad():
+            want = dec(queries, memory[0])
+            before = flash_attention.launches
+            with tower_flash_shapes() as seen:
+                got = dec_cuda(queries.cuda(), memory[1])
+            torch.cuda.synchronize()
+        calls = flash_attention.launches - before
+        if calls != per_call_launches:
+            raise AssertionError(f"{name}: {calls} flash launches, want {per_call_launches}")
+        err = tower_err(f"{name} card vs CPU", got, want, FORWARD_TOL)
+        launched.update(seen)
+        if calls:
+            per_call[name] = dict(seen)
+        emit({"phase": "towers", "what": f"(c) {name} on the dense ViT's 224 px embeddings "
+                                         f"[{TOWER_BATCH}, 196, 512], {len(ARTIFACT_PROMPTS)} "
+                                         "text queries, fp32, card vs CPU",
+              "flash_per_call": calls, "flash_shapes": [[list(s), str(d)] for (s, d) in seen],
+              "max_rel_err": err, "tol": FORWARD_TOL, "gpu": gpu})
+    torch.cuda.empty_cache()
+    return launched, per_call
+
+
+def towers_train_mode(gpu) -> Counter:
+    """(d) One train-mode forward of the OpenAI ViT-B/16 tower with
+    ``patch_dropout=0.5`` and ``drop_path_rate=0.1`` from a seeded CUDA
+    generator, batch 8, 224 px, under no_grad: 1 + 98 tokens kept per image
+    (the flash launches' N), and the same seed the same embedding."""
+    from instancediff_torch.models.clip_vit import CLIPVisionTower
+
+    tower = CLIPVisionTower(flavour="openai", patch_dropout=0.5, drop_path_rate=0.1)
+    randomize_(tower, seed=81)
+    tower = tower.cuda()
+    x = torch.from_numpy(np.random.default_rng(82).uniform(
+        -1, 1, (TOWER_BATCH, 224, 224, 1)).astype(np.float32)).cuda()
+    outs = []
+    with torch.no_grad(), tower_flash_shapes() as seen:
+        for _ in range(2):
+            outs.append(tower(x, deterministic=False,
+                              rng=torch.Generator(device="cuda").manual_seed(83)))
+        other = tower(x, deterministic=False, rng=torch.Generator(device="cuda").manual_seed(84))
+        evaluated = tower(x)
+    torch.cuda.synchronize()
+    kept = sorted({s[2] for (s, _) in seen})
+    if kept != [1 + 98, 197] or not torch.equal(outs[0], outs[1]) or \
+            torch.equal(outs[0], other) or not torch.isfinite(outs[0]).all():
+        raise AssertionError(f"train-mode ViT: tokens {kept}, same seed equal "
+                             f"{torch.equal(outs[0], outs[1])}, another seed differs "
+                             f"{not torch.equal(outs[0], other)}")
+    emit({"phase": "towers", "what": "(d) train-mode OpenAI ViT-B/16, patch_dropout 0.5, "
+                                     "drop_path_rate 0.1 (0 to 0.1 over the blocks), seeded "
+                                     f"CUDA generator, batch {TOWER_BATCH}, 224 px, fp32",
+          "tokens_per_image_train_eval": kept, "same_seed_equal": True,
+          "other_seed_differs": True,
+          "train_vs_eval_max_abs_diff": (outs[0] - evaluated).abs().max().item(), "gpu": gpu})
+    del tower
+    torch.cuda.empty_cache()
+    return seen
+
+
+def towers_phase(gpu, gen, worst) -> tuple:
+    """Phase ``towers``: (a) ``towers_openai``, (b) ``towers_biomedclip_fp16``,
+    (c) ``towers_dense``, (d) ``towers_train_mode``, then every distinct
+    flash launch of (a)-(c) held against its plain version and timed, one
+    ``per_forward`` line per tower path (the errors go into
+    ``worst["flash_towers"]``). Returns (the phase's flash launches by
+    dtype, the per-shape measurements)."""
+    launched, per_call = Counter(), {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_towers_") as tmp:
+        for got, calls in (towers_openai(gpu, tmp), towers_biomedclip_fp16(gpu),
+                           towers_dense(gpu)):
+            launched.update(got)
+            per_call.update(calls)
+    launched.update(towers_train_mode(gpu))
+    measured = {}
+    for path, shapes in per_call.items():
+        tot, per_shape = Counter(), []
+        for (shape, dtype), count in shapes.items():
+            if (shape, dtype) not in measured:
+                measured[(shape, dtype)] = measure_flash(shape, dtype, gen)
+            m = measured[(shape, dtype)]
+            per_shape.append([list(shape), str(dtype).replace("torch.", ""), count,
+                              round(m["ms"], 4), round(m["device_ms"], 4),
+                              round(m["bound_ms"], 4), round(m["library_ms"], 4)])
+            for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += m[key] * count
+            worst["flash_towers"] = max(worst["flash_towers"], m["max_abs_err"])
+        emit({"phase": "per_forward", "kernel": "flash", "path": path,
+              "launches_per_forward": sum(shapes.values()),
+              **{k: round(v, 4) for k, v in tot.items()},
+              "shapes_dtype_count_ms_device_bound_library": per_shape, "gpu": gpu})
+    by_dtype = Counter()
+    for (_, dtype), count in launched.items():
+        by_dtype[str(dtype).replace("torch.", "")] += count
+    per_shape = [dict(shape=list(s), dtype=str(d).replace("torch.", ""),
+                      **{k: m[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "max_abs_err")})
+                 for (s, d), m in measured.items()]
+    return by_dtype, per_shape
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_CONFIGS = {"drift_fp32": "Configurations/flagship_tpu.yml",
                  "drift_bf16": "Configurations/flagship_bf16_tpu.yml",
                  "ddpm": "Configurations/flagship_ddpm_tpu.yml"}
-# the drift fp32 run: 2 epochs of 6 iterations at the configs' batch 4, a
-# checkpoint at 6 (an epoch's end, where a resume re-enters) and 12, inline
-# validation at 12; bf16 and DDPM: one epoch of SHORT_ITERS, validated at its end
-TRAIN_ITERS, TRAIN_SAVE, SHORT_ITERS, TIMED_STEPS = 12, 6, 4, 6
+# the drift fp32 run: 2 epochs of TRAIN_SAVE iterations at the configs' batch
+# 4 (cut from 2 of 6 for the script's time), a checkpoint at each epoch's end
+# (where a resume re-enters), inline validation at the end; bf16 and DDPM:
+# one epoch of SHORT_ITERS, validated at its end
+TRAIN_ITERS, TRAIN_SAVE, SHORT_ITERS, TIMED_STEPS = 8, 4, 4, 6
 # the CUDA-vs-CPU gradient check: a narrower drift engine, fp32, the tiny text tower
 GRAD_NET = dict(in_nc=2, out_nc=5, nf=64, ch_mult=[1, 2], num_res_blocks=2, context_dim=512,
                 text_module="scoremap", score_map_chan=16)
@@ -2148,8 +2610,9 @@ def grad_check(gpu) -> None:
 def train_phase(gpu) -> None:
     """The training path: ``tools/trainUM`` on the card at flagship width
     (224 px, batch 4, the configs' nets) over SpeckleMed phantoms. Drift
-    fp32, remat on: 12 iterations with checkpoints at 6 and 12 and inline
-    validation at 12, then resumed from 6 to 12, whose nets, EMA and Adam
+    fp32, remat on: ``TRAIN_ITERS`` iterations with checkpoints every
+    ``TRAIN_SAVE`` and inline validation at the end, then resumed from the
+    first checkpoint to the end, whose nets, EMA and Adam
     moments must equal the uninterrupted run's; these two runs alone under
     cuDNN deterministic (its default backward algorithms are not
     repeatable). Everything after runs at PyTorch's defaults: the bundle
@@ -2197,8 +2660,9 @@ def train_phase(gpu) -> None:
             raise AssertionError(f"inline validation launches per step {val.launches}")
         summary = step_summary(rec_a, 4)
         emit({"phase": "train", "what": "trainUM drift fp32 flagship_tpu.yml, 224 px, "
-                                        "batch 4, remat on: 12 iterations, then resumed "
-                                        "from 6 to 12, both runs under cuDNN deterministic",
+                                        f"batch 4, remat on: {TRAIN_ITERS} iterations, then "
+                                        f"resumed from {TRAIN_SAVE} to {TRAIN_ITERS}, both runs "
+                                        "under cuDNN deterministic",
               "steps": summary["steps"], "loss_first": summary["loss_first"],
               "loss_last": summary["loss_last"],
               "ms_per_step_cudnn_deterministic": summary["ms_per_step"],
@@ -2336,12 +2800,12 @@ FLASH_WIDTH_N = 1024
 
 
 def flash_widths(gpu) -> None:
-    """The flash kernel at every head width and dtype against its plain
-    version, timed with its bound and SDPA's time, at [8, 4, 1024, D]; which
-    kernel the plan picks."""
+    """The flash kernel at every head width and dtype (fp32, bf16, fp16)
+    against its plain version, timed with its bound and SDPA's time, at
+    [8, 4, 1024, D]; which kernel the plan picks."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     for D in HEAD_WIDTHS:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             shape = (BATCH, 4, FLASH_WIDTH_N, D)
             m = measure_flash(shape, dtype, gen)
             emit({"phase": "check", "what": "flash at every head width", "shape": shape,
@@ -2599,7 +3063,8 @@ print(json.dumps({"per_modality": out, "launches": kernel_launches("launches")})
 def start_demo(tmp) -> tuple:
     """``demo_all_modalities`` (``DEMO_STEPS`` steps on the card) started in a
     process of its own: a tiny net's train step is host-bound, so it runs
-    beside the phase's other work. Returns (process, start time)."""
+    beside other work (phases ``irsde`` and ``dist``). Returns (process,
+    start time)."""
     script = os.path.join(tmp, "demo_all_modalities_json.py")
     with open(script, "w") as f:
         f.write(DEMO_SCRIPT)
@@ -2624,20 +3089,21 @@ def finish_demo(gpu, started) -> Counter:
     demo = result["per_modality"]
     short = {m: s for m, s in demo.items()
              if not s["restored"]["PSNR"] >= s["degraded"]["PSNR"] + GATE_MIN_GAIN_DB}
+    launches = {k: result["launches"][name] for k, name in NAMES.items()}
     emit({"phase": "distill", "what": "demo_all_modalities on the card: one nf 16 model, all "
                                       f"five modalities, {DEMO_STEPS} steps of batch 10, T=16, "
-                                      "eta 1 (a process of its own, beside the phase's other "
-                                      "work)",
-          "per_modality": demo, "seconds": round(time.time() - t0, 3), "gpu": gpu})
+                                      "eta 1 (a process of its own, beside phases irsde and "
+                                      "dist); its launches not in the kernels line",
+          "per_modality": demo, "launches": launches, "seconds": round(time.time() - t0, 3),
+          "gpu": gpu})
     if short:
         raise AssertionError(f"demo: restored < degraded + {GATE_MIN_GAIN_DB} dB for {short}")
-    return Counter({k: result["launches"][name] for k, name in NAMES.items()})
+    return Counter(launches)
 
 
 def distill_gate(gpu, tmp) -> Counter:
     """(b) JAX's distillation gate on weights that learned, fp32 at nf 16,
-    ch_mult [1, 2] (8-wide bottleneck heads): ``demo_all_modalities``
-    (``DEMO_STEPS`` steps, each modality restored >= degraded + 6 dB); the gate's teacher
+    ch_mult [1, 2] (8-wide bottleneck heads): the gate's teacher
     trained with the recipe of JAX's fixture, one ``distill_phase`` to T=8,
     the student >= degraded + 6 dB and within 1 dB of the teacher; then a
     port Synthetic set (32 px, 2 test images per type) with its manifest,
@@ -2728,24 +3194,18 @@ def distill_gate(gpu, tmp) -> Counter:
 
 def distill_phase_chip(gpu) -> None:
     """Phase ``distill``: (a) at flagship width and (b) the gate; its
-    launches in a line of its own."""
+    launches in a line of its own. (b)'s demo runs later, beside phases
+    ``irsde`` and ``dist`` (``start_demo``, ``finish_demo``)."""
     t0 = time.time()
     total = Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
-        demo = start_demo(tmp)
-        try:
-            total.update(distill_flagship(gpu, tmp))
-            total.update(distill_gate(gpu, tmp))
-            total.update(finish_demo(gpu, demo))
-        finally:
-            if demo[0].poll() is None:
-                demo[0].kill()
-                demo[0].wait()
+        total.update(distill_flagship(gpu, tmp))
+        total.update(distill_gate(gpu, tmp))
     if not all(total[k] for k in ("conv", "flash", "affine")):
         raise AssertionError(f"the distill phase launched {dict(total)}")
     emit({"phase": "distill", "what": "kernel launches of the phase (the teachers' rollouts, "
-                                      "the students' and the demo's sampling, eval_protocol; "
-                                      "the eager comparisons apart), not in the kernels line",
+                                      "the students' sampling, eval_protocol; the eager "
+                                      "comparisons apart), not in the kernels line",
           "launches": dict(total), "seconds": round(time.time() - t0, 3), "gpu": gpu})
 
 
@@ -3103,7 +3563,9 @@ def dist_phase(gpu, started) -> None:
 
 # ---------------------------------------------------------------- IR-SDE
 
-IRSDE_OPT = {"class_name": "IRSDE", "T": 100}
+# T cut from the configs' 100 for the script's time: the loops' depth, not
+# their widths (each step is one full-width noise-net forward)
+IRSDE_OPT = {"class_name": "IRSDE", "T": 50}
 # per noise-net forward (one per sampler step / function evaluation): the
 # DDPM net on the unfused body; the drift engine's noise net on the fused body
 IRSDE_PATHS = {"ddpm": {"conv": 0, "flash": 1, "gn": 45, "affine": 0},
@@ -3158,11 +3620,11 @@ def irsde_loops(sde, noise_fn, mu, init, steps, plain: bool) -> dict:
 
 
 def irsde_phase(gpu) -> Counter:
-    """Phase ``irsde``: ``create_sde({"class_name": "IRSDE", "T": 100})``
+    """Phase ``irsde``: ``create_sde(IRSDE_OPT)`` (T=50)
     driven by two noise predictors at full width with seeded random weights
     (the DDPM net of flagship_ddpm_tpu.yml's widths, unfused body; the
     flagship drift engine's noise net, fused body), 256 px, batch 8, bf16:
-    reverse_sde (stochastic, injected noise) and reverse_ode at all 100
+    reverse_sde (stochastic, injected noise) and reverse_ode at all T
     steps on the kernels and on the plain path, held within ``TOL[bf16]``
     of the plain result's largest value, launches per step held to
     ``IRSDE_PATHS``, ms per step; then ``ode_sampler`` in fp32 (rtol = atol
@@ -3553,6 +4015,14 @@ def main() -> int:
                     worst[kname] = max(worst[kname], m["max_abs_err"])
                 emit({"phase": "check", "kernel": NAMES[kname], "shape": shape,
                       "dtype": str(dtype), "tol": TOL[dtype], **m, "gpu": gpu})
+    # the fp16 instantiation of the 16-bit flash kernel at the towers' shapes
+    check_fp16 = []
+    for shape in FLASH_FP16_SHAPES:
+        m = measure_flash(shape, torch.float16, gen)
+        worst["flash_fp16"] = max(worst["flash_fp16"], m["max_abs_err"])
+        check_fp16.append(dict(shape=list(shape), dtype="float16", **m))
+        emit({"phase": "check", "kernel": NAMES["flash"], "shape": shape,
+              "dtype": str(torch.float16), "tol": TOL[torch.float16], **m, "gpu": gpu})
 
     # the flash kernel at every head width, profiled here: in later phases
     # torch.profiler undercounts the kernel libraries' launches
@@ -3670,6 +4140,12 @@ def main() -> int:
     launches.update(encoded)
     marks.append(("encoders", time.time()))
 
+    # 6c. the tower breadth: OpenAI RN50 and ViT-B/16 through
+    # load_openai_model, BiomedCLIP at fp16, the dense ViT and the context
+    # decoders, a train-mode ViT; before train, for the same profiler reason
+    towers_launches, towers_shapes = towers_phase(gpu, gen, worst)
+    marks.append(("towers", time.time()))
+
     # 7. training: trainUM at flagship width, resume, serving what it
     # trained; after the kernels' timings, which its profiles would disturb
     train_phase(gpu)
@@ -3683,16 +4159,23 @@ def main() -> int:
     # 9. IR-SDE on the kernels (its launches count in the kernels line), and
     # 10. data-parallel training
     # (dist's (a) runs in the background beside irsde: two trainUM processes,
-    # mostly process start, engine build and saves)
+    # mostly process start, engine build and saves; distill's demo, a tiny
+    # host-bound net in a process of its own, runs beside both)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as dist_tmp:
         started = start_dist_launches(dist_tmp)
+        demo = start_demo(dist_tmp)
         try:
             launches.update(irsde_phase(gpu))
             marks.append(("irsde", time.time()))
             dist_phase(gpu, started)
             marks.append(("dist", time.time()))
+            finish_demo(gpu, demo)
+            marks.append(("demo", time.time()))
         finally:
             stop_dist_launches(started)
+            if demo[0].poll() is None:
+                demo[0].kill()
+                demo[0].wait()
     emit({"phase": "timing", "what": "wall seconds of each stretch of the script, in order",
           "seconds": {name: round(t - marks[i][1], 1) for i, (name, t) in
                       enumerate(marks[1:])}, "gpu": gpu})
@@ -3704,8 +4187,22 @@ def main() -> int:
         "launches": launches["flash_tower"], "launches_dtype": "float32", "per_shape": [
             {k: m[k] for k in ("shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "max_abs_err")} for m in tower]}
+    # the tower breadth's flash launches (fp32 on the split-TF32 kernel, fp16
+    # on the 16-bit one) and the measurements of their shapes, and the fp16
+    # instantiation's check at the towers' shapes
+    entries["flash"]["towers"] = {"launches_by_dtype": dict(towers_launches),
+                                  "max_abs_err": worst["flash_towers"],
+                                  "per_shape": towers_shapes}
+    entries["flash"]["fp16"] = {"launches": towers_launches["float16"],
+                                "max_abs_err": worst["flash_fp16"], "check": [
+                                    {k: m[k] for k in ("shape", "dtype", "ms", "device_ms",
+                                                       "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms", "max_abs_err")}
+                                    for m in check_fp16]}
     idle = [k for k, e in entries.items() if not e["launches"]] + (
-        [] if launches["flash_tower"] else ["flash (image tower)"])
+        [] if launches["flash_tower"] else ["flash (image tower)"]) + (
+        [] if towers_launches["float16"] and towers_launches["float32"]
+        else ["flash (towers, fp16 and fp32)"])
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
     entries = list(entries.values())

@@ -1,13 +1,16 @@
 // Blockwise-softmax attention: o = softmax(q k^T * scale) v, unmasked.
 //
 // Replaces instancediff_tpu/ops/pallas_kernels.py:flash_attention (Pallas
-// kernel _flash_kernel). q/k/v/o are [BH, N, D] in T (bf16 or fp32); scores,
+// kernel _flash_kernel). q/k/v/o are [BH, N, D] in T (bf16, fp16 or fp32); scores,
 // the online max/sum and the accumulator are fp32; o is stored in T. The
 // UNet's bottleneck has 4 heads, so D = nf * ch_mult[-1] / 4: 64 at the
 // flagship's widths, 4 to 128 at the repo's other configurations; the ViT
-// image tower has D = 64. The launch plan (which kernel serves a (D, dtype))
-// is ops/flash_attention.py:flash_plan, which mirrors flash_forward below.
-// Every (D, dtype) of HEAD_WIDTHS x {bf16, fp32} runs on the tensor cores.
+// image tower has D = 64, and so have the RN50 CLIP tower's attention pool
+// ([B, 32, 50, 64]), the dense ViT and the reference context decoder's self-
+// attention. The launch plan (which kernel serves a (D, dtype)) is
+// ops/flash_attention.py:flash_plan, which mirrors flash_forward below.
+// Every (D, dtype) of HEAD_WIDTHS x {bf16, fp16, fp32} runs on the tensor
+// cores.
 //
 // What bounds it on the H100: per head it does 4*N*Nk*D FLOPs on
 // 2*(2*N + 2*Nk)*D*sizeof(T) bytes, i.e. N/2 FLOP/byte in bf16 at D = 64
@@ -31,13 +34,16 @@
 // score -inf, query rows past N are not stored. Row strides in shared
 // memory are padded so that the fragment reads are free of bank conflicts.
 //
-// bf16 (flash_tc_kernel<D>): m16n8k16 bf16 -> fp32 (exact products of bf16
-// inputs), B fragments by ldmatrix (.trans for V). D < 16 pads the QK^T
-// contraction to k = 16 with zero columns (exact) and P V computes one
-// 8-wide n block of which D columns are stored; at D = 4 a row is 8 bytes,
-// copied by 8-byte cp.async. P is rounded to bf16 in registers before P V,
-// the one departure from the TPU kernel's all-fp32 arithmetic (the result
-// stays within the bf16 tolerance of the plain fp32 version).
+// bf16 and fp16 (flash_tc_kernel<T, D>, one template over the 16-bit type
+// T): m16n8k16 bf16 or f16 -> fp32 (exact products of 16-bit inputs), B
+// fragments by ldmatrix (.trans for V). D < 16 pads the QK^T contraction to
+// k = 16 with zero columns (exact) and P V computes one 8-wide n block of
+// which D columns are stored; at D = 4 a row is 8 bytes, copied by 8-byte
+// cp.async. P is rounded to T in registers before P V, the one departure
+// from the TPU kernel's all-fp32 arithmetic (the result stays within the
+// 16-bit tolerance of the plain fp32 version; P lies in [0, 1], where fp16's
+// 11-bit significand rounds finer than bf16's 8 bits). The fp16 kernel is
+// BiomedCLIP's at precision fp16 / pure_fp16.
 //
 // fp32 (flash_tf32x3_kernel<D>): m16n8k8 tf32 -> fp32 with split-TF32
 // products (3xTF32): each fp32 operand a is split as its fragment is read
@@ -63,6 +69,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -100,9 +107,23 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+// d += a * b on m16n8k16 with fp32 accumulators, a and b in T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float* d, const uint32_t* a, uint32_t b0,
+                                                        uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(float* d, const uint32_t* a, uint32_t b0,
+                                                 uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -114,8 +135,17 @@ __device__ __forceinline__ void mma1688(float* d, const uint32_t* a, uint32_t b0
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+// two floats rounded to nearest T (bf16 or fp16), packed lo | hi << 16
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 // round to nearest, ties away from zero, to TF32 (the low 13 bits zero)
@@ -193,9 +223,9 @@ __device__ __forceinline__ void finish_sums(float& l0, float& l1) {
   }
 }
 
-// ---------------------------------------------------------------- bf16
+// ---------------------------------------------------------------- bf16 and fp16
 
-// the bf16 kernel's shapes at head width D
+// the 16-bit kernel's shapes at head width D
 template <int D>
 struct TcShape {
   static constexpr int TK = 64;                  // keys per tile
@@ -206,17 +236,16 @@ struct TcShape {
   static constexpr int SMEM = 2 * 2 * TK * LDH * 2;  // K and V, double-buffered
 };
 
-// rows [row0, row0 + TK) of a [rows, D] bf16 matrix into a [TK][LDH] tile,
-// zero past `rows`; NT threads
-template <int D, int NT>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int rows) {
+// rows [row0, row0 + TK) of a [rows, D] 16-bit matrix into a [TK][LDH]
+// tile, zero past `rows`; NT threads
+template <typename T, int D, int NT>
+__device__ __forceinline__ void load_tile_16(T* dst, const T* src, int row0, int rows) {
   using S = TcShape<D>;
   constexpr int PER_ROW = D / S::CH;
   for (int i = threadIdx.x; i < S::TK * PER_ROW; i += NT) {
     const int r = i / PER_ROW, ch = i % PER_ROW;
     const bool ok = row0 + r < rows;
-    const __nv_bfloat16* s = src + (ok ? (size_t)(row0 + r) * D + ch * S::CH : 0);
+    const T* s = src + (ok ? (size_t)(row0 + r) * D + ch * S::CH : 0);
     if constexpr (S::CH == 8)
       cp_async16(dst + r * S::LDH + ch * 8, s, ok ? 16 : 0);
     else
@@ -224,35 +253,36 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bf
   }
 }
 
-// WARPS warps, 16 query rows each, share every K/V tile
-template <int D, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32) flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                                                       const __nv_bfloat16* __restrict__ k,
-                                                       const __nv_bfloat16* __restrict__ v,
-                                                       __nv_bfloat16* __restrict__ o, int N,
-                                                       int Nk, float scale_log2) {
+// WARPS warps, 16 query rows each, share every K/V tile; T is __nv_bfloat16
+// or __half
+template <typename T, int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32) flash_tc_kernel(const T* __restrict__ q,
+                                                       const T* __restrict__ k,
+                                                       const T* __restrict__ v,
+                                                       T* __restrict__ o, int N, int Nk,
+                                                       float scale_log2) {
   using S = TcShape<D>;
   constexpr int TK = S::TK, LDH = S::LDH, KB = S::DK / 16, ND = S::ND;
   constexpr int TQ = WARPS * 16, NT = WARPS * 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][TK][LDH]
-  __nv_bfloat16* Vs = Ks + 2 * TK * LDH;                           // [2][TK][LDH]
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [2][TK][LDH]
+  T* Vs = Ks + 2 * TK * LDH;               // [2][TK][LDH]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * TQ;
-  const __nv_bfloat16* qg = q + (size_t)blockIdx.y * N * D;
-  const __nv_bfloat16* kg = k + (size_t)blockIdx.y * Nk * D;
-  const __nv_bfloat16* vg = v + (size_t)blockIdx.y * Nk * D;
+  const T* qg = q + (size_t)blockIdx.y * N * D;
+  const T* kg = k + (size_t)blockIdx.y * Nk * D;
+  const T* vg = v + (size_t)blockIdx.y * Nk * D;
 
   if constexpr (D < S::DK) {  // the padded columns, which cp.async never writes, are 0
     for (int i = threadIdx.x; i < 2 * 2 * TK * (S::DK - D); i += NT) {
       const int row = i / (S::DK - D), col = D + i % (S::DK - D);
-      Ks[row * LDH + col] = __float2bfloat16(0.f);  // rows 0..4*TK-1 span Ks and Vs
+      Ks[row * LDH + col] = T(0.f);  // rows 0..4*TK-1 span Ks and Vs
     }
   }
-  load_tile_bf16<D, NT>(Ks, kg, 0, Nk);
-  load_tile_bf16<D, NT>(Vs, vg, 0, Nk);
+  load_tile_16<T, D, NT>(Ks, kg, 0, Nk);
+  load_tile_16<T, D, NT>(Vs, vg, 0, Nk);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   // ldmatrix x4 lane roles: K (non-trans): key rows lane&7 + 8*bit4, d half
@@ -288,14 +318,14 @@ __global__ void __launch_bounds__(WARPS * 32) flash_tc_kernel(const __nv_bfloat1
   for (int j = 0; j < tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < tiles) {
-      load_tile_bf16<D, NT>(Ks + (buf ^ 1) * TK * LDH, kg, (j + 1) * TK, Nk);
-      load_tile_bf16<D, NT>(Vs + (buf ^ 1) * TK * LDH, vg, (j + 1) * TK, Nk);
+      load_tile_16<T, D, NT>(Ks + (buf ^ 1) * TK * LDH, kg, (j + 1) * TK, Nk);
+      load_tile_16<T, D, NT>(Vs + (buf ^ 1) * TK * LDH, vg, (j + 1) * TK, Nk);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    const __nv_bfloat16* Kt = Ks + buf * TK * LDH;
-    const __nv_bfloat16* Vt = Vs + buf * TK * LDH;
+    const T* Kt = Ks + buf * TK * LDH;
+    const T* Vt = Vs + buf * TK * LDH;
 
     float s[TK / 8][4];
 #pragma unroll
@@ -308,29 +338,30 @@ __global__ void __launch_bounds__(WARPS * 32) flash_tc_kernel(const __nv_bfloat1
       for (int cp = 0; cp < TK / 16; ++cp) {
         uint32_t b[4];
         ldsm_x4(b, Kt + (cp * 16 + k_row) * LDH + kk * 16 + k_col);
-        mma16816(s[2 * cp], qf[kk], b[0], b[1]);
-        mma16816(s[2 * cp + 1], qf[kk], b[2], b[3]);
+        mma16816<T>(s[2 * cp], qf[kk], b[0], b[1]);
+        mma16816<T>(s[2 * cp + 1], qf[kk], b[2], b[3]);
       }
 
     online_softmax<TK / 8, ND>(s, acc, m0, m1, l0, l1, j * TK, Nk, t4, scale_log2);
 
-    // P (bf16, registers) as the A operand of P V
+    // P (T, registers) as the A operand of P V
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk) {
-      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
-                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
       if constexpr (ND == 1) {
         uint32_t b[2];
         ldsm_x2_t(b, Vt + (kk * 16 + a_row) * LDH);
-        mma16816(acc[0], pa, b[0], b[1]);
+        mma16816<T>(acc[0], pa, b[0], b[1]);
       } else {
 #pragma unroll
         for (int dp = 0; dp < ND / 2; ++dp) {
           uint32_t b[4];
           ldsm_x4_t(b, Vt + (kk * 16 + a_row) * LDH + dp * 16 + a_col);
-          mma16816(acc[2 * dp], pa, b[0], b[1]);
-          mma16816(acc[2 * dp + 1], pa, b[2], b[3]);
+          mma16816<T>(acc[2 * dp], pa, b[0], b[1]);
+          mma16816<T>(acc[2 * dp + 1], pa, b[2], b[3]);
         }
       }
     }
@@ -340,15 +371,17 @@ __global__ void __launch_bounds__(WARPS * 32) flash_tc_kernel(const __nv_bfloat1
   finish_sums(l0, l1);
   const float i0 = 1.f / l0, i1 = 1.f / l1;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* og = o + (size_t)blockIdx.y * N * D;
+  T* og = o + (size_t)blockIdx.y * N * D;
 #pragma unroll
   for (int c = 0; c < ND; ++c) {
     const int col = c * 8 + t4 * 2;
     if (col >= D) continue;
     if (r0 < N)
-      *reinterpret_cast<uint32_t*>(og + (size_t)r0 * D + col) = pack2(acc[c][0] * i0, acc[c][1] * i0);
+      *reinterpret_cast<uint32_t*>(og + (size_t)r0 * D + col) =
+          pack2<T>(acc[c][0] * i0, acc[c][1] * i0);
     if (r1 < N)
-      *reinterpret_cast<uint32_t*>(og + (size_t)r1 * D + col) = pack2(acc[c][2] * i1, acc[c][3] * i1);
+      *reinterpret_cast<uint32_t*>(og + (size_t)r1 * D + col) =
+          pack2<T>(acc[c][2] * i1, acc[c][3] * i1);
   }
 }
 
@@ -542,13 +575,16 @@ cudaError_t launch(Kern kern, int* allowed, int smem, int warps, const void* q, 
 }
 
 template <int D>
-cudaError_t launch_d(int path, int warps, const void* q, const void* k, const void* v, void* o,
-                     int BH, int N, int Nk, float scale_log2, cudaStream_t s) {
-  static int allowed_tc[kMaxDevices] = {}, allowed_f4[kMaxDevices] = {},
-             allowed_f8[kMaxDevices] = {};
+cudaError_t launch_d(int dtype, int path, int warps, const void* q, const void* k, const void* v,
+                     void* o, int BH, int N, int Nk, float scale_log2, cudaStream_t s) {
+  static int allowed_tc[kMaxDevices] = {}, allowed_h[kMaxDevices] = {},
+             allowed_f4[kMaxDevices] = {}, allowed_f8[kMaxDevices] = {};
+  if (path == 1 && dtype == 1)
+    return launch<__nv_bfloat16>(flash_tc_kernel<__nv_bfloat16, D, kWarps>, allowed_tc,
+                                 TcShape<D>::SMEM, kWarps, q, k, v, o, BH, N, Nk, scale_log2, s);
   if (path == 1)
-    return launch<__nv_bfloat16>(flash_tc_kernel<D, kWarps>, allowed_tc, TcShape<D>::SMEM, kWarps,
-                                 q, k, v, o, BH, N, Nk, scale_log2, s);
+    return launch<__half>(flash_tc_kernel<__half, D, kWarps>, allowed_h, TcShape<D>::SMEM,
+                          kWarps, q, k, v, o, BH, N, Nk, scale_log2, s);
   if (warps == 8)
     return launch<float>(flash_tf32x3_kernel<D, 8>, allowed_f8, TfShape<D, 8>::SMEM, 8, q, k, v,
                          o, BH, N, Nk, scale_log2, s);
@@ -558,26 +594,27 @@ cudaError_t launch_d(int path, int warps, const void* q, const void* k, const vo
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; path: 1 = the bf16 tensor-core kernel
-// (8 warps), 2 = the fp32 split-TF32 tensor-core kernel with `warps` 4 or 8,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; path: 1 = the 16-bit
+// tensor-core kernel (bf16 or fp16, 8 warps), 2 = the fp32 split-TF32
+// tensor-core kernel with `warps` 4 or 8,
 // as ops/flash_attention.py:flash_plan chooses (the path must match the
 // dtype); D in {4, 8, 16, 32, 64, 128}. Returns cudaGetLastError().
 extern "C" int flash_forward(const void* q, const void* k, const void* v, void* o, int BH, int N,
                              int Nk, int D, float scale, int dtype, int path, int warps,
                              void* stream) {
   if (BH <= 0 || N <= 0 || Nk <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
-  if (!((path == 1 && dtype == 1 && warps == kWarps) ||
+  if (!((path == 1 && (dtype == 1 || dtype == 2) && warps == kWarps) ||
         (path == 2 && dtype == 0 && (warps == 4 || warps == 8))))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 4: return (int)launch_d<4>(path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
-    case 8: return (int)launch_d<8>(path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
-    case 16: return (int)launch_d<16>(path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
-    case 32: return (int)launch_d<32>(path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
-    case 64: return (int)launch_d<64>(path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
-    case 128: return (int)launch_d<128>(path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
+    case 4: return (int)launch_d<4>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
+    case 8: return (int)launch_d<8>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
+    case 16: return (int)launch_d<16>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
+    case 32: return (int)launch_d<32>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
+    case 64: return (int)launch_d<64>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
+    case 128: return (int)launch_d<128>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

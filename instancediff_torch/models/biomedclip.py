@@ -4,7 +4,11 @@
 HFContextTextEncoder``) with its WordPiece tokenizer, L2-normalised
 ``encode_image`` / ``encode_text`` and logits at ``exp(logit_scale)``. The
 reference embeds each degraded image offline with it
-(``tools/precompute_embeddings.py``).
+(``tools/precompute_embeddings.py``). ``clip_type="CLIP"`` is the OpenAI
+flavour of the same wrapper (the OpenAI ViT, the CLIP text tower and its
+BPE tokenizer), and ``vision_tower="resnet"`` swaps the ViT for the RN
+family's ``vision_towers.ModifiedResNet``: what ``openai.load_openai_model``
+builds.
 
 The JAX wrapper draws its towers from ``seed`` (or loads an open_clip
 checkpoint's visual tower over the draw). The port draws nothing: its
@@ -14,10 +18,11 @@ flax trees ``tools/export_image_params.py --biomedclip`` writes with JAX
 (``params``, ``text_params``), and ``get_BiomedCLIP`` refuses with neither.
 ``encode_text`` refuses a text tower that no weights reached.
 
-``precision`` takes the reference's strings (``PRECISIONS``). fp32, bf16
-(bfloat16 compute, float32 parameters) and pure_bf16 (the parameters cast
-too) run; fp16 and pure_fp16 raise: the image tower's flash kernel takes
-float32 and bfloat16 only."""
+``precision`` takes the reference's strings (``PRECISIONS``): fp32; bf16 and
+fp16 (16-bit compute, float32 parameters); pure_bf16 and pure_fp16 (the
+parameters cast too, the norms' rounded values used in float32). The image
+tower's attention runs the flash kernel in the compute dtype (fp16 on its
+fp16 instantiation)."""
 
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ from ..utils.checkpoint import load_pytree
 from ..utils.convert import load_flax_params
 from .clip_vit import CLIPVisionTower, load_torch_clip_vision_weights
 from .layers import cast_compute_
-from .text_encoder import HFContextTextEncoder, load_torch_bert_weights, read_state_dict
-from .tokenizer import BertWordPieceTokenizer
+from .text_encoder import (CLIPTextContextEncoder, HFContextTextEncoder, load_torch_bert_weights,
+                           load_torch_clip_text_weights, read_state_dict)
+from .tokenizer import BertWordPieceTokenizer, ClipBPETokenizer
+from .vision_towers import ModifiedResNet, load_torch_clip_resnet_weights
 
 PRECISIONS = ("fp32", "fp16", "bf16", "pure_fp16", "pure_bf16")
 
@@ -75,19 +82,22 @@ def _tree(params):
 class BiomedCLIP:
     """``encode_image(images [B,H,W,1|3] in [-1,1]) -> [B, E]`` and
     ``encode_text(list of str) -> [K, E]``, both L2-normalised; calling it
-    gives the image-text logits: the timm ViT (exact GELU, eps 1e-6, no
-    ``ln_pre``), PubMedBERT and WordPiece (``vocab_path``, else the hash
-    fallback). ``precision``: one of ``PRECISIONS`` but fp16 and
-    pure_fp16."""
+    gives the image-text logits. ``clip_type`` "BiomedCLIP": the timm ViT
+    (exact GELU, eps 1e-6, no ``ln_pre``), PubMedBERT and WordPiece;
+    "CLIP": the OpenAI ViT (QuickGELU, eps 1e-5, ``ln_pre``), the CLIP text
+    tower and the BPE tokenizer (``vocab_path``: the vocab.txt or the bpe
+    merges file, else the hash fallback). ``vision_tower`` "resnet": the RN
+    family (``rn_layers``, ``rn_width``; attention-pool heads ``rn_width *
+    32 // 64``; tiny: (1, 1, 1, 1) and 8). ``precision``: one of
+    ``PRECISIONS``."""
 
-    def __init__(self, embed_dim=512, vocab_path=None,
+    def __init__(self, clip_type="BiomedCLIP", embed_dim=512, vocab_path=None,
                  checkpoint_path=None, params=None, text_params=None, tiny=False,
-                 vision_tower="vit", precision=None, device="cuda"):
-        if vision_tower == "resnet":
-            raise NotImplementedError(
-                "vision_tower='resnet' needs vision_towers.ModifiedResNet, not ported "
-                "(ROADMAP queue 1 item 5)")
-        if vision_tower != "vit":
+                 vision_tower="vit", rn_layers=(3, 4, 6, 3), rn_width=64, precision=None,
+                 device="cuda"):
+        if clip_type not in ("BiomedCLIP", "CLIP"):
+            raise ValueError(f"unknown clip_type {clip_type!r} (BiomedCLIP or CLIP)")
+        if vision_tower not in ("vit", "resnet"):
             raise ValueError(f"unknown vision_tower {vision_tower!r} (vit or resnet)")
         if checkpoint_path is None and params is None:
             raise ValueError(
@@ -95,31 +105,50 @@ class BiomedCLIP:
                 "params (the visual tower's flax tree, written with JAX by "
                 "tools/export_image_params.py --biomedclip); the port draws none")
         compute, param_cast, self.input_dtype = _precision_dtypes(precision)
-        if compute == torch.float16:
-            raise NotImplementedError(
-                f"precision {precision!r}: the image tower's flash kernel takes float32 and "
-                "bfloat16 only (fp32, bf16 or pure_bf16)")
         self.device = resolve_device(device)
+        self.clip_type = clip_type
         self.embed_dim = embed_dim
         self.precision = precision or "fp32"
-        if tiny:
-            self.visual = CLIPVisionTower(image_size=32, patch_size=8, width=32, layers=2,
-                                          heads=4, embed_dim=embed_dim)
-            self.text = HFContextTextEncoder(hidden=32, heads=4, layers=2, proj_dim=embed_dim,
-                                             vocab_size=512, context_length=32, max_position=64)
+        res = 32 if tiny else 224
+        if vision_tower == "resnet":
+            if tiny:
+                rn_layers, rn_width = (1, 1, 1, 1), 8
+            self.visual = ModifiedResNet(tuple(rn_layers), rn_width, embed_dim,
+                                         heads=max(1, rn_width * 32 // 64),
+                                         openai_normalize=True, image_size=res)
         else:
-            self.visual = CLIPVisionTower(embed_dim=embed_dim)
-            self.text = HFContextTextEncoder(proj_dim=embed_dim)
-        self.tokenizer = BertWordPieceTokenizer(vocab_path, self.text.context_length,
-                                                self.text.vocab_size)
+            flavour = "openai" if clip_type == "CLIP" else "timm"
+            size = (dict(image_size=32, patch_size=8, width=32, layers=2, heads=4) if tiny
+                    else {})
+            self.visual = CLIPVisionTower(embed_dim=embed_dim, flavour=flavour, **size)
+        if clip_type == "BiomedCLIP":
+            self.text = (HFContextTextEncoder(hidden=32, heads=4, layers=2, proj_dim=embed_dim,
+                                              vocab_size=512, context_length=32,
+                                              max_position=64) if tiny
+                         else HFContextTextEncoder(proj_dim=embed_dim))
+            self.tokenizer = BertWordPieceTokenizer(vocab_path, self.text.context_length,
+                                                    self.text.vocab_size)
+        else:
+            self.text = (CLIPTextContextEncoder(width=32, heads=4, layers=2, embed_dim=embed_dim,
+                                                vocab_size=512, context_length=16) if tiny
+                         else CLIPTextContextEncoder(embed_dim=embed_dim))
+            self.tokenizer = ClipBPETokenizer(vocab_path, self.text.context_length,
+                                              self.text.vocab_size)
         self.logit_scale = float(np.log(1 / 0.07))  # open_clip's init
         self.text_loaded = False
         with torch.no_grad():
             if checkpoint_path is not None:
                 sd = read_state_dict(checkpoint_path)
-                load_torch_clip_vision_weights(self.visual, sd)
-                if "text.transformer.embeddings.word_embeddings.weight" in sd:
+                if vision_tower == "resnet":
+                    load_torch_clip_resnet_weights(self.visual, sd)
+                else:
+                    load_torch_clip_vision_weights(self.visual, sd)
+                if clip_type == "BiomedCLIP" and \
+                        "text.transformer.embeddings.word_embeddings.weight" in sd:
                     load_torch_bert_weights(self.text, sd)
+                    self.text_loaded = True
+                if clip_type == "CLIP" and "token_embedding.weight" in sd:
+                    load_torch_clip_text_weights(self.text, sd)
                     self.text_loaded = True
             if params is not None:
                 load_flax_params(self.visual, _tree(params))
@@ -131,7 +160,7 @@ class BiomedCLIP:
             if param_cast is not None:  # pure_*: the whole model in the low precision,
                 module.to(param_cast)  # the norms' rounded values used in float32 as in JAX
                 for m in module.modules():
-                    if isinstance(m, nn.LayerNorm):
+                    if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                         m.float()
             cast_compute_(module, compute, master=param_cast is None)
 
@@ -152,10 +181,14 @@ class BiomedCLIP:
         if not self.text_loaded:
             raise ValueError("the text tower has no weights: pass text_params (written by "
                              "tools/export_image_params.py --biomedclip --text-out) or a "
-                             "checkpoint with text.* keys")
-        ids, mask = self.tokenizer(texts)
-        emb = self.text(torch.from_numpy(ids).to(self.device),
-                        torch.from_numpy(mask).to(self.device), None)
+                             "checkpoint with the text tower's keys")
+        if self.clip_type == "BiomedCLIP":
+            ids, mask = self.tokenizer(texts)
+            emb = self.text(torch.from_numpy(ids).to(self.device),
+                            torch.from_numpy(mask).to(self.device), None)
+        else:
+            emb = self.text(torch.from_numpy(np.asarray(self.tokenizer(texts))).to(self.device),
+                            None)
         if normalize:
             emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True).clamp(min=1e-8)
         return emb

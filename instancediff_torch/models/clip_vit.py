@@ -12,14 +12,17 @@ what ``build_image_tower`` builds) and OpenAI (QuickGELU, eps 1e-5,
 ``ln_pre``; what OpenAI's checkpoints hold). The blocks' self-attention is
 unmasked and runs the flash kernel on CUDA (ViT-B/16: 12 heads of 64; the
 kernel takes the head widths of ``ops/flash_attention.HEAD_WIDTHS``). The
-tower is frozen: PatchDropout and DropPath, the training-only
-options of the JAX tower, are refused."""
+training-only options run with ``deterministic=False``: PatchDropout
+(``patch_dropout_tokens``) after the position table, DropPath in the blocks,
+their draws from ``rng`` (a ``torch.Generator``, or an iterator of draws
+made elsewhere, as ``ops/attention.draw`` takes them)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
+from ..ops.attention import draw
 from .layers import conv_same, dense, layer_norm
 from .pos_embed import get_2d_sincos_pos_embed, interpolate_pos_embed
 from .text_encoder import TransformerBlock, read_state_dict
@@ -30,25 +33,45 @@ OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
 FLAVOURS = {"timm": ("gelu", 1e-6, False), "openai": ("quick_gelu", 1e-5, True)}
 
 
+def patch_dropout_tokens(x, prob: float, rng=None, exclude_first_token: bool = True):
+    """Training-time PatchDropout on tokens [B, N, C]: each sample keeps
+    ``max(1, int(n * (1 - prob)))`` of its n patch tokens, those of the
+    largest values of a standard-normal draw [B, n] (``ops/attention.draw``),
+    in the draw's descending order (as ``lax.top_k`` gives them); the first
+    (class) token is always kept when ``exclude_first_token``."""
+    if not 0.0 <= prob < 1.0:
+        raise ValueError(f"patch_dropout {prob} not in [0, 1)")
+    if prob == 0.0:
+        return x
+    cls_tok, patches = (x[:, :1], x[:, 1:]) if exclude_first_token else (x[:, :0], x)
+    B, n_tok = patches.shape[0], patches.shape[1]
+    num_keep = max(1, int(n_tok * (1.0 - prob)))
+    rand = draw(rng, (B, n_tok), torch.float32, x.device, normal=True)
+    keep = rand.topk(num_keep, dim=-1).indices
+    patches = torch.gather(patches, 1, keep[..., None].expand(B, num_keep, patches.shape[2]))
+    return torch.cat([cls_tok, patches], dim=1)
+
+
 class CLIPVisionTower(nn.Module):
-    """``forward(images [B, H, W, C in [-1, 1]]) -> [B, embed_dim]``. The
-    patch conv is flax's SAME-padded strided conv. ``flavour``: a
-    ``FLAVOURS`` key; ``pos_embed_type``: ``"learnable"`` or
+    """``forward(images [B, H, W, C in [-1, 1]], deterministic=True, rng=None)
+    -> [B, embed_dim]``. The patch conv is flax's SAME-padded strided conv.
+    ``flavour``: a ``FLAVOURS`` key; ``pos_embed_type``: ``"learnable"`` or
     ``"sin_cos_2d"`` (the table starts at the fixed 2-D sin-cos values of
     the ``image_size // patch_size`` grid); ``ls_init``: LayerScale in every
-    block. ``patch_dropout`` and ``drop_path_rate`` other than 0 raise
-    (training-only, not ported). Compute dtype: ``layers.cast_compute_``
-    (norms in float32, as in JAX)."""
+    block. With ``deterministic=False``: ``patch_dropout`` (the share of
+    patch tokens dropped) and ``drop_path_rate`` (stochastic depth, rising
+    linearly from 0 at the first block to the rate at the last, the
+    reference's decay rule), their draws from ``rng``: PatchDropout's
+    first, then each block's in order. Compute dtype:
+    ``layers.cast_compute_`` (norms in float32, as in JAX)."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16, width: int = 768,
                  layers: int = 12, heads: int = 12, embed_dim: int = 512,
                  flavour: str = "timm", pos_embed_type: str = "learnable", ls_init=None,
                  patch_dropout: float = 0.0, drop_path_rate: float = 0.0):
         super().__init__()
-        if patch_dropout or drop_path_rate:
-            raise NotImplementedError(
-                "PatchDropout and DropPath are training-only and not ported: the image tower "
-                "is frozen (ROADMAP queue 1 item 5)")
+        if not 0.0 <= patch_dropout < 1.0:
+            raise ValueError(f"patch_dropout {patch_dropout} not in [0, 1)")
         if flavour not in FLAVOURS:
             raise ValueError(f"unknown flavour {flavour!r}; valid: {sorted(FLAVOURS)}")
         if pos_embed_type not in ("learnable", "sin_cos_2d"):
@@ -57,6 +80,7 @@ class CLIPVisionTower(nn.Module):
         self.patch_size = patch_size
         self.width = width
         self.layers = layers
+        self.patch_dropout = patch_dropout
         grid = -(-image_size // patch_size)
         self.patch_embed = nn.Conv2d(3, width, patch_size, stride=patch_size)
         self.class_token = nn.Parameter(torch.zeros(1, 1, width))
@@ -64,13 +88,15 @@ class CLIPVisionTower(nn.Module):
             torch.from_numpy(get_2d_sincos_pos_embed(width, grid, cls_token=True))
             if pos_embed_type == "sin_cos_2d" else torch.zeros(grid * grid + 1, width))
         self.ln_pre = nn.LayerNorm(width, eps=ln_eps) if use_ln_pre else None
+        rates = torch.linspace(0, drop_path_rate, layers).tolist()
         for i in range(layers):
             self.add_module(f"block_{i}", TransformerBlock(width, heads, act=act, ln_eps=ln_eps,
-                                                           ls_init=ls_init))
+                                                           ls_init=ls_init,
+                                                           drop_path_rate=rates[i]))
         self.ln_post = nn.LayerNorm(width, eps=ln_eps)
         self.proj = nn.Linear(width, embed_dim, bias=False)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, deterministic: bool = True, rng=None) -> torch.Tensor:
         B, H, W, C = images.shape
         x01 = (images + 1.0) / 2.0
         if C == 1:
@@ -81,10 +107,12 @@ class CLIPVisionTower(nn.Module):
         x = x.reshape(B, -1, self.width)
         x = torch.cat([self.class_token.to(x.dtype).expand(B, 1, self.width), x], dim=1)
         x = x + self.pos_embed.to(x.dtype)[None]
+        if self.patch_dropout > 0.0 and not deterministic:
+            x = patch_dropout_tokens(x, self.patch_dropout, rng)
         if self.ln_pre is not None:
             x = layer_norm(self.ln_pre, x)
         for i in range(self.layers):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, deterministic=deterministic, rng=rng)
         x = layer_norm(self.ln_post, x)
         return dense(self.proj, x[:, 0])
 

@@ -62,14 +62,23 @@ def conv1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 
 def conv_transpose_same(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor:
-    """flax ``nn.ConvTranspose(k=4, s=2, padding="SAME")`` on NHWC. flax
-    correlates the 2x-dilated input, padded (2, 2), with the UNFLIPPED
-    kernel; torch's transposed conv flips its kernel, so the converter stores
-    the flax kernel flipped (utils/convert.py) and padding=1 here gives the
-    same (2, 2) effective padding."""
+    """flax ``nn.ConvTranspose(strides=2, padding="SAME")`` on NHWC at
+    ``up``'s kernel size (the UNet's k=4, the dense ViT's necks' k=2; stride
+    2 whatever stride the module was built with). flax
+    correlates the s-dilated input, padded (a, b) by lax's SAME rule (a = k
+    - 1 when s > k - 1, else ceil((k + s - 2) / 2); b = k + s - 2 - a), with
+    the UNFLIPPED kernel; torch's transposed conv flips its kernel, so the
+    converter stores the flax kernel flipped (utils/convert.py) and padding
+    k - 1 - a here gives the same effective padding (k=4: (2, 2), padding 1;
+    k=2: (1, 1), padding 0)."""
+    k, s = up.kernel_size[0], 2
+    a = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+    if k + s - 2 - a != a or up.kernel_size[1] != k:
+        raise ValueError(f"conv_transpose_same: kernel {up.kernel_size} at stride {s} "
+                         "has no symmetric torch padding")
     dt = compute_dtype(up)
     y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), up.weight.to(dt),
-                           _cast(up.bias, dt), stride=2, padding=1)
+                           _cast(up.bias, dt), stride=s, padding=k - 1 - a)
     return y.permute(0, 2, 3, 1)
 
 

@@ -19,8 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import multi_head_attention
-from ..ops.flash_attention import flash_attention
+from ..ops.attention import clamp_qkv, drop_path, multi_head_attention
+from ..ops.flash_attention import multi_head_flash
 from .layers import compute_dtype, dense, layer_norm
 from .pos_embed import resize_text_pos_embed
 
@@ -40,22 +40,29 @@ def exact_gelu(x):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: ``x + ls_1 * out_proj(attn(ln_1(x)))``, then ``x + ls_2
-    * proj(act(fc(ln_2(x))))``. ``act``: ``"quick_gelu"`` (OpenAI CLIP) or
-    ``"gelu"`` (exact erf GELU, timm and HF towers); ``ln_eps``: 1e-5
-    (OpenAI) or 1e-6 (timm); ``ls_init``: LayerScale gammas ``ls_1``/``ls_2``
-    of that initial value (none by default). A masked attention (the text
-    tower's causal mask) runs on ``ops/attention.py``'s plain matmuls; an
-    unmasked one (the image tower's) on ``ops/flash_attention.
+    """Pre-LN block: ``x + drop_path(ls_1 * out_proj(attn(ln_1(x))))``, then
+    ``x + drop_path(ls_2 * proj(act(fc(ln_2(x)))))``. ``act``:
+    ``"quick_gelu"`` (OpenAI CLIP) or ``"gelu"`` (exact erf GELU, timm and
+    HF towers); ``ln_eps``: 1e-5 (OpenAI) or 1e-6 (timm); ``ls_init``:
+    LayerScale gammas ``ls_1``/``ls_2`` of that initial value (none by
+    default); ``qkv_clamp``: q/k/v bounded to +-clamp before the attention
+    (the reference's fp16 overflow guard); ``drop_path_rate``: stochastic
+    depth on both branches, only with ``deterministic=False`` (one draw per
+    branch from ``rng``, ``ops/attention.draw``). A masked attention (the
+    text tower's causal mask) runs on ``ops/attention.py``'s plain matmuls;
+    an unmasked one (the image towers') on ``ops/flash_attention.
     flash_attention``: the kernel on CUDA, its plain version on the CPU."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  act: str = "quick_gelu", ln_eps: float = 1e-5,
-                 ls_init: Optional[float] = None):
+                 ls_init: Optional[float] = None, drop_path_rate: float = 0.0,
+                 qkv_clamp: Optional[float] = None):
         super().__init__()
         if act not in ("quick_gelu", "gelu"):
             raise ValueError(f"unknown act {act!r} (quick_gelu or gelu)")
         self.heads = heads
+        self.drop_path_rate = drop_path_rate
+        self.qkv_clamp = qkv_clamp
         self.act = quick_gelu if act == "quick_gelu" else exact_gelu
         self.ln_1 = nn.LayerNorm(width, eps=ln_eps)
         self.q_proj = nn.Linear(width, width)
@@ -73,25 +80,23 @@ class TransformerBlock(nn.Module):
 
     def _attention(self, q, k, v, mask):
         if mask is not None:
-            return multi_head_attention(q, k, v, self.heads, mask=mask)
-        B, N, C = q.shape
+            return multi_head_attention(q, k, v, self.heads, mask=mask,
+                                        qkv_clamp=self.qkv_clamp)
+        return multi_head_flash(*clamp_qkv(q, k, v, self.qkv_clamp), self.heads)
 
-        def split(t):
-            return t.reshape(B, N, self.heads, C // self.heads).transpose(1, 2)
+    def _branch(self, h, gamma, deterministic, rng):
+        h = h if gamma is None else h * gamma.to(h.dtype)
+        if self.drop_path_rate > 0.0 and not deterministic:
+            return drop_path(h, self.drop_path_rate, rng)
+        return h
 
-        out = flash_attention(split(q), split(k), split(v))
-        return out.transpose(1, 2).reshape(B, N, C)
-
-    def _branch(self, h, gamma):
-        return h if gamma is None else h * gamma.to(h.dtype)
-
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, deterministic: bool = True, rng=None):
         h = layer_norm(self.ln_1, x)
         attn = self._attention(dense(self.q_proj, h), dense(self.k_proj, h),
                                dense(self.v_proj, h), mask)
-        x = x + self._branch(dense(self.out_proj, attn), self.ls_1)
+        x = x + self._branch(dense(self.out_proj, attn), self.ls_1, deterministic, rng)
         h = self.act(dense(self.fc, layer_norm(self.ln_2, x)))
-        return x + self._branch(dense(self.proj, h), self.ls_2)
+        return x + self._branch(dense(self.proj, h), self.ls_2, deterministic, rng)
 
 
 class CLIPTextContextEncoder(nn.Module):
@@ -115,7 +120,7 @@ class CLIPTextContextEncoder(nn.Module):
 
     def forward(self, ids: torch.Tensor, context: Optional[torch.Tensor] = None):
         K, L = ids.shape
-        tok = self.token_embedding(ids.long())
+        tok = self.token_embedding(ids.long()).to(compute_dtype(self.token_embedding))
         if context is not None:
             n_ctx = context.shape[0]
             ctx = context[None].expand(K, n_ctx, self.width).to(tok.dtype)
@@ -189,7 +194,9 @@ class HFContextTextEncoder(nn.Module):
     context goes in after [CLS] and extends the sequence to L + n_ctx (no
     cut, unlike the CLIP tower); its mask is [mask[CLS], ones(n_ctx),
     mask[1:]]. Word + position + token-type-0
-    embeddings, ``embeddings_ln``, the post-LN layers under an additive
+    embeddings (valid token i reads position row i + ``position_offset``, 2
+    for the roberta family, capped so the rows stay in the table),
+    ``embeddings_ln``, the post-LN layers under an additive
     -inf mask over the keys, the pooler (``pooler_type``, a ``POOLERS`` key;
     default the [CLS] last hidden state), then a bias-free GELU MLP
     hidden -> (hidden + proj_dim) // 2 -> proj_dim."""
@@ -197,7 +204,7 @@ class HFContextTextEncoder(nn.Module):
     def __init__(self, context_length: int = 256, vocab_size: int = 30522, hidden: int = 768,
                  heads: int = 12, layers: int = 12, proj_dim: int = 512,
                  max_position: int = 512, pooler_type: str = "cls_last_hidden_state_pooler",
-                 ln_eps: float = 1e-12):
+                 ln_eps: float = 1e-12, position_offset: int = 0):
         super().__init__()
         if pooler_type not in POOLERS:
             raise ValueError(f"unknown pooler_type {pooler_type!r}; valid: {sorted(POOLERS)}")
@@ -207,6 +214,7 @@ class HFContextTextEncoder(nn.Module):
         self.layers = layers
         self.max_position = max_position
         self.pooler_type = pooler_type
+        self.position_offset = position_offset
         self.word_embeddings = nn.Embedding(vocab_size, hidden)
         self.position_embeddings = nn.Parameter(torch.zeros(max_position, hidden))
         self.token_type_embeddings = nn.Parameter(torch.zeros(2, hidden))
@@ -230,7 +238,8 @@ class HFContextTextEncoder(nn.Module):
                               attn_mask[:, 1:]], dim=1)
         else:
             x, mask = tok, attn_mask
-        x = (x + self.position_embeddings[: x.shape[1]].to(x.dtype)[None]
+        off = min(self.position_offset, self.max_position - x.shape[1])
+        x = (x + self.position_embeddings[off: off + x.shape[1]].to(x.dtype)[None]
              + self.token_type_embeddings[0].to(x.dtype)[None, None])
         x = layer_norm(self.embeddings_ln, x)
         add_mask = torch.zeros(mask.shape, dtype=torch.float32, device=ids.device) \

@@ -2,12 +2,14 @@
 
 Port of ``instancediff_tpu/ops/pallas_kernels.py:flash_attention`` (Pallas
 kernel ``_flash_kernel``), which takes any head width. The CUDA kernels are
-in ``csrc/flash_attention.cu``, both on the tensor cores (mma.sync) at every
-head width of ``HEAD_WIDTHS``: bf16 (the softmax weights are rounded to bf16
-before they multiply V, the one departure from the all-fp32 Pallas kernel)
-and fp32 in split TF32 (three TF32 products per fp32 product, fp32
-accuracy); ``flash_plan`` picks one. ``flash_attention_plain`` is the same
-function in plain PyTorch. The wrapper uses the plain version only for CPU
+in ``csrc/flash_attention.cu``, all on the tensor cores (mma.sync) at every
+head width of ``HEAD_WIDTHS``: bf16 and fp16 (one kernel template over the
+16-bit type; the softmax weights are rounded to that type before they
+multiply V, the one departure from the all-fp32 Pallas kernel) and fp32 in
+split TF32 (three TF32 products per fp32 product, fp32 accuracy);
+``flash_plan`` picks one. ``multi_head_flash`` splits [B, N, C] into heads
+around it, as the towers' unmasked self-attention needs.
+``flash_attention_plain`` is the same function in plain PyTorch. The wrapper uses the plain version only for CPU
 tensors: for a CUDA tensor it launches a kernel or raises; it raises when an
 input requires grad and gradients are on (the kernel has no backward)."""
 
@@ -17,7 +19,8 @@ import torch
 
 from . import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = "float32, bfloat16 or float16, all equal"
 # the head widths the kernels are instantiated for (``flash_forward`` in the
 # source): the UNet bottleneck's 4 heads give D = nf * ch_mult[-1] / 4
 HEAD_WIDTHS = (4, 8, 16, 32, 64, 128)
@@ -27,18 +30,17 @@ _PATHS = {"tc": 1, "tf32x3": 2}
 def flash_plan(D: int, dtype: torch.dtype, N: int = 1024) -> dict:
     """The kernel that serves head width ``D`` in ``dtype`` for ``N`` query
     rows, mirrored from ``flash_forward`` in ``csrc/flash_attention.cu``:
-    ``path`` "tc" (bf16, ``flash_tc_kernel``, 8 warps) or "tf32x3" (fp32 in
-    split TF32, ``flash_tf32x3_kernel``), both on the tensor cores at every
+    ``path`` "tc" (bf16 or fp16, ``flash_tc_kernel``, 8 warps) or "tf32x3"
+    (fp32 in split TF32, ``flash_tf32x3_kernel``), all on the tensor cores at every
     width of ``HEAD_WIDTHS``; ``warps`` per block (16 query rows each): the
     fp32 kernel takes 8 unless 64-row blocks of 4 warps pad N to over a
     tenth fewer rows. Raises for a width or dtype no kernel takes."""
     if dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: dtype {dtype} not supported "
-                        "(float32 or bfloat16, all equal)")
+        raise TypeError(f"flash_attention: dtype {dtype} not supported ({_DTYPE_NAMES})")
     if int(D) not in HEAD_WIDTHS:
         raise ValueError(f"flash_attention: head width D={D} has no kernel; the kernels "
                          f"take D in {HEAD_WIDTHS}")
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         return {"path": "tc", "D": int(D), "dtype": dtype, "warps": 8}
     # 8 warps (128-row blocks) ran faster per row; 4 where they pad N by
     # over a tenth more rows than 64-row blocks (N = 257: 384 against 320)
@@ -71,8 +73,7 @@ def flash_attention(q, k, v, scale=None):
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
-                        "(float32 or bfloat16, all equal)")
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported ({_DTYPE_NAMES})")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     B, H, N, D = q.shape
@@ -91,3 +92,16 @@ def flash_attention(q, k, v, scale=None):
 
 
 flash_attention.launches = flash_attention.captured = 0
+
+
+def multi_head_flash(q, k, v, heads: int):
+    """Unmasked multi-head attention on ``flash_attention``: q/k/v [B, N, C]
+    split into ``heads`` heads of C // heads, attended, merged back to
+    [B, N, C]."""
+    B, N, C = q.shape
+
+    def split(t):
+        return t.reshape(B, t.shape[1], heads, C // heads).transpose(1, 2)
+
+    out = flash_attention(split(q), split(k), split(v))
+    return out.transpose(1, 2).reshape(B, N, C)

@@ -25,7 +25,14 @@ So the towers' trees map with no table of their own: the image tower
 conv's weight [W,3,P,P], ``block_{i}``, ``ln_pre``/``ln_post``, ``proj``;
 the BERT tower (``text_encoder.HFContextTextEncoder``)
 ``word_embeddings.embedding``, ``embeddings_ln``, ``layer_{i}.{q,k,v,out}_proj``,
-``attn_ln``, ``fc``, ``proj``, ``ffn_ln``, ``proj_fc1``/``proj_fc2``.
+``attn_ln``, ``fc``, ``proj``, ``ffn_ln``, ``proj_fc1``/``proj_fc2``; the
+tower breadth (``models/vision_towers.py``): ``FrozenBatchNorm``'s free
+``scale``/``bias``/``mean``/``var``, the ResNets' bias-free convs HWIO <->
+OIHW, the attention pool's ``positional_embedding``, the dense ViT's
+``class_embedding``, ``positional_embedding`` and ``proj`` [width, out]
+(free), its necks' GroupNorms (``scale``) and flax ``ConvTranspose``
+kernels (flipped, as above), the decoders' Dense layers and
+``RefDecoderLayer``'s ``gamma_*``.
 
 Every leaf of the tree must be consumed and every parameter of the module
 filled; a leftover or a missing key raises. Adam's moments are trees of the

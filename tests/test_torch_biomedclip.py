@@ -308,29 +308,36 @@ def test_biomedclip_matches_jax(jax_model, vocab_file):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("precision", ["bf16", "pure_bf16"])
+@pytest.mark.parametrize("precision", ["bf16", "pure_bf16", "fp16", "pure_fp16"])
 def test_biomedclip_low_precision_matches_jax(jax_model, vocab_file, precision):
-    """``precision`` bf16 (bfloat16 compute, float32 parameters) and
-    pure_bf16 (the parameters cast too): ``encode_image`` and
-    ``encode_text`` within 1e-2 of JAX's model at that precision, from the
-    same trees."""
+    """``precision`` bf16 / fp16 (16-bit compute, float32 parameters) and
+    pure_bf16 / pure_fp16 (the parameters cast too): ``encode_image`` and
+    ``encode_text`` within 1e-2 of JAX's model at that precision (XLA's CPU
+    fp16 against the port's, whose CPU attention is the float32 plain
+    version), from the same trees; both within 1e-2 of JAX's fp32 model."""
+    low = jnp.bfloat16 if "bf16" in precision else jnp.float16
     with inits_shapes_only("BiomedCLIP"):
         want = jax_biomedclip.get_BiomedCLIP(tiny=True, precision=precision)
     want._encode_image = jax.jit(lambda p, x: want.visual.apply(p, x))
     want.tokenizer = jax_tok.BertWordPieceTokenizer(vocab_file, 32, 512)
-    cast = (lambda t: jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), t)) \
-        if precision == "pure_bf16" else (lambda t: t)
+    jax_model.tokenizer = want.tokenizer
+    cast = (lambda t: jax.tree.map(lambda x: jnp.asarray(x, low), t)) \
+        if precision.startswith("pure_") else (lambda t: t)
     want.visual_params, want.text_params = (cast(jax_model.visual_params),
                                             cast(jax_model.text_params))
     model = biomedclip.get_BiomedCLIP(vocab_path=vocab_file, tiny=True, precision=precision,
                                       params=jax_model.visual_params,
                                       text_params=jax_model.text_params, device="cpu")
     images = np.random.default_rng(8).uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
-    for got, ref in ((model.encode_image(images), want.encode_image(images)),
-                     (model.encode_text(TEXTS[:4]), want.encode_text(TEXTS[:4]))):
-        assert got.dtype == torch.bfloat16
+    fp32 = (jax_model.encode_image(images), jax_model.encode_text(TEXTS[:4]))
+    for got, ref, full in ((model.encode_image(images), want.encode_image(images), fp32[0]),
+                           (model.encode_text(TEXTS[:4]), want.encode_text(TEXTS[:4]), fp32[1])):
+        assert got.dtype == {jnp.bfloat16: torch.bfloat16, jnp.float16: torch.float16}[low]
+        assert np.asarray(ref).dtype == low
         np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=0,
                                    atol=1e-2)
+        for side in (got.float().numpy(), np.asarray(ref, np.float32)):
+            np.testing.assert_allclose(side, np.asarray(full), rtol=0, atol=1e-2)
 
 
 def test_biomedclip_precision_strings_match_jax():
@@ -350,18 +357,53 @@ def test_biomedclip_precision_strings_match_jax():
 
 
 def test_biomedclip_refuses_what_it_cannot_do(jax_model):
-    with pytest.raises(NotImplementedError, match="ModifiedResNet"):
-        biomedclip.BiomedCLIP(vision_tower="resnet", tiny=True, device="cpu",
-                              params=jax_model.visual_params)
+    """The refusals that stand: no weights (the port draws none), a text
+    tower no weights reached, an unknown tower or flavour. (The RN tower
+    and fp16 run: ``test_biomedclip_resnet_and_clip_match_jax``,
+    ``test_biomedclip_low_precision_matches_jax``.)"""
     with pytest.raises(ValueError, match="draws none"):
         biomedclip.get_BiomedCLIP(tiny=True, device="cpu")
-    for precision in ("fp16", "pure_fp16"):
-        with pytest.raises(NotImplementedError, match="float32 and bfloat16 only"):
-            biomedclip.get_BiomedCLIP(tiny=True, device="cpu", precision=precision,
-                                      params=jax_model.visual_params)
     model = biomedclip.get_BiomedCLIP(tiny=True, device="cpu", params=jax_model.visual_params)
     with pytest.raises(ValueError, match="text tower has no weights"):
         model.encode_text(["speckle in OCT"])
+    with pytest.raises(ValueError, match="unknown vision_tower"):
+        biomedclip.BiomedCLIP(vision_tower="convnext", tiny=True, device="cpu",
+                              params=jax_model.visual_params)
+    with pytest.raises(ValueError, match="unknown clip_type"):
+        biomedclip.BiomedCLIP(clip_type="SigLIP", tiny=True, device="cpu",
+                              params=jax_model.visual_params)
+
+
+@pytest.mark.parametrize("clip_type,vision_tower", [("BiomedCLIP", "resnet"), ("CLIP", "vit"),
+                                                    ("CLIP", "resnet")])
+def test_biomedclip_resnet_and_clip_match_jax(clip_type, vision_tower):
+    """``vision_tower="resnet"`` (the RN family's ``ModifiedResNet``, width
+    8, its attention pool's heads of 64) and ``clip_type="CLIP"`` (the
+    OpenAI ViT, the CLIP text tower, the BPE tokenizer's hash fallback):
+    ``encode_image``, ``encode_text`` and the logits within 1e-5 of JAX's
+    tiny model from the same trees."""
+    with inits_shapes_only("BiomedCLIP"):
+        want = jax_biomedclip.BiomedCLIP(clip_type=clip_type, vision_tower=vision_tower,
+                                         tiny=True)
+    want._encode_image = jax.jit(lambda p, x: want.visual.apply(p, x))
+    rng = np.random.default_rng(9)
+    # BatchNorm variances (zeros from the shapes-only init) kept positive
+    want.visual_params = jax.tree_util.tree_map_with_path(
+        lambda path, v: np.abs(v) + 0.5 if path[-1].key == "var" else v,
+        randomize(jax.tree.map(np.asarray, want.visual_params), rng))
+    want.text_params = randomize(jax.tree.map(np.asarray, want.text_params), rng)
+    model = biomedclip.BiomedCLIP(clip_type=clip_type, vision_tower=vision_tower, tiny=True,
+                                  params=want.visual_params, text_params=want.text_params,
+                                  device="cpu")
+    assert type(model.visual).__name__ == ("ModifiedResNet" if vision_tower == "resnet"
+                                           else "CLIPVisionTower")
+    texts = ["speckle in OCT", "noise in cryo-EM image", "low dose CT"]
+    images = np.random.default_rng(10).uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
+    for got, ref in ((model.encode_image(images), want.encode_image(images)),
+                     (model.encode_text(texts), want.encode_text(texts)),
+                     (model(images, texts), want(images, texts))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(np.asarray(ref)).max()))
 
 
 def test_precompute_embeddings_matches_jax(jax_model, tmp_path, monkeypatch):

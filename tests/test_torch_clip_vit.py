@@ -208,14 +208,39 @@ def test_vision_loader_matches_jax(kind, image_size, tmp_path):
         clip_vit.load_torch_clip_vision_weights(port, str(tmp_path / "missing.pt"))
 
 
-def test_training_only_options_raise():
-    """The frozen tower refuses PatchDropout and DropPath when it is built;
-    an unknown flavour raises too."""
-    for option in (dict(patch_dropout=0.5), dict(drop_path_rate=0.1)):
-        with pytest.raises(NotImplementedError, match="PatchDropout and DropPath"):
-            clip_vit.CLIPVisionTower(**TINY, **option)
+def test_training_only_options_raise(monkeypatch):
+    """The training-only options now run (they raised when the tower was
+    frozen only): ``patch_dropout=0.5`` in train mode equals JAX's tower on
+    JAX's own PatchDropout draw (recorded from its key), in both flavours,
+    and is inert in eval mode; a ``drop_path_rate`` tower in eval mode
+    equals JAX's. What still raises: an unknown flavour, a PatchDropout
+    share outside [0, 1), and a train-mode call without ``rng``."""
+    draws = []
+    real = jax_vit.patch_dropout_tokens
+
+    def record(key, x, prob, exclude_first_token=True):
+        draws.append(np.asarray(jax.random.normal(key, (x.shape[0], x.shape[1] - 1))))
+        return real(key, x, prob, exclude_first_token)
+
+    monkeypatch.setattr(jax_vit, "patch_dropout_tokens", record)
+    x = _images(6)
+    for flavour in ("timm", "openai"):
+        tower, params = _jax_tower(seed=5, flavour=flavour, patch_dropout=0.5, **TINY)
+        want = tower.apply(params, x, deterministic=False,
+                           rngs={"patch_dropout": jax.random.key(2)})
+        port = _port_tower(params, flavour=flavour, patch_dropout=0.5, **TINY)
+        with torch.no_grad():
+            _close(port(torch.from_numpy(x), deterministic=False, rng=iter(draws[-1:])), want,
+                   1e-5)
+            _close(port(torch.from_numpy(x)), tower.apply(params, x), 1e-5)
+            dp = _port_tower(params, flavour=flavour, drop_path_rate=0.1, **TINY)
+            _close(dp(torch.from_numpy(x)), tower.apply(params, x), 1e-5)
+            with pytest.raises(ValueError, match="needs rng"):
+                port(torch.from_numpy(x), deterministic=False)
     with pytest.raises(ValueError, match="unknown flavour"):
         clip_vit.CLIPVisionTower(**TINY, flavour="eva")
+    with pytest.raises(ValueError, match="patch_dropout"):
+        clip_vit.CLIPVisionTower(**TINY, patch_dropout=1.0)
     assert clip_vit.CLIPVisionTower(**TINY)(torch.zeros(1, 32, 32, 1)).shape == (1, 16)
 
 

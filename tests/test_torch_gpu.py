@@ -696,10 +696,11 @@ def test_biomedclip_engine_graph_matches_eager(cuda, path):
 
 def test_biomedclip_low_precision_on_cuda(cuda):
     """BiomedCLIP at full width (ViT-B/16, the 12-layer PubMedBERT) on the
-    card at precision bf16 and pure_bf16, from the same random weights as
-    at fp32: unit-norm bfloat16 embeddings within TOL[bf16] = 1e-2 of the
-    fp32 model's, the tower's 12 flash launches per ``encode_image`` call;
-    fp16 raises (the flash kernel takes float32 and bfloat16)."""
+    card at precision bf16, pure_bf16, fp16 and pure_fp16, from the same
+    random weights as at fp32: unit-norm 16-bit embeddings within 1e-2 of
+    the fp32 model's, the tower's 12 flash launches per ``encode_image``
+    call (on the fp16 instantiation at fp16); a dtype no kernel takes
+    (float64) raises in the wrapper."""
     from instancediff_torch.models.biomedclip import get_BiomedCLIP
     from instancediff_torch.models.text_encoder import HFContextTextEncoder
     from instancediff_torch.utils.convert import flax_params
@@ -713,23 +714,26 @@ def test_biomedclip_low_precision_on_cuda(cuda):
     texts = ["speckle in OCT", "noise in cryo-EM image", "low dose CT"]
     ref = get_BiomedCLIP(precision="fp32", device="cuda", **trees)
     want = ref.encode_image(images), ref.encode_text(texts)
-    for precision in ("bf16", "pure_bf16"):
+    for precision in ("bf16", "pure_bf16", "fp16", "pure_fp16"):
+        low = torch.bfloat16 if "bf16" in precision else torch.float16
         model = get_BiomedCLIP(precision=precision, device="cuda", **trees)
         before = flash_attention.launches
         got = model.encode_image(images), model.encode_text(texts)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 12
         for g, w in zip(got, want):
-            assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+            assert g.dtype == low and torch.isfinite(g).all()
             torch.testing.assert_close(g.float(), w, rtol=0, atol=1e-2)
-    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
-        get_BiomedCLIP(precision="fp16", device="cuda", **trees)
+    q = torch.zeros(1, 12, 197, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
+        flash_attention(q, q, q)
 
 
 # ---------------------------------------------------------------- every head width
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2),
+                                       (torch.float16, 1e-2)])
 @pytest.mark.parametrize("N", [64, 197, 1024])
 @pytest.mark.parametrize("D", HEAD_WIDTHS)
 def test_flash_kernel_at_every_head_width(cuda, dtype, tol, N, D):
@@ -758,16 +762,34 @@ def _flash_kernel_names(q):
     return [e.name for e in prof.events() if "flash_" in e.name]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("D", HEAD_WIDTHS)
 def test_flash_plan_picks_the_kernel_the_card_runs(cuda, D, dtype):
     """Every (D, dtype) runs a tensor-core kernel, by the profiler's kernel
-    name: bf16 on ``flash_tc_kernel``, fp32 on ``flash_tf32x3_kernel``."""
+    name: bf16 and fp16 on ``flash_tc_kernel`` (its ``__half`` instantiation
+    for fp16), fp32 on ``flash_tf32x3_kernel``."""
     q = torch.zeros(1, 4, 128, D, device=cuda, dtype=dtype)
     names = _flash_kernel_names(q)
     want = {"tc": "flash_tc_kernel", "tf32x3": "flash_tf32x3_kernel"}[flash_plan(D, dtype)["path"]]
     assert len(names) == 1 and want in names[0], names
-    assert (want == "flash_tc_kernel") == (dtype == torch.bfloat16)
+    assert (want == "flash_tc_kernel") == (dtype != torch.float32)
+    if dtype == torch.float16:
+        assert "__half" in names[0], names
+
+
+@pytest.mark.parametrize("N", [50, 197, 1024])
+@pytest.mark.parametrize("D", HEAD_WIDTHS)
+def test_flash_fp16_repeats_bit_for_bit(cuda, D, N):
+    """The fp16 kernel gives the same bits on a repeat of the same call
+    (one launch each, no atomics), at every head width, N of RN50's
+    attention pool, the ViT tower and the UNet bottleneck."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * N + D)
+    q, k, v = (_randn(gen, 2, 4, N, D).half() for _ in range(3))
+    before = flash_attention.launches
+    a, b = flash_attention(q, k, v), flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert a.dtype == torch.float16 and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -78,20 +78,21 @@ def test_flash_plain_matches_pallas_interpret_at_other_head_widths(D):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_plan_per_head_width_and_dtype(dtype):
     """A tensor-core kernel at every width they are instantiated for: "tc"
-    for bf16, "tf32x3" (split TF32) for fp32; a named refusal elsewhere."""
+    for bf16 and fp16 (one template over the 16-bit type), "tf32x3" (split
+    TF32) for fp32; a named refusal elsewhere (float64 has no kernel)."""
     for D in HEAD_WIDTHS:
         plan = flash_plan(D, dtype)
-        assert plan["path"] == ("tc" if dtype == torch.bfloat16 else "tf32x3")
+        assert plan["path"] == ("tf32x3" if dtype == torch.float32 else "tc")
         assert plan["D"] == D
     assert HEAD_WIDTHS == (4, 8, 16, 32, 64, 128)
     for D in (1, 2, 12, 48, 96, 256):
         with pytest.raises(ValueError, match=f"D={D}"):
             flash_plan(D, dtype)
-    with pytest.raises(TypeError, match="float16"):
-        flash_plan(64, torch.float16)
+    with pytest.raises(TypeError, match="float64"):
+        flash_plan(64, torch.float64)
 
 
 @pytest.mark.parametrize("N,warps", [(1024, 8), (197, 8), (200, 8), (257, 4), (784, 8), (64, 4)])
