@@ -255,7 +255,7 @@ Phases, one JSON line each, in order:
                 ``eval_protocol`` tables for both on a port Synthetic set
                 pinned by its manifest. Its launches are printed in a line
                 of its own, not in the ``kernels`` line.
-  9. irsde  -- ``create_sde({"class_name": "IRSDE", "T": 50})`` (cut from
+  9. irsde  -- ``create_sde({"class_name": "IRSDE", "T": 25})`` (cut from
                 the config's T=100 for the script's time) driven by
                 two noise predictors with seeded random weights, each on the
                 kernels and on the plain path: the DDPM net at
@@ -264,7 +264,7 @@ Phases, one JSON line each, in order:
                 engine's noise net (fused body: 45 fused conv + 45
                 ``gn_channel_affine`` + 1 flash); 256 px, batch 8, bf16:
                 ``reverse_sde`` (stochastic, injected noise) and
-                ``reverse_ode`` at all 50 steps, kernels vs plain within
+                ``reverse_ode`` at all 25 steps, kernels vs plain within
                 ``TOL[bf16]`` of the plain result's largest value, launches
                 per step held to ``IRSDE_PATHS``, ms per step; then
                 ``ode_sampler`` in fp32 (rtol = atol = 1e-5) at
@@ -291,6 +291,31 @@ Phases, one JSON line each, in order:
                 to one process's step on the global batch (the rules of
                 ``grad_check``), the ranks' parameters equal, ms per step
                 per rank, the all-reduce's ms and bytes.
+ 11. spatial -- two spawned gloo ranks sharing the card serve the flagship
+                drift sampler at full width (seeded random weights) through
+                ``Restorer(spatial=2)``: the images' height split over the
+                ranks (halo rows exchanged around every 3x3 conv, GroupNorm
+                statistics summed over the ranks by the sharded entries
+                ``gn_partial_sums`` / ``gn_apply`` of the GroupNorm kernels,
+                the bottleneck's local queries, Nq = N / 2, on the flash
+                kernel against the keys of both ranks, Nk = N), eagerly:
+                512 px, batch 2, 4 steps, eta 0, fp32 and bf16 (fused body),
+                and 256 px, 2 steps, fp32 on the unfused body; each against
+                the same request unsharded on the card (fp32 within
+                ``SPATIAL_TOL_FP32``, bf16 within ``TOL`` of the largest
+                output); launches per rank (every kernel of the path must
+                launch), the flash launches' Nq / Nk, seconds; then rank 0
+                holds ``gn_partial_sums`` and ``gn_apply`` against their
+                plain versions and times them at the shapes the sharded
+                path gave them (the kernels line's two sharded entries);
+ 12. fsdp   -- two spawned gloo ranks sharing the card on a 1 x 2 dp x fsdp
+                grid (``engine.shard_fsdp``: parameters, Adam's moments and
+                the EMA shadows split over the ranks, gathered for each
+                forward) take dist (b)'s two fp32 steps at 224 px on the
+                whole batch of 4, against one process's steps: the losses
+                within ``GRAD_TOL``, the first moments by ``check_grads``;
+                the bytes of train state each rank holds against unsharded,
+                ms per step.
 
 Any failure raises and the script exits non-zero; a failed capture too (the
 engines never fall back to the eager loop). Without CUDA it exits 1 before
@@ -892,10 +917,14 @@ KERNEL_CLASSES = (  # (class, substrings of the CUDA kernel name), first match w
     ("fused_conv", ("fgc_tc_kernel", "fgc_tf32x3_kernel")),
     ("flash", ("flash_tc_kernel", "flash_tf32x3_kernel")),
     ("gn_affine", ("gns_affine_kernel",)),
+    # the sharded GroupNorm's two entries (the apply kernel on a per-(B,C)
+    # scale and shift)
+    ("gn_sums", ("gns_sums_kernel",)), ("gn_scale_shift", ("scaleshift",)),
     ("group_norm", ("gns_stats_kernel", "gns_apply_kernel", "gns_cluster_kernel")),
     ("library_conv", ("fprop", "conv", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "matmul")), ("reduce", ("reduce",)))
-CLASS_OF = {"conv": "fused_conv", "flash": "flash", "gn": "group_norm", "affine": "gn_affine"}
+CLASS_OF = {"conv": "fused_conv", "flash": "flash", "gn": "group_norm", "affine": "gn_affine",
+            "sums": "gn_sums", "apply": "gn_scale_shift"}
 
 
 # the kernels each wrapper call launches, by name: one statistics or cluster
@@ -3561,11 +3590,380 @@ def dist_phase(gpu, started) -> None:
           "gpu": gpu})
 
 
+# ---------------------------------------------------------------- spatial
+
+# the flagship drift sampler with the images' height split over two gloo
+# ranks that share the card (``Restorer(spatial=2)``: halo exchanges,
+# cross-shard GroupNorm statistics, the bottleneck's local queries against
+# keys gathered from both ranks), eta 0, eagerly (a sharded call is not
+# captured), against the same request unsharded on the same card: (what,
+# dtype, engine knobs, px, steps)
+SPATIAL_WORLD, SPATIAL_BATCH, SPATIAL_TIMEOUT = 2, 2, 900
+SPATIAL_REQUESTS = (("fused body, fp32", torch.float32, None, 512, 4),
+                    ("fused body, bf16", torch.bfloat16, None, 512, 4),
+                    ("unfused body, fp32", torch.float32, {"fused_gnconv": False}, 256, 2))
+# sharded vs unsharded: fp32 within SPATIAL_TOL_FP32 (abs); bf16 within
+# ``TOL`` relative to the largest output, the bound phase ``parity`` holds
+# kernels to against plain versions (``check_graph_vs_eager``)
+SPATIAL_TOL_FP32 = 1e-4
+# the sharded GroupNorm's two kernel entries: their wrappers, plain
+# versions, sources, the TPU code they stand for, the nearest PyTorch call
+SHARDED_NAMES = {"sums": "gn_partial_sums", "apply": "gn_apply"}
+SHARDED_SOURCES = {
+    "sums": ("instancediff_torch/csrc/group_norm_silu.cu",
+             "instancediff_tpu/ops/pallas_kernels.py:279"),
+    "apply": ("instancediff_torch/csrc/group_norm_silu.cu",
+              "instancediff_tpu/ops/pallas_kernels.py:134")}
+SHARDED_LIBRARY = {"sums": "torch.var_mean over (H, W): the nearest call (mean and variance "
+                           "per channel, not the sums)",
+                   "apply": "torch.addcmul(shift, x, scale): the nearest call (no SiLU)"}
+
+
+def sharded_wrappers() -> dict:
+    from instancediff_torch.ops import group_norm_silu as gns
+
+    return {"sums": gns.gn_partial_sums, "apply": gns.gn_apply}
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's count, the sharded entries' too."""
+    return {**read_launches(), **{k: w.launches for k, w in sharded_wrappers().items()}}
+
+
+def zero_all_launches() -> None:
+    zero_launches()
+    for w in sharded_wrappers().values():
+        w.launches = 0
+
+
+def record_sharded_calls():
+    """Patches that record the shapes the sharded path gives its kernels:
+    (q, k) of each flash launch, x (and dtype) of each GroupNorm sums and
+    apply launch; each records, then calls the wrapper itself."""
+    from instancediff_torch.ops import group_norm_silu as gns
+
+    seen = {"flash": Counter(), "sums": Counter(), "apply": Counter()}
+    flash, sums, apply_ = flash_attention, gns.gn_partial_sums, gns.gn_apply
+
+    def rec_flash(q, k, v):
+        seen["flash"][(tuple(q.shape), tuple(k.shape))] += 1
+        return flash(q, k, v)
+
+    def rec_sums(x):
+        seen["sums"][(tuple(x.shape), str(x.dtype))] += 1
+        return sums(x)
+
+    def rec_apply(x, scale, shift, silu=True):
+        seen["apply"][(tuple(x.shape), str(x.dtype), bool(silu))] += 1
+        return apply_(x, scale, shift, silu)
+
+    patches = (mock.patch.object(unet_mod, "flash_attention", rec_flash),
+               mock.patch.object(unet_mod, "gn_partial_sums", rec_sums),
+               mock.patch.object(gns, "gn_partial_sums", rec_sums),
+               mock.patch.object(gns, "gn_apply", rec_apply))
+    return seen, patches
+
+
+def sums_cost(shape, dtype):
+    B, H, W, C = shape
+    n = B * H * W * C
+    # read x once, write sums [2, B, C] fp32; an add and a fused multiply-add
+    # per element on the fp32 units
+    return bound(n * (torch.finfo(dtype).bits // 8) + 2 * B * C * 4, 2.0 * n, torch.float32)
+
+
+def apply_cost(shape, dtype, silu):
+    B, H, W, C = shape
+    n = B * H * W * C
+    # read x once, write y once, scale and shift [2, B, C] fp32; a fused
+    # multiply-add (and SiLU: exp, add, divide, multiply) per element
+    return bound(2 * n * (torch.finfo(dtype).bits // 8) + 2 * B * C * 4,
+                 (5 if silu else 1) * n, torch.float32)
+
+
+def measure_sharded(kname, key, gen) -> dict:
+    """The sums or apply kernel at one launch shape of the sharded path,
+    against its plain version: max abs error, event ms, device ms, plain ms,
+    the nearest library call's ms, the bound."""
+    from instancediff_torch.ops import group_norm_silu as gns
+
+    shape, dtype = key[0], getattr(torch, key[1].split(".")[-1])
+    x = (0.5 + torch.randn(*shape, generator=gen, device=gen.device)).to(dtype)
+    B, H, W, C = shape
+    if kname == "sums":
+        fn, plain = (lambda: gns.gn_partial_sums(x)), (lambda: gns.gn_partial_sums_plain(x))
+        err = check_err(f"gn_partial_sums {shape} {dtype}", fn(), plain(), torch.float32)
+        xf = x.float()
+        library = lambda: torch.var_mean(xf, dim=(1, 2), correction=0)  # noqa: E731
+        bound_ms, bound_by = sums_cost(shape, dtype)
+    else:
+        silu = key[2]
+        scale = 1 + 0.2 * torch.randn(B, C, generator=gen, device=x.device)
+        shift = 0.3 * torch.randn(B, C, generator=gen, device=x.device)
+        fn = lambda: gns.gn_apply(x, scale, shift, silu)  # noqa: E731
+        plain = lambda: gns.gn_apply_plain(x, scale, shift, silu)  # noqa: E731
+        err = check_err(f"gn_apply {shape} {dtype}", fn(), plain(), dtype)
+        s4, t4 = scale[:, None, None].to(dtype), shift[:, None, None].to(dtype)
+        library = lambda: torch.addcmul(t4, x, s4)  # noqa: E731
+        bound_ms, bound_by = apply_cost(shape, dtype, silu)
+    return dict(max_abs_err=err, ms=cuda_ms(fn), device_ms=device_ms(fn, kname),
+                plain_ms=cuda_ms(plain), library_ms=cuda_ms(library), bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def spatial_rank(rank, device="cuda:0") -> dict:
+    """One of ``SPATIAL_WORLD`` gloo ranks sharing the card: each request of
+    ``SPATIAL_REQUESTS`` through ``Restorer(spatial=SPATIAL_WORLD)`` (the
+    kernels' counts zeroed just before and read just after, the shapes the
+    flash and the sharded GroupNorm kernels were given recorded); then rank 0
+    alone serves the same request unsharded (``compiled=False``, the same
+    seed) and holds the two apart, and, in this fresh process (torch.profiler
+    still records the kernel libraries here), holds the sharded GroupNorm's
+    two kernels against their plain versions at the recorded shapes."""
+    import datetime
+
+    dev = parallel.init_distributed(device, backend="gloo",
+                                    timeout=datetime.timedelta(seconds=SPATIAL_TIMEOUT))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // SPATIAL_WORLD))  # host cores shared
+    try:
+        out = {"requests": [], "shapes": {"sums": Counter(), "apply": Counter()}}
+        for what, dtype, opts, res, steps in SPATIAL_REQUESTS:
+            torch.manual_seed(0)  # the ranks' engines alike (``randomize_`` keeps biases' init)
+            eng = flagship_engine(dtype, opts)
+            restorer = Restorer(eng, batch_size=SPATIAL_BATCH, sample_steps=steps, eta=0.0,
+                                seed=0, device=str(eng.device), spatial=SPATIAL_WORLD)
+            rng = np.random.default_rng(40)
+            images = rng.uniform(-1, 1, (SPATIAL_BATCH, res, res, 1)).astype(np.float32)
+            types = [ARTIFACT_PROMPTS[i] for i in range(SPATIAL_BATCH)]
+            seen, patches = record_sharded_calls()
+            with contextlib.ExitStack() as stack:
+                for patch in patches:
+                    stack.enter_context(patch)
+                zero_all_launches()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                got = restorer.restore(images, types)
+                torch.cuda.synchronize()
+                seconds = time.time() - t0
+                launches = all_launches()
+            req = {"what": what, "res": res, "steps": steps, "seconds": round(seconds, 3),
+                   "launches": launches, "finite": bool(np.isfinite(got).all()),
+                   "shape": list(got.shape),
+                   "flash_q_k": [[list(q), list(k), n] for (q, k), n in seen["flash"].items()]}
+            for k in ("sums", "apply"):
+                out["shapes"][k].update(seen[k])
+            if rank == 0:
+                batch = {"input": images, "type_idx": np.array([eng.type_map[t] for t in types]),
+                         "A_emb": np.zeros((SPATIAL_BATCH, 1, eng.context_dim), np.float32)}
+                torch.cuda.synchronize()
+                t0 = time.time()
+                want = eng.test(batch, torch.Generator(device=dev).manual_seed(0),
+                                sample_steps=steps, eta=0.0, compiled=False).float().cpu().numpy()
+                torch.cuda.synchronize()
+                req.update(unsharded_seconds=round(time.time() - t0, 3),
+                           max_abs_err=float(np.abs(got - want).max()),
+                           max_abs_unsharded=float(np.abs(want).max()))
+                # the yardstick: the unsharded request on the plain versions
+                with contextlib.ExitStack() as stack:
+                    for patch in plain_kernels():
+                        stack.enter_context(patch)
+                    plain = eng.test(batch, torch.Generator(device=dev).manual_seed(0),
+                                     sample_steps=steps, eta=0.0,
+                                     compiled=False).float().cpu().numpy()
+                req["unsharded_kernels_vs_plain"] = float(np.abs(want - plain).max())
+            parallel.barrier()
+            out["requests"].append(req)
+            del eng, restorer
+            torch.cuda.empty_cache()
+        if rank == 0:
+            gen = torch.Generator(device=dev).manual_seed(41)
+            out["measured"] = {k: [(key, n, measure_sharded(k, key, gen))
+                                   for key, n in out["shapes"][k].items()]
+                               for k in ("sums", "apply")}
+        parallel.barrier()
+        out["shapes"] = {k: [[list(key), n] for key, n in v.items()]
+                         for k, v in out["shapes"].items()}
+        return out
+    finally:
+        parallel.shutdown()
+
+
+def spatial_phase(gpu) -> dict:
+    """Phase ``spatial``: ``spatial_rank`` on ``SPATIAL_WORLD`` spawned
+    ranks. Fails unless every request is finite, every rank launched the
+    fused conv (fused body), the flash kernel with Nq = N / world against
+    Nk = N, the sums kernel, and (unfused body) the apply kernel, and the
+    sharded result is within the tolerance of the unsharded one. Returns the
+    kernels line's entries of the two sharded GroupNorm kernels."""
+    t_phase = time.time()
+    ranks = spawn_world(spatial_rank, SPATIAL_WORLD, timeout=SPATIAL_TIMEOUT)
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError("spatial ranks failed:\n" + "\n".join(errors))
+    total = Counter()
+    for i, (what, dtype, opts, res, steps) in enumerate(SPATIAL_REQUESTS):
+        reqs = [r["requests"][i] for r in ranks]
+        ref = reqs[0]
+        tol = (SPATIAL_TOL_FP32 if dtype == torch.float32
+               else TOL[dtype] * max(1.0, ref["max_abs_unsharded"]))
+        need = ["flash", "sums"] + (["conv"] if opts is None else ["apply"])
+        idle = [(r, k) for r, q in enumerate(reqs) for k in need if not q["launches"][k]]
+        tokens = (res // 8) ** 2  # the bottleneck's
+        nq_nk = {(q[0][2], q[1][2]) for r in reqs for q in r["flash_q_k"]}
+        if (idle or not all(q["finite"] and q["shape"] == [SPATIAL_BATCH, res, res, 1]
+                            for q in reqs)
+                or nq_nk != {(tokens // SPATIAL_WORLD, tokens)}
+                or not ref["max_abs_err"] <= tol):
+            raise AssertionError(f"spatial, {what}: launched nothing of {idle}, flash Nq/Nk "
+                                 f"{nq_nk}, sharded vs unsharded {ref['max_abs_err']} > {tol}: "
+                                 f"{reqs}")
+        emit({"phase": "spatial", "what": f"flagship drift sampler, {what}, {res} px, batch "
+                                          f"{SPATIAL_BATCH}, {steps} steps, eta 0, the height "
+                                          f"split over {SPATIAL_WORLD} gloo ranks sharing the "
+                                          "card (Restorer spatial=2, eager), against the same "
+                                          "request unsharded",
+              "max_abs_err": ref["max_abs_err"], "tol": tol,
+              "max_abs_unsharded": ref["max_abs_unsharded"],
+              "unsharded_kernels_vs_plain": ref["unsharded_kernels_vs_plain"],
+              "seconds_per_rank": [q["seconds"] for q in reqs],
+              "unsharded_seconds": ref["unsharded_seconds"],
+              "launches_per_rank": [q["launches"] for q in reqs],
+              "flash_q_k_per_rank": [q["flash_q_k"] for q in reqs], "gpu": gpu})
+        for q in reqs:
+            total.update({k: v for k, v in q["launches"].items() if k in SHARDED_NAMES})
+    entries = {}
+    for kname, rows in ranks[0]["measured"].items():
+        tot, bound_by = Counter(), Counter()
+        for key, n, m in rows:
+            for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[k] += m[k] * n
+            bound_by[m["bound_by"]] += m["bound_ms"] * n
+            tot["max_abs_err"] = max(tot["max_abs_err"], m["max_abs_err"])
+        emit({"phase": "spatial", "kernel": SHARDED_NAMES[kname],
+              "what": "kernel vs plain at the sharded path's launch shapes (rank 0's, every "
+                      "request), summed over those launches",
+              "launches_measured": sum(n for _, n, _ in rows),
+              **{k: round(v, 4) for k, v in tot.items()},
+              "shapes_count_ms_device_plain_bound_library": [
+                  [key, n, round(m["ms"], 4), round(m["device_ms"], 4),
+                   round(m["plain_ms"], 4), round(m["bound_ms"], 4),
+                   round(m["library_ms"], 4)] for key, n, m in rows], "gpu": gpu})
+        entries[kname] = {
+            "name": SHARDED_NAMES[kname], "route": "cuda", "source": SHARDED_SOURCES[kname][0],
+            "replaces": SHARDED_SOURCES[kname][1], "launches": total[kname],
+            "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "device_ms": tot["device_ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": bound_by.most_common(1)[0][0], "library_ms": tot["library_ms"],
+            "library": SHARDED_LIBRARY[kname],
+            "per": "the sharded path's launches on rank 0, summed"}
+    emit({"phase": "spatial", "what": "the phase", "seconds": round(time.time() - t_phase, 3),
+          "gpu": gpu})
+    return entries
+
+
+# ---------------------------------------------------------------- FSDP
+
+# ZeRO-style FSDP: two gloo ranks sharing the card on a 1 x 2 dp x fsdp
+# grid, phase dist (b)'s config and seeded weights (flagship_tpu.yml: fp32,
+# remat; 224 px), the whole batch of 4 on each rank, FSDP_STEPS steps on
+# one set of injected draws, against one process's steps
+FSDP_STEPS, FSDP_TIMEOUT = 2, 900
+
+
+def fsdp_rank(rank, device="cuda:0") -> dict:
+    """One rank of the 1 x 2 grid: the seeded engine sharded
+    (``shard_fsdp``), the bytes of train state it holds against unsharded,
+    ``FSDP_STEPS`` steps, each timed; the first moments after step 1 and the
+    parameters after the last, gathered; rank 0 then takes the same steps in
+    one process (the group hidden) and holds the loss and the first moments
+    to them (``parity.check_grads``, the tolerances of ``grad_check``)."""
+    import datetime
+
+    from instancediff_torch.parallel.mesh import Grid
+
+    dev = parallel.init_distributed(device, backend="gloo",
+                                    timeout=datetime.timedelta(seconds=FSDP_TIMEOUT))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # host cores shared
+    try:
+        data, draws = gloo_draws()
+        eng = gloo_engine(dev, seeded=True)
+        eng.shard_fsdp(Grid(1, 2))
+        out = {"bytes": eng.fsdp.held_bytes(), "steps": [], "losses": []}
+        mu1 = None
+        for i in range(FSDP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng.optimize_parameters(data, epoch=0, t=torch.tensor(draws["t"][i]),
+                                    std_noise=torch.tensor(draws["std_noise"][i]))
+            torch.cuda.synchronize()
+            out["steps"].append(round((time.time() - t0) * 1e3, 3))
+            out["losses"].append(eng.loss_info["latest"]["l"])
+            if i == 0:
+                mu1 = {k: {n: v["exp_avg"].float().cpu().numpy().copy() for n, v in zip(
+                    (n for n, _ in eng.nets[k].named_parameters()),
+                    eng.fsdp.adam_view(k).state.values())} for k in eng.optimizers}
+        out["bytes_after"] = eng.fsdp.held_bytes()
+        if rank == 0:
+            ref = gloo_engine(dev, seeded=True)
+            losses = []
+            with mock.patch.object(parallel, "world_size", lambda: 1):
+                for i in range(FSDP_STEPS):
+                    ref.optimize_parameters(data, epoch=0, t=torch.tensor(draws["t"][i]),
+                                            std_noise=torch.tensor(draws["std_noise"][i]))
+                    losses.append(ref.loss_info["latest"]["l"])
+                    if i == 0:
+                        want = {k: {n: ref.optimizers[k].state[p]["exp_avg"].float().cpu()
+                                    .numpy().copy() for n, p in ref.nets[k].named_parameters()}
+                                for k in ref.optimizers}
+            out["losses_one_process"] = losses
+            out["check"] = {k: check_grads(mu1[k], want[k], GRAD_TOL, GRAD_FLOOR,
+                                           REDUCTION_TOL, what=f"FSDP {k} first moment ")[1]
+                            for k in want}
+            del ref
+        parallel.barrier()
+        return out
+    finally:
+        parallel.shutdown()
+
+
+def fsdp_phase(gpu) -> None:
+    """Phase ``fsdp``: ``fsdp_rank`` on two spawned ranks; fails unless
+    every loss is within ``GRAD_TOL`` relative of one process's, the first
+    moments pass ``check_grads``, and each rank holds less than 0.6 of the
+    unsharded train state."""
+    t0 = time.time()
+    ranks = spawn_world(fsdp_rank, 2, timeout=FSDP_TIMEOUT)
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError("fsdp ranks failed:\n" + "\n".join(errors))
+    r0 = ranks[0]
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["losses_one_process"]))
+    if not (lerr <= GRAD_TOL and all(r["losses"] == r0["losses"] for r in ranks)
+            and all(r["bytes"]["held"] < 0.6 * r["bytes"]["unsharded"] for r in ranks)):
+        raise AssertionError(f"fsdp: losses {[r['losses'] for r in ranks]} against one "
+                             f"process's {r0['losses_one_process']}, bytes "
+                             f"{[r['bytes'] for r in ranks]}")
+    emit({"phase": "fsdp", "what": f"ZeRO-style FSDP, 1 x 2 dp x fsdp grid of gloo ranks "
+                                   f"sharing the card, {os.path.basename(TRAIN_CONFIGS[DIST_GLOO_CONFIG])}"
+                                   f" (fp32, remat), 224 px, batch 4, {FSDP_STEPS} steps, TF32 "
+                                   "off, against one process's steps",
+          "losses": r0["losses"], "losses_one_process": r0["losses_one_process"],
+          "loss_max_rel_err": lerr, "first_moments": r0["check"],
+          "bytes_held_per_rank": [r["bytes"] for r in ranks],
+          "bytes_held_after_steps": [r["bytes_after"] for r in ranks],
+          "ms_per_step_per_rank": [r["steps"] for r in ranks],
+          "tols": {"loss_rel": GRAD_TOL, "grad_of_leaf": GRAD_TOL,
+                   "floor_of_largest_leaf": GRAD_FLOOR, "reductions_of_leaf": REDUCTION_TOL},
+          "seconds": round(time.time() - t0, 3), "gpu": gpu})
+
+
 # ---------------------------------------------------------------- IR-SDE
 
 # T cut from the configs' 100 for the script's time: the loops' depth, not
 # their widths (each step is one full-width noise-net forward)
-IRSDE_OPT = {"class_name": "IRSDE", "T": 50}
+IRSDE_OPT = {"class_name": "IRSDE", "T": 25}
 # per noise-net forward (one per sampler step / function evaluation): the
 # DDPM net on the unfused body; the drift engine's noise net on the fused body
 IRSDE_PATHS = {"ddpm": {"conv": 0, "flash": 1, "gn": 45, "affine": 0},
@@ -3620,7 +4018,7 @@ def irsde_loops(sde, noise_fn, mu, init, steps, plain: bool) -> dict:
 
 
 def irsde_phase(gpu) -> Counter:
-    """Phase ``irsde``: ``create_sde(IRSDE_OPT)`` (T=50)
+    """Phase ``irsde``: ``create_sde(IRSDE_OPT)`` (T=25)
     driven by two noise predictors at full width with seeded random weights
     (the DDPM net of flagship_ddpm_tpu.yml's widths, unfused body; the
     flagship drift engine's noise net, fused body), 256 px, batch 8, bf16:
@@ -4176,10 +4574,19 @@ def main() -> int:
             if demo[0].poll() is None:
                 demo[0].kill()
                 demo[0].wait()
+
+    # 11. spatial sharding: the flagship sampler's height split over two
+    # ranks, the sharded GroupNorm's two kernel entries (their launches and
+    # checks come from the ranks' processes); 12. ZeRO-style FSDP training
+    sharded = spatial_phase(gpu)
+    marks.append(("spatial", time.time()))
+    fsdp_phase(gpu)
+    marks.append(("fsdp", time.time()))
     emit({"phase": "timing", "what": "wall seconds of each stretch of the script, in order",
           "seconds": {name: round(t - marks[i][1], 1) for i, (name, t) in
                       enumerate(marks[1:])}, "gpu": gpu})
     entries = {k: dict(e, launches=launches[k], max_abs_err=worst[k]) for k, e in entries.items()}
+    entries.update(sharded)
     # the flash row is the UNet bottleneck's (bf16, flash_tc_kernel); the
     # image tower's launches (fp32, flash_tf32x3_kernel) and its shapes'
     # measurements are a field of their own

@@ -50,6 +50,16 @@
 //    on the card: the 32^2 levels up to 512 channels and 64^2 with 128.
 //    (Clusters of 16 lost at every shape: only 7 fit on the card at once.)
 //
+//  gns_sums_kernel / gns_apply_kernel on ScaleShift: the two halves of
+//    GroupNorm over an image split by rows across processes (H-sharded
+//    sampling, ops/group_norm_silu.py:gn_partial_sums and gn_apply). The
+//    sums launch is the statistics launch stopped before the group fold: it
+//    writes each image's per-channel fp32 (sum, sum of squares) [2][B][C],
+//    folded over its chunks in chunk order by the image's last block. The
+//    callers add the shards' sums over the ranks, fold them to groups on the
+//    host side (a few hundred scalars) and hand the apply launch a per-(B,C)
+//    scale and shift: y = x * scale + shift, then SiLU.
+//
 // Every entry point issues all launches of one call, so the host crosses
 // into this library once per call.
 
@@ -159,9 +169,9 @@ __device__ __forceinline__ void put_sums(float (&s)[VEC], float (&q)[VEC], int c
   }
 }
 
-// The slots -> per-channel sums -> per-group (sum, sumsq) in gsum, each in a
+// The slots -> per-channel (sum, sumsq) in col = red + slots * C * 2, in a
 // fixed order. Starts and ends with the block synchronised.
-__device__ void group_sums(const Layout& L, int C, int G, float* red, float2* gsum) {
+__device__ float* channel_sums(const Layout& L, int C, float* red) {
   float* col = red + L.slots * C * 2;
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += NT) {
@@ -174,6 +184,13 @@ __device__ void group_sums(const Layout& L, int C, int G, float* red, float2* gs
     col[c * 2 + 1] = b;
   }
   __syncthreads();
+  return col;
+}
+
+// The slots -> per-channel sums -> per-group (sum, sumsq) in gsum, each in a
+// fixed order. Starts and ends with the block synchronised.
+__device__ void group_sums(const Layout& L, int C, int G, float* red, float2* gsum) {
+  const float* col = channel_sums(L, C, red);
   const int Cg = C / G;
   for (int g = threadIdx.x; g < G; g += NT) {
     float a = 0.f, b = 0.f;
@@ -330,6 +347,64 @@ __global__ void __launch_bounds__(NT, 2)
                      eps);
 }
 
+// The per-channel sums launch, grid (chunks, B): block (chunk, b) writes
+// the channel (sum, sumsq) of rows [chunk * rows, ...) of image b to
+// partials[b][chunk][C]; the block that takes the image's last ticket adds
+// them in chunk order into sums [2][B][C] and resets the ticket.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(NT, 2)
+    gns_sums_kernel(const T* __restrict__ x, float2* __restrict__ partials,
+                    unsigned* __restrict__ tickets, float* __restrict__ sums, int HW, int C,
+                    int rows) {
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);
+  const Layout L = layout(C, VEC);
+  __shared__ bool is_last;
+
+  const int B = gridDim.y, b = blockIdx.y, chunks = gridDim.x, chunk = blockIdx.x;
+  const int i = threadIdx.x;
+  const int r0 = chunk * rows, r1 = min(HW, r0 + rows);
+  const T* xb = x + (size_t)b * HW * C;
+  for (int w = i; w < L.V * L.RG; w += NT) {
+    const int cv = w % L.V, rg = w / L.V;
+    float s[VEC], q[VEC];
+    stream_sums<T, VEC, false>(xb + cv * VEC, r0, r1, rg, L.RG, C, nullptr, s, q);
+    put_sums<VEC>(s, q, cv, rg, L, C, red);
+  }
+  const float2* col = reinterpret_cast<const float2*>(channel_sums(L, C, red));
+
+  float2* pb = partials + (size_t)b * chunks * C;
+  for (int c = i; c < C; c += NT) {
+    pb[(size_t)chunk * C + c] = col[c];
+    __threadfence();
+  }
+  __syncthreads();
+  if (i == 0) is_last = atomicAdd(&tickets[b], 1u) == (unsigned)(chunks - 1);
+  __syncthreads();
+  if (!is_last) return;
+
+  __threadfence();
+  for (int c = i; c < C; c += NT) {
+    float a = 0.f, q = 0.f;
+    for (int k = 0; k < chunks; ++k) {
+      const float2 v = __ldcg(pb + (size_t)k * C + c);
+      a += v.x;
+      q += v.y;
+    }
+    sums[(size_t)b * C + c] = a;
+    sums[((size_t)B + b) * C + c] = q;
+  }
+  if (i == 0) tickets[b] = 0u;
+}
+
+// What the apply launch normalises with: the folded group (mean, rstd)
+// [B][G] with gamma and beta [C], or a per-(b, c) scale_shift [2][B][C].
+struct Coefs {
+  const float2* gstat;
+  const float *gamma, *beta, *scale_shift;
+  int B;
+};
+
 // The normalise of one column's packs: per-channel mean, rstd, gamma, beta.
 template <int VEC>
 struct Affine {
@@ -347,6 +422,10 @@ struct Affine {
     }
   }
 
+  static __device__ __forceinline__ Affine at(const Coefs& k, int b, int c0, int C, int G) {
+    return Affine(k.gstat + (size_t)b * G, k.gamma, k.beta, c0, C / G);
+  }
+
   template <bool SILU, typename T>
   __device__ __forceinline__ Pack<T, VEC> apply(const Pack<T, VEC>& p) const {
     Pack<T, VEC> o;
@@ -361,24 +440,53 @@ struct Affine {
   }
 };
 
+// The same for a per-(b, c) scale and shift: y = x * scale + shift.
+template <int VEC>
+struct ScaleShift {
+  float sc[VEC], sh[VEC];
+
+  static __device__ __forceinline__ ScaleShift at(const Coefs& k, int b, int c0, int C, int) {
+    ScaleShift f;
+    const float* scale = k.scale_shift + (size_t)b * C + c0;
+    const float* shift = k.scale_shift + ((size_t)k.B + b) * C + c0;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      f.sc[j] = scale[j];
+      f.sh[j] = shift[j];
+    }
+    return f;
+  }
+
+  template <bool SILU, typename T>
+  __device__ __forceinline__ Pack<T, VEC> apply(const Pack<T, VEC>& p) const {
+    Pack<T, VEC> o;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      float y = to_f(p.v[j]) * sc[j] + sh[j];
+      if (SILU) y = silu_fast(y);
+      put(&o.v[j], y);
+    }
+    return o;
+  }
+};
+
 // The apply launch, grid (chunks, B), after the statistics launch: rows
-// [chunk * rows, ...) of image b, normalised with image b's (mean, rstd),
+// [chunk * rows, ...) of image b, normalised with image b's coefficients
+// (Coef: Affine, image b's (mean, rstd) with gamma and beta; ScaleShift),
 // U_APPLY 16-byte loads and stores in flight per thread. It walks images
 // and chunks in the reverse of the statistics launch's order, so that its
 // first reads find the rows that launch read last still in L2.
-template <typename T, int VEC, bool SILU>
+template <typename T, int VEC, bool SILU, template <int> class Coef>
 __global__ void __launch_bounds__(NT, 2)
-    gns_apply_kernel(const T* __restrict__ x, const float2* __restrict__ gstat,
-                     const float* __restrict__ gamma, const float* __restrict__ beta,
-                     T* __restrict__ out, int HW, int C, int G, int rows) {
+    gns_apply_kernel(const T* __restrict__ x, const Coefs k, T* __restrict__ out, int HW, int C,
+                     int G, int rows) {
   const Layout L = layout(C, VEC);
   const int b = gridDim.y - 1 - blockIdx.y;
   const int chunk = gridDim.x - 1 - blockIdx.x;
-  const float2* mr = gstat + (size_t)b * G;
   const int r0 = chunk * rows, r1 = min(HW, r0 + rows);
   for (int w = threadIdx.x; w < L.V * L.RG; w += NT) {
     const int cv = w % L.V, rg = w / L.V;
-    const Affine<VEC> f(mr, gamma, beta, cv * VEC, C / G);
+    const Coef<VEC> f = Coef<VEC>::at(k, b, cv * VEC, C, G);
     const size_t base = (size_t)b * HW * C + cv * VEC;
     const T* xc = x + base;
     T* oc = out + base;
@@ -553,23 +661,55 @@ cudaError_t forward_launch(const Call& a) {
   }
   if ((e = stats_launch<T, VEC>(a, false)) != cudaSuccess) return e;
   const dim3 grid(cdiv(a.HW, a.rows), a.B);
-  gns_apply_kernel<T, VEC, SILU><<<grid, NT, 0, a.s>>>(
-      x, static_cast<const float2*>(a.gstat), gamma, beta, out, a.HW, a.C, a.G, a.rows);
+  const Coefs k{static_cast<const float2*>(a.gstat), gamma, beta, nullptr, a.B};
+  gns_apply_kernel<T, VEC, SILU, Affine><<<grid, NT, 0, a.s>>>(x, k, out, a.HW, a.C, a.G,
+                                                                a.rows);
+  return cudaGetLastError();
+}
+
+// The sharded halves: kind 0 the sums launch (a.out = sums [2][B][C]),
+// kind 1 the apply launch on a.gamma = scale_shift [2][B][C].
+template <typename T, int VEC>
+cudaError_t sharded_launch(const Call& a, int kind) {
+  const dim3 grid(cdiv(a.HW, a.rows), a.B);
+  const T* x = static_cast<const T*>(a.x);
+  if (kind == 0) {
+    const Layout L = layout(a.C, VEC);
+    const int smem = (L.slots * a.C * 2 + a.C * 2) * 4;
+    static AttrCache cache;
+    cudaError_t e;
+    if ((e = allow(cache, gns_sums_kernel<T, VEC>, smem)) != cudaSuccess) return e;
+    gns_sums_kernel<T, VEC><<<grid, NT, smem, a.s>>>(
+        x, static_cast<float2*>(a.partials), static_cast<unsigned*>(a.tickets),
+        static_cast<float*>(a.out), a.HW, a.C, a.rows);
+  } else {
+    const Coefs k{nullptr, nullptr, nullptr, static_cast<const float*>(a.gamma), a.B};
+    T* out = static_cast<T*>(a.out);
+    if (a.silu)
+      gns_apply_kernel<T, VEC, true, ScaleShift><<<grid, NT, 0, a.s>>>(x, k, out, a.HW, a.C, 1,
+                                                                        a.rows);
+    else
+      gns_apply_kernel<T, VEC, false, ScaleShift><<<grid, NT, 0, a.s>>>(x, k, out, a.HW, a.C, 1,
+                                                                         a.rows);
+  }
   return cudaGetLastError();
 }
 
 // vec: the plan's vector width, 16 bytes or 1 element; 16 bytes needs C a
 // multiple of it and 16-byte aligned x (and out).
+// sharded: -1 for gns_forward / gns_affine, else sharded_launch's kind.
 template <typename T>
-cudaError_t dispatch(const Call& a, int vec, bool affine) {
+cudaError_t dispatch(const Call& a, int vec, bool affine, int sharded) {
   constexpr int V16 = 16 / sizeof(T);
   if (vec == V16) {
-    if (a.C % V16 != 0 || !aligned16(a.x) || (!affine && !aligned16(a.out)))
+    if (a.C % V16 != 0 || !aligned16(a.x) || (!affine && sharded != 0 && !aligned16(a.out)))
       return cudaErrorInvalidValue;
+    if (sharded >= 0) return sharded_launch<T, V16>(a, sharded);
     if (affine) return stats_launch<T, V16>(a, true);
     return a.silu ? forward_launch<T, V16, true>(a) : forward_launch<T, V16, false>(a);
   }
   if (vec != 1) return cudaErrorInvalidValue;
+  if (sharded >= 0) return sharded_launch<T, 1>(a, sharded);
   if (affine) return stats_launch<T, 1>(a, true);
   return a.silu ? forward_launch<T, 1, true>(a) : forward_launch<T, 1, false>(a);
 }
@@ -578,9 +718,9 @@ bool bad_sizes(int B, int HW, int C, int G, int rows) {
   return B <= 0 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || rows <= 0 || B > 65535;
 }
 
-int run(const Call& a, int dtype, int vec, bool affine) {
-  if (dtype == 0) return (int)dispatch<float>(a, vec, affine);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, vec, affine);
+int run(const Call& a, int dtype, int vec, bool affine, int sharded = -1) {
+  if (dtype == 0) return (int)dispatch<float>(a, vec, affine, sharded);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, vec, affine, sharded);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -620,4 +760,27 @@ extern "C" int gns_affine(const void* x, const void* gamma, const void* beta, vo
   const Call a{x, gamma, beta, scale_shift, partials, nullptr, tickets, B, HW, C, G, eps, 0,
                rows, 0, static_cast<cudaStream_t>(stream)};
   return run(a, dtype, vec, true);
+}
+
+// sums [2][B][C] float32: each channel's sum and sum of squares over the
+// HW rows of each image, from one launch of `rows` rows per block.
+// Scratch: partials [B][ceil(HW/rows)][C] float2, tickets as for
+// gns_forward. Returns the first CUDA error.
+extern "C" int gns_partial_sums(const void* x, void* sums, void* partials, void* tickets, int B,
+                                int HW, int C, int dtype, int vec, int rows, void* stream) {
+  if (bad_sizes(B, HW, C, 1, rows)) return (int)cudaErrorInvalidValue;
+  const Call a{x, nullptr, nullptr, sums, partials, nullptr, tickets, B, HW, C, 1, 0.f, 0, rows,
+               0, static_cast<cudaStream_t>(stream)};
+  return run(a, dtype, vec, false, 0);
+}
+
+// out = SiLU?(x * scale + shift) per (b, c), x/out [B, HW, C] in dtype,
+// scale_shift [2][B][C] float32 (scale, then shift); one launch of `rows`
+// rows per block. Returns the first CUDA error.
+extern "C" int gns_apply_affine(const void* x, const void* scale_shift, void* out, int B, int HW,
+                                int C, int silu, int dtype, int vec, int rows, void* stream) {
+  if (bad_sizes(B, HW, C, 1, rows)) return (int)cudaErrorInvalidValue;
+  const Call a{x, scale_shift, nullptr, out, nullptr, nullptr, nullptr, B, HW, C, 1, 0.f, silu,
+               rows, 0, static_cast<cudaStream_t>(stream)};
+  return run(a, dtype, vec, false, 1);
 }

@@ -133,16 +133,16 @@ class CLIPDDPMEngine(SamplingEngine):
                 "img_ctx": self._image_context(batch, mu.shape[0]),
                 "text": self._encode_prompts(self._step_nets(use_ema)[0])}
 
-    def _predictor(self, inputs, use_ema: bool):
+    def _predictor(self, inputs, use_ema: bool, sp=None):
         """``predict(x, row)``: the noise net at the row's timestep, reading
-        the call's tensors from ``inputs``."""
+        the call's tensors from ``inputs``; with ``sp`` on this rank's rows."""
         net, = self._step_nets(use_ema)
         mu, type_idx, img_ctx = inputs["mu"], inputs["type_idx"], inputs["img_ctx"]
         B = mu.shape[0]
 
         def predict(x, row):
             t_b = row[0].to(torch.int32).expand(B)
-            return net(x, mu, t_b, type_idx, inputs["text"], img_ctx)[0]
+            return net(x, mu, t_b, type_idx, inputs["text"], img_ctx, sp=sp)[0]
 
         return predict
 

@@ -276,9 +276,10 @@ class CLIPDriftEngine(SamplingEngine):
                 "degra_ctx": degra_ctx, "d_text": self._encode_prompts(dnet),
                 "n_text": self._encode_prompts(nnet)}
 
-    def _predictor(self, inputs, use_ema: bool):
+    def _predictor(self, inputs, use_ema: bool, sp=None):
         """``predict(x, row)``: the drift net, then the noise net, at the
-        row's timestep, reading the call's tensors from ``inputs``."""
+        row's timestep, reading the call's tensors from ``inputs``; with
+        ``sp`` on this rank's rows."""
         dnet, nnet = self._step_nets(use_ema)
         mu, type_idx = inputs["mu"], inputs["type_idx"]
         img_ctx, degra_ctx = inputs["img_ctx"], inputs["degra_ctx"]
@@ -287,8 +288,10 @@ class CLIPDriftEngine(SamplingEngine):
         def predict(x, row):
             t_b = row[0].to(torch.int32).expand(B)
             d_in, n_in = self._net_inputs(x, mu)
-            pd, _ = dnet(d_in[0], d_in[1], t_b, type_idx, inputs["d_text"], img_ctx, degra_ctx)
-            pn, _ = nnet(n_in[0], n_in[1], t_b, type_idx, inputs["n_text"], img_ctx, degra_ctx)
+            pd, _ = dnet(d_in[0], d_in[1], t_b, type_idx, inputs["d_text"], img_ctx, degra_ctx,
+                         sp=sp)
+            pn, _ = nnet(n_in[0], n_in[1], t_b, type_idx, inputs["n_text"], img_ctx, degra_ctx,
+                         sp=sp)
             return self._to_drift_eps(x, row, pd, pn)
 
         return predict

@@ -50,6 +50,7 @@ from ..ops.fused_gn_conv import fused_gn_silu_conv3x3, gn_channel_affine, packed
 from ..ops.group_norm_silu import group_norm_silu
 from ..ops.resize import downsample_label
 from ..sde.schedules import strided_sampling_grid
+from ..parallel.spatial import shard_spatial
 from ..sde.stepping import SamplerState, run_steps
 from ..utils.checkpoint import (load_pytree, load_training_state, save_pytree,
                                 save_training_state)
@@ -213,6 +214,8 @@ class SamplingEngine:
         self.device = resolve_device(device)
         self.if_train = bool(if_train)
         self.optimizers: Dict[str, torch.optim.Adam] = {}
+        # the train state sharded over a dp x fsdp grid (``shard_fsdp``)
+        self.fsdp = None
         self.engine_opts = dict(engine_opts or {})
         unknown = sorted(set(self.engine_opts) - ENGINE_KNOBS)
         if unknown:
@@ -419,6 +422,8 @@ class SamplingEngine:
             raise ValueError("engine has no SDE; pass sde= to the constructor")
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=True)
+        if self.fsdp is not None:
+            self.fsdp.gather_()
         with torch.enable_grad():
             loss, terms = self._train_loss(batch, generator, t, std_noise, deg_noise)
             loss.backward()
@@ -426,7 +431,8 @@ class SamplingEngine:
                                                         self.eta_min)
                                for key in self.optimizers})
         values = torch.stack([v.detach().float().reshape(()) for v in terms.values()])
-        parallel.all_reduce_mean_([values])  # the global batch's loss terms
+        # the global batch's loss terms (its dp slices' under FSDP)
+        parallel.all_reduce_mean_([values], self.fsdp.grid.dp_group if self.fsdp else None)
         values = values.tolist()
         self._record_losses(dict(zip(terms, values)))
         return values[0]
@@ -437,7 +443,18 @@ class SamplingEngine:
         gradient), the step counter, then the EMA shadows. In a process
         group the gradients are first averaged over the ranks (every rank
         reduces every trained net's every gradient, in one order), so each
-        rank steps on the global batch's mean loss."""
+        rank steps on the global batch's mean loss. Under FSDP each rank
+        steps its shards (``parallel/mesh.py``) and releases the whole
+        parameters."""
+        if self.fsdp is not None:
+            self.fsdp.reduce_gradients_()
+            for key, opt in self.optimizers.items():
+                set_lr(opt, lrs[key])
+                opt.step()
+            self.step += 1
+            self.fsdp.ema_step_(self.step)
+            self.fsdp.release_()
+            return
         grads = []
         for key in self.optimizers:
             for p in self.nets[key].parameters():
@@ -475,12 +492,39 @@ class SamplingEngine:
     def save_training_state(self, state_dir: str, epoch: int, iteration) -> int:
         """``{iter}.state`` as the JAX engines write it: each trained net's
         optimizer state (optax's layout), the step and the EMA shadows;
-        returns the bytes written."""
+        returns the bytes written. Under FSDP every rank must call it: the
+        shards are gathered and rank 0 writes the file an unsharded run
+        writes (0 bytes elsewhere)."""
         opt = {"step": np.asarray(self.step, np.int32)}
-        for key, (opt_key, ema_key) in self.TRAINED.items():
-            opt[opt_key] = adam_state(self.optimizers[key], self.nets[key])
-            opt[ema_key] = flax_params(self.nets[ema_key])
+        if self.fsdp is not None:
+            self.fsdp.gather_()
+            self.fsdp.gather_(ema=True)
+        try:
+            for key, (opt_key, ema_key) in self.TRAINED.items():
+                adam = self.fsdp.adam_view(key) if self.fsdp else self.optimizers[key]
+                opt[opt_key] = adam_state(adam, self.nets[key])
+                opt[ema_key] = flax_params(self.nets[ema_key])
+        finally:
+            if self.fsdp is not None:
+                self.fsdp.release_()
+        if self.fsdp is not None and parallel.rank() != 0:
+            return 0
         return save_training_state(state_dir, iteration, epoch, opt)
+
+    def shard_fsdp(self, grid) -> None:
+        """Shard the trained nets' parameters, Adam's moments and the EMA
+        shadows over ``grid`` (a ``parallel.mesh.Grid``, dp x fsdp), ZeRO
+        style (``parallel.mesh.FSDPState``): each train step gathers the
+        parameters whole, averages the gradients over dp, steps this rank's
+        shards and releases the whole parameters again. Feed each rank its
+        dp slice of the batch (``parallel.shard_batch(batch, grid.dp_rank,
+        grid.dp)``). ``fsdp.gather_()`` / ``gather_(ema=True)`` make the nets
+        whole between steps (to sample or save them)."""
+        from ..parallel.mesh import FSDPState
+
+        if not self.optimizers:
+            raise RuntimeError("shard_fsdp shards a train state: build the engine to train")
+        self.fsdp = FSDPState(self, grid)
 
     def resume_training(self, state_path: str) -> tuple:
         """Restore the optimizers and the step, and the EMA shadows when the
@@ -501,7 +545,8 @@ class SamplingEngine:
     # An engine provides ``_inputs(batch, use_ema)``: a dict of the call's
     # tensors (``mu``, ``type_idx``, ``img_ctx``, ``degra_ctx`` and the text
     # encodings, None where absent), ``_predictor(inputs, use_ema)``:
-    # ``predict(x, row)`` for ``sde.step``, reading only those tensors, and
+    # ``predict(x, row)`` for ``sde.step``, reading only those tensors (with
+    # ``sp``, a ``SpatialGroup``: this rank's rows of x and mu), and
     # ``_step_nets(use_ema)``: the nets that ``predict`` runs.
 
     @torch.inference_mode()
@@ -509,7 +554,7 @@ class SamplingEngine:
              sample_steps: Optional[int] = None, eta: Optional[float] = None,
              init_noise: Optional[torch.Tensor] = None,
              step_noise: Optional[Sequence[torch.Tensor]] = None,
-             compiled: Optional[bool] = None) -> torch.Tensor:
+             compiled: Optional[bool] = None, spatial=None) -> torch.Tensor:
         """Restore a batch: ``batch["input"]`` [B,H,W,1] in [-1,1] (the
         degraded image mu), ``batch["type_idx"]`` [B], optional
         ``batch["A_emb"]`` [B,1,context_dim] (zeros when absent; used with
@@ -523,11 +568,26 @@ class SamplingEngine:
         ``graph_key`` and cached on the engine (captured anew when the
         nets' weights changed since); False runs the same step eagerly, one
         launch per kernel (JAX without ``jit``). A failed capture or replay
-        raises; there is no fallback to the eager loop."""
+        raises; there is no fallback to the eager loop.
+
+        ``spatial`` (a ``parallel.spatial.SpatialGroup``; JAX's batch
+        sharded with ``shard_spatial``) splits the images' height over its
+        ranks: every rank passes the whole batch and the same seeded
+        generator (or the same noise), the call's inputs are made whole
+        (text encodings, image context), then each rank samples its own rows
+        (``shard_spatial``; the nets with ``sp``, the noise drawn whole and
+        sliced) and the result is gathered to the whole images on every
+        rank. An image height that does not split at every level of the
+        nets raises (``check_spatial``). A sharded call runs its steps
+        eagerly: its collectives go through gloo or NCCL calls that a CUDA
+        graph does not capture here (``compiled=True`` raises)."""
         if self.sde is None:
             raise ValueError("engine has no SDE; pass sde= to the constructor")
+        sharded = spatial is not None and spatial.world > 1
+        if sharded and compiled:
+            raise ValueError("a spatially sharded call runs eagerly (compiled=False)")
         if compiled is None:
-            compiled = self.device.type == "cuda"
+            compiled = self.device.type == "cuda" and not sharded
         elif compiled and self.device.type != "cuda":
             raise ValueError("compiled=True captures a CUDA graph; this engine lives on "
                              f"{self.device} (pass compiled=False)")
@@ -539,6 +599,16 @@ class SamplingEngine:
                 self._tensor(batch["type_idx"], torch.int64), generator=generator))
         with record_function("sampler_inputs"):
             inputs = self._inputs(batch, use_ema)
+        if sharded:
+            _, H, W, _ = inputs["mu"].shape
+            for net in self._step_nets(use_ema):
+                net.check_spatial(H, W, spatial.world)
+            inputs = shard_spatial(inputs, spatial)
+            x = self.sde.reverse_ddpm(
+                inputs["mu"], self._predictor(inputs, use_ema, spatial), eta=eta,
+                sample_steps=sample_steps, generator=generator, init_noise=init_noise,
+                step_noise=step_noise, sp=spatial)
+            return spatial.gather_h(x)
         if not compiled:
             return self.sde.reverse_ddpm(
                 inputs["mu"], self._predictor(inputs, use_ema), eta=eta,

@@ -5,7 +5,13 @@ the sampling engines hold their weights in it, the trained nets hold float32
 master weights and cast them where they are used, as flax's ``dtype=bf16``
 modules do with their float32 parameters. Normalisation parameters stay
 float32 and their math runs in float32, as the JAX modules'
-``dtype=jnp.float32`` norms do."""
+``dtype=jnp.float32`` norms do.
+
+The convolutions take ``sp``, a ``parallel.spatial.SpatialGroup``: x is
+then this rank's rows of an image split over its ranks, and each conv reads
+its neighbours' rows (``sp.halo``; zeros past the image's edges, which are
+SAME's zero padding) and returns this rank's rows of the unsharded conv.
+Without ``sp`` (or in a group of one) they compute what they always did."""
 
 from __future__ import annotations
 
@@ -38,18 +44,37 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
 
 
-def conv_same(x: torch.Tensor, conv: nn.Conv2d, stride: int = 1) -> torch.Tensor:
+def _sharded(sp) -> bool:
+    return sp is not None and sp.world > 1
+
+
+def _with_halo(x: torch.Tensor, sp, top: int, bottom: int) -> torch.Tensor:
+    """[top halo rows; x; bottom halo rows] along H."""
+    above, below = sp.halo(x, top, bottom)
+    return torch.cat([above, x, below], dim=1)
+
+
+def conv_same(x: torch.Tensor, conv: nn.Conv2d, stride: int = 1, sp=None) -> torch.Tensor:
     """flax ``nn.Conv(padding="SAME")`` on NHWC. SAME pads (total//2,
     total - total//2): a stride-2 3x3 conv on an even size pads (0, 1), where
-    torch's ``padding=1`` would pad (1, 1)."""
+    torch's ``padding=1`` would pad (1, 1). With ``sp`` the rows SAME pads
+    above and the k - stride - above rows the last output row reads past
+    this rank's come from the neighbours (a stride-2 3x3 conv: the bottom
+    row alone; each rank's row count must divide by the stride)."""
     B, H, W, C = x.shape
     kh, kw = conv.kernel_size
+    rows = H * sp.world if _sharded(sp) else H
     pads = []
-    for size, k in ((W, kw), (H, kh)):  # F.pad order: last dim first
+    for size, k in ((W, kw), (rows, kh)):  # F.pad order: last dim first
         out = -(-size // stride)
         total = max((out - 1) * stride + k - size, 0)
         pads += [total // 2, total - total // 2]
     dt = compute_dtype(conv)
+    if _sharded(sp):
+        if H % stride:
+            raise ValueError(f"conv_same: {H} rows per rank at stride {stride}")
+        x = _with_halo(x, sp, pads[2], kh - stride - pads[2])
+        pads[2:] = [0, 0]
     xc = F.pad(x.to(dt).permute(0, 3, 1, 2), pads)
     return F.conv2d(xc, conv.weight.to(dt), _cast(conv.bias, dt),
                     stride=stride).permute(0, 2, 3, 1)
@@ -61,7 +86,7 @@ def conv1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return F.linear(x.to(dt), conv.weight[:, :, 0, 0].to(dt), _cast(conv.bias, dt))
 
 
-def conv_transpose_same(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor:
+def conv_transpose_same(x: torch.Tensor, up: nn.ConvTranspose2d, sp=None) -> torch.Tensor:
     """flax ``nn.ConvTranspose(strides=2, padding="SAME")`` on NHWC at
     ``up``'s kernel size (the UNet's k=4, the dense ViT's necks' k=2; stride
     2 whatever stride the module was built with). flax
@@ -70,16 +95,21 @@ def conv_transpose_same(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor
     the UNFLIPPED kernel; torch's transposed conv flips its kernel, so the
     converter stores the flax kernel flipped (utils/convert.py) and padding
     k - 1 - a here gives the same effective padding (k=4: (2, 2), padding 1;
-    k=2: (1, 1), padding 0)."""
+    k=2: (1, 1), padding 0). With ``sp`` it runs on x with one neighbour
+    row on each side (output rows 2i and 2i + 1 read input rows i - 1 to
+    i + 1) and crops the 2 output rows each halo row makes."""
     k, s = up.kernel_size[0], 2
     a = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
     if k + s - 2 - a != a or up.kernel_size[1] != k:
         raise ValueError(f"conv_transpose_same: kernel {up.kernel_size} at stride {s} "
                          "has no symmetric torch padding")
     dt = compute_dtype(up)
+    if _sharded(sp):
+        x = _with_halo(x, sp, 1, 1)
     y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), up.weight.to(dt),
                            _cast(up.bias, dt), stride=s, padding=k - 1 - a)
-    return y.permute(0, 2, 3, 1)
+    y = y.permute(0, 2, 3, 1)
+    return y[:, s:y.shape[1] - s] if _sharded(sp) else y
 
 
 class ConvParams(nn.Module):
@@ -92,13 +122,17 @@ class ConvParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
 
-def conv3x3(x: torch.Tensor, conv: ConvParams) -> torch.Tensor:
+def conv3x3(x: torch.Tensor, conv: ConvParams, sp=None) -> torch.Tensor:
     """flax ``nn.Conv((3,3), padding="SAME")`` on NHWC with the HWIO weight of
     ``conv``. Stride-1 SAME pads (1, 1), which is torch's ``padding=1``; the
-    NCHW view of a contiguous NHWC tensor is already channels-last."""
+    NCHW view of a contiguous NHWC tensor is already channels-last. With
+    ``sp`` one neighbour row on each side takes the place of H's padding."""
     dt = compute_dtype(conv)
     w = conv.weight.to(dt).permute(3, 2, 0, 1)  # HWIO -> OIHW
-    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, _cast(conv.bias, dt), padding=1)
+    padding = 1
+    if _sharded(sp):
+        x, padding = _with_halo(x, sp, 1, 1), (0, 1)
+    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, _cast(conv.bias, dt), padding=padding)
     return y.permute(0, 2, 3, 1)
 
 

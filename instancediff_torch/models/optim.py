@@ -40,9 +40,17 @@ def ema_update(ema: torch.nn.Module, net: torch.nn.Module, step: int, beta: floa
     ``update_every`` steps the shadow is copied from the net while
     ``step < update_after`` and decayed toward it after (``beta e +
     (1 - beta) p``); other steps leave it as it is."""
+    ema_update_tensors(list(ema.parameters()), list(net.parameters()), step, beta,
+                       update_every, update_after)
+
+
+@torch.no_grad()
+def ema_update_tensors(shadows, params, step: int, beta: float = EMA_BETA,
+                       update_every: int = EMA_EVERY, update_after: int = EMA_AFTER) -> None:
+    """``ema_update`` on lists of tensors: the shadows ``shadows`` of
+    ``params``, elementwise (an FSDP rank updates its shards alone)."""
     if step % update_every:
         return
-    shadows, params = list(ema.parameters()), list(net.parameters())
     if step < update_after:
         torch._foreach_copy_(shadows, params)
     else:

@@ -45,7 +45,11 @@ class ScaledDecoderLayer(nn.Module):
 class ScoreMapModule(nn.Module):
     """``forward(vis [B,h,w,C], text_emb [K,E]) -> score maps [B,h,w,K]``.
     The decoder reads the features average-pooled to at most 16x16 tokens;
-    the score head projects the refined queries down to visual space."""
+    the score head projects the refined queries down to visual space. With
+    ``sp`` (a ``parallel.spatial.SpatialGroup``) vis is this rank's rows:
+    the pooled memory (or, at levels of at most 16 rows, vis itself) is
+    gathered from every rank, so the queries and the decoder layers are the
+    same on every rank, and each rank scores its own pixels."""
 
     def __init__(self, in_ch: int, visual_dim: int, token_embed_dim: int = 512,
                  embed_dim: int = 512, n_ctx: int = 8, decoder_layers: int = 3,
@@ -64,14 +68,18 @@ class ScoreMapModule(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(float(visual_dim) ** -0.5))
         self.score_bias = nn.Parameter(torch.tensor(0.0))
 
-    def forward(self, vis, text_emb):
+    def forward(self, vis, text_emb, sp=None):
         B, h, w, C = vis.shape
         K = text_emb.shape[0]
-        if h > self.max_mem_hw or w > self.max_mem_hw:
-            ph, pw = h // self.max_mem_hw, w // self.max_mem_hw
+        sharded = sp is not None and sp.world > 1
+        rows = h * sp.world if sharded else h  # the whole image's
+        if rows > self.max_mem_hw or w > self.max_mem_hw:
+            ph, pw = rows // self.max_mem_hw, w // self.max_mem_hw
             pooled = F.avg_pool2d(vis.permute(0, 3, 1, 2), (ph, pw), (ph, pw)).permute(0, 2, 3, 1)
         else:
             pooled = vis
+        if sharded:
+            pooled = sp.gather_h(pooled)
         mh, mw = pooled.shape[1], pooled.shape[2]
         memory = dense(self.mem_proj, dense(self.vis_in, pooled.reshape(B, mh * mw, C)))
         q = text_emb[None].expand(B, K, self.embed_dim).to(vis.dtype)

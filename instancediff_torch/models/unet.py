@@ -21,11 +21,23 @@ body with GroupNorm + SiLU in plain PyTorch (``group_norm_silu_plain``, the
 numerics of ``group_norm_silu_reference``), the bottleneck attention on
 ``ops/attention.py`` (the jnp ``multi_head_attention``) and the unfused
 head; no CUDA kernel runs, and each ResBlock is rematerialised in the
-backward (``torch.utils.checkpoint``) when the net's ``remat`` is set."""
+backward (``torch.utils.checkpoint``) when the net's ``remat`` is set.
+
+``forward(..., sp=group)`` runs the net on this rank's rows of images whose
+height is split over the ranks of a ``parallel.spatial.SpatialGroup``: the
+convolutions read their neighbours' rows, every GroupNorm takes its
+statistics across the shards (``gn_partial_sums`` summed over the ranks,
+then ``gn_apply``, or the fused conv's scale and shift), the fused conv runs
+on halo-extended rows (``fused_gn_silu_conv3x3_sharded``), the bottleneck
+attention's local queries attend to keys and values gathered from every
+rank, and each score map module decodes a memory gathered from every rank;
+the prediction and the score maps are this rank's rows. Every value equals
+the unsharded net's up to summation order."""
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
@@ -35,8 +47,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_gn_conv import fused_gn_silu_conv3x3, gn_channel_affine
-from ..ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
+from ..ops.fused_gn_conv import (fused_gn_silu_conv3x3, fused_gn_silu_conv3x3_sharded,
+                                 gn_channel_affine)
+from ..ops.group_norm_silu import (fold_mean_rstd, gn_affine_sharded, gn_partial_sums,
+                                   gn_partial_sums_plain, group_norm_silu,
+                                   group_norm_silu_plain, group_norm_silu_sharded)
+from ..parallel.spatial import check_height
 from .layers import (ConvParams, compute_dtype, conv1x1, conv3x3, conv_same,
                      conv_transpose_same, dense, layer_norm)
 from .scoremap import ScoreMapModule
@@ -77,9 +93,18 @@ class FusedGroupNormSiLU(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, plain: bool = False):
+    def forward(self, x, plain: bool = False, sp=None):
+        if sp is not None and sp.world > 1:
+            return group_norm_silu_sharded(x, self.weight, self.bias, self.num_groups, 1e-5,
+                                           True, sp, plain)
         gns = group_norm_silu_plain if plain else group_norm_silu
         return gns(x, self.weight, self.bias, self.num_groups)
+
+    def affine(self, x, sp=None):
+        """The fused conv's per-(B,C) scale and shift of GroupNorm(x)."""
+        if sp is not None and sp.world > 1:
+            return gn_affine_sharded(x, self.weight, self.bias, self.num_groups, 1e-5, sp)
+        return gn_channel_affine(x, self.weight, self.bias, self.num_groups)
 
 
 class ContextCrossAttention(nn.Module):
@@ -122,7 +147,7 @@ class ResBlock(nn.Module):
     context has at most one token, as the JAX block does. ``context_tokens``
     is the number of context tokens the block is built for (0: no
     cross-attention). ``plain`` runs the unfused body on the plain GroupNorm
-    (the differentiable path)."""
+    (the differentiable path). ``sp``: see the module's docstring."""
 
     def __init__(self, in_ch: int, out_ch: int, temb_dim: int, context_dim: int,
                  context_tokens: int):
@@ -137,32 +162,31 @@ class ResBlock(nn.Module):
         self.xattn = (ContextCrossAttention(context_dim, out_ch, context_tokens > 1)
                       if context_tokens else None)
 
-    def forward(self, h, temb, context=None, fused: bool = True, plain: bool = False):
+    def forward(self, h, temb, context=None, fused: bool = True, plain: bool = False, sp=None):
         if fused and not plain and (context is None or context.shape[1] == 1):
-            return self._fused_body(h, temb, context)
-        return self._unfused_body(h, temb, context, plain)
+            return self._fused_body(h, temb, context, sp)
+        return self._unfused_body(h, temb, context, plain, sp)
 
-    def _fused_body(self, h, temb, context):
+    def _fused_body(self, h, temb, context, sp=None):
         B = h.shape[0]
+        conv = fused_gn_silu_conv3x3 if sp is None or sp.world == 1 else partial(
+            fused_gn_silu_conv3x3_sharded, sp=sp)
         tb = dense(self.temb_proj, F.silu(temb))  # [B, out_ch]
-        scale1, shift1 = gn_channel_affine(h, self.gns1.weight, self.gns1.bias,
-                                           self.gns1.num_groups)
+        scale1, shift1 = self.gns1.affine(h, sp)
         bias1 = self.conv1.bias.float()[None] + tb.float()
-        y1 = fused_gn_silu_conv3x3(h, scale1, shift1, self.conv1.weight, bias1)
+        y1 = conv(h, scale1, shift1, self.conv1.weight, bias1)
 
-        scale2, shift2 = gn_channel_affine(y1, self.gns2.weight, self.gns2.bias,
-                                           self.gns2.num_groups)
+        scale2, shift2 = self.gns2.affine(y1, sp)
         res = h if self.skip is None else conv1x1(h, self.skip)
         bias2 = self.conv2.bias.float()[None].expand(B, self.out_ch)
         if self.xattn is not None and context is not None:
             bias2 = bias2 + self.xattn.bias(context).float()
-        return fused_gn_silu_conv3x3(y1, scale2, shift2, self.conv2.weight, bias2,
-                                     residual=res)
+        return conv(y1, scale2, shift2, self.conv2.weight, bias2, residual=res)
 
-    def _unfused_body(self, h, temb, context, plain: bool = False):
-        x = conv3x3(self.gns1(h, plain), self.conv1)
+    def _unfused_body(self, h, temb, context, plain: bool = False, sp=None):
+        x = conv3x3(self.gns1(h, plain, sp), self.conv1, sp)
         x = x + dense(self.temb_proj, F.silu(temb))[:, None, None]
-        x = conv3x3(self.gns2(x, plain), self.conv2)
+        x = conv3x3(self.gns2(x, plain, sp), self.conv2, sp)
         h = (h if self.skip is None else conv1x1(h, self.skip)) + x
         if self.xattn is not None and context is not None:
             h = self.xattn(h, context)
@@ -172,7 +196,10 @@ class ResBlock(nn.Module):
 class SelfAttention2D(nn.Module):
     """Bottleneck spatial self-attention on the flash-attention kernel, or
     with ``plain`` on ``ops/attention.py`` (the JAX package's jnp attention,
-    which it trains through)."""
+    which it trains through). With ``sp`` h is this rank's rows: the
+    GroupNorm's statistics are summed over the ranks (``gn_partial_sums``),
+    and the local queries (N = HW / world) attend to the keys and values of
+    every rank, gathered in rank order (N = HW)."""
 
     def __init__(self, channels: int, heads: int = 4):
         super().__init__()
@@ -183,22 +210,32 @@ class SelfAttention2D(nn.Module):
         self.v = nn.Linear(channels, channels)
         self.out = nn.Linear(channels, channels)
 
-    def forward(self, h, plain: bool = False):
+    def forward(self, h, plain: bool = False, sp=None):
         B, H, W, C = h.shape
-        x = F.group_norm(h.float().permute(0, 3, 1, 2), self.norm.num_groups,
-                         self.norm.weight, self.norm.bias, self.norm.eps)
-        x = x.permute(0, 2, 3, 1).reshape(B, H * W, C)
+        sharded = sp is not None and sp.world > 1
+        if sharded:
+            sums = (gn_partial_sums_plain if plain else gn_partial_sums)(h)
+            mean, rstd = fold_mean_rstd(sp.all_reduce_sum_(sums), self.norm.num_groups,
+                                        H * sp.world * W, self.norm.eps)
+            x = (h.float() - mean[:, None, None]) * rstd[:, None, None]
+            x = (x * self.norm.weight + self.norm.bias).reshape(B, H * W, C)
+        else:
+            x = F.group_norm(h.float().permute(0, 3, 1, 2), self.norm.num_groups,
+                             self.norm.weight, self.norm.bias, self.norm.eps)
+            x = x.permute(0, 2, 3, 1).reshape(B, H * W, C)
+        q, k, v = dense(self.q, x), dense(self.k, x), dense(self.v, x)
+        if sharded:  # every rank's keys and values, in rank order
+            kv = sp.gather_h(torch.cat([k, v], dim=-1).reshape(B, H, W, 2 * C))
+            k, v = kv.reshape(B, -1, 2 * C).split(C, dim=-1)
         if plain:
-            attn = multi_head_attention(dense(self.q, x), dense(self.k, x), dense(self.v, x),
-                                        self.heads)
+            attn = multi_head_attention(q, k, v, self.heads)
             return h + dense(self.out, attn).reshape(B, H, W, C)
         Dh = C // self.heads
 
         def split(z):
-            return z.reshape(B, H * W, self.heads, Dh).transpose(1, 2)
+            return z.reshape(B, -1, self.heads, Dh).transpose(1, 2)
 
-        attn = flash_attention(split(dense(self.q, x)), split(dense(self.k, x)),
-                               split(dense(self.v, x)))
+        attn = flash_attention(split(q), split(k), split(v))
         attn = attn.transpose(1, 2).reshape(B, H * W, C)
         return h + dense(self.out, attn).reshape(B, H, W, C)
 
@@ -217,7 +254,9 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
     ``ResBlock``); the context is [image | degradation] tokens. ``plain``
     runs the differentiable path (see the module's docstring); ``remat``
     (set by the engine that trains the net) rematerialises its ResBlocks
-    there."""
+    there. ``sp`` runs the net on this rank's rows of images split over the
+    ranks of a ``SpatialGroup`` (see the module's docstring);
+    ``check_spatial`` refuses an image size that does not split."""
 
     def __init__(self, in_nc: int = 2, out_nc: int = 5, nf: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), context_dim: int = 512,
@@ -290,13 +329,22 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
     def _has_smm(self, level: int) -> bool:
         return self.text_module == "scoremap" and (self.if_MultiScoreMap or level == 0)
 
+    def check_spatial(self, H: int, W: int, world: int) -> None:
+        """Raise unless images of H x W split over ``world`` ranks at every
+        level and at every score map module's pooling
+        (``parallel.spatial.check_height``)."""
+        pooled = [i for i in range(len(self.ch_mult)) if self._has_smm(i)]
+        smm = getattr(self, "smm_0", None)
+        check_height(H, W, world, len(self.ch_mult), pooled,
+                     smm.max_mem_hw if smm is not None else 16)
+
     def smm_contexts(self):
         """Each SMM's learnable context tokens, for the text tower."""
         return [getattr(self, f"smm_{i}").context for i in range(self.n_smms)]
 
     def forward(self, x_a, x_b, t, type_idx, text_embs: Optional[Sequence[torch.Tensor]] = None,
                 image_context: Optional[torch.Tensor] = None,
-                degra_context: Optional[torch.Tensor] = None, plain: bool = False):
+                degra_context: Optional[torch.Tensor] = None, plain: bool = False, sp=None):
         dtype = compute_dtype(self.conv_in)
         B = x_a.shape[0]
         n_levels = len(self.ch_mult)
@@ -305,8 +353,8 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
         def resblock(name, h):
             blk = getattr(self, name)
             if plain and self.remat:
-                return checkpoint(blk, h, temb, context, False, True, use_reentrant=False)
-            return blk(h, temb, context, fused, plain)
+                return checkpoint(blk, h, temb, context, False, True, sp, use_reentrant=False)
+            return blk(h, temb, context, fused, plain, sp)
 
         x = torch.cat([x_a, x_b], dim=-1)
         temb = timestep_embedding(t, self.nf).to(dtype)
@@ -319,17 +367,17 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
             context = d if context is None else torch.cat([context, d], dim=1)
         gather_idx = type_idx.long().reshape(B, 1, 1, 1)
 
-        h = conv_same(x, self.conv_in)
+        h = conv_same(x, self.conv_in, sp=sp)
         skips = []
         for i in range(n_levels):
             for j in range(self.num_res_blocks):
                 h = resblock(f"enc_{i}_{j}", h)
             skips.append(h)
             if i < n_levels - 1:
-                h = conv_same(h, getattr(self, f"down_{i}"), stride=2)
+                h = conv_same(h, getattr(self, f"down_{i}"), stride=2, sp=sp)
 
         h = resblock("mid1", h)
-        h = self.mid_attn(h, plain)
+        h = self.mid_attn(h, plain, sp)
         h = resblock("mid2", h)
 
         scoremaps = []
@@ -337,7 +385,7 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
             parts = [h, skips[i]]
             if self._has_smm(i):
                 smm_i = i if self.if_MultiScoreMap else 0
-                maps = getattr(self, f"smm_{smm_i}")(skips[i], text_embs[smm_i])  # [B,h,w,K]
+                maps = getattr(self, f"smm_{smm_i}")(skips[i], text_embs[smm_i], sp)  # [B,h,w,K]
                 scoremaps.insert(0, torch.gather(maps, -1,
                                                  gather_idx.expand(*maps.shape[:3], 1)))
                 fused_maps = conv1x1(maps, getattr(self, f"smm_fuse_{smm_i}"))
@@ -346,15 +394,18 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
             for j in range(self.num_res_blocks + 1):
                 h = resblock(f"dec_{i}_{j}", h)
             if i > 0:
-                h = conv_transpose_same(h, getattr(self, f"up_{i - 1}"))
+                h = conv_transpose_same(h, getattr(self, f"up_{i - 1}"), sp)
 
         if fused:
-            scale, shift = gn_channel_affine(h, self.norm_out.weight, self.norm_out.bias,
-                                             self.norm_out.num_groups)
+            scale, shift = self.norm_out.affine(h, sp)
             bias = self.conv_out.bias.float()[None].expand(B, self.out_nc)
-            out = fused_gn_silu_conv3x3(h, scale, shift, self.conv_out.weight, bias)
+            if sp is not None and sp.world > 1:
+                out = fused_gn_silu_conv3x3_sharded(h, scale, shift, self.conv_out.weight, bias,
+                                                    sp=sp)
+            else:
+                out = fused_gn_silu_conv3x3(h, scale, shift, self.conv_out.weight, bias)
         else:
-            out = conv3x3(self.norm_out(h, plain), self.conv_out)
+            out = conv3x3(self.norm_out(h, plain, sp), self.conv_out, sp)
         if self.out_nc > 1:
             pred = torch.gather(out, -1, gather_idx.expand(*out.shape[:3], 1))
         else:

@@ -55,6 +55,10 @@ SIGNATURES = {
         "gns_affine": ([_VP] * 6 + [_I] * 4 + [_F] + [_I] * 3 + [_VP], _I),
         # kind, C, G, vec, rows, tsize
         "gns_smem_bytes": ([_I] * 6, _I),
+        # x, sums, partials, tickets, B, HW, C, dtype, vec, rows, stream
+        "gns_partial_sums": ([_VP] * 4 + [_I] * 6 + [_VP], _I),
+        # x, scale_shift, out, B, HW, C, silu, dtype, vec, rows, stream
+        "gns_apply_affine": ([_VP] * 3 + [_I] * 7 + [_VP], _I),
     },
 }
 

@@ -13,7 +13,15 @@ packed once per parameter (``packed_weights``): bf16 on wgmma
 product, fp32 accuracy). ``fused_gn_silu_conv3x3_plain`` and
 ``gn_channel_affine_plain`` are the same functions in plain PyTorch. The
 wrappers use the plain versions only for CPU tensors: for a CUDA tensor they
-launch a kernel or raise."""
+launch a kernel or raise.
+
+Over an image split by rows across the ranks of a
+``parallel.spatial.SpatialGroup`` (``sp``), the fused body takes its
+GroupNorm statistics across the shards (``group_norm_silu.
+gn_affine_sharded``) and ``fused_gn_silu_conv3x3_sharded`` runs the conv on ``[top halo; rows; bottom halo]`` with its first and last
+output rows cropped; the kernel applies the global scale and shift to the
+halo rows too and pads with zeros after SiLU only at the image's own edges,
+where a shard takes no halo, so the result is the unsharded conv's."""
 
 from __future__ import annotations
 
@@ -243,6 +251,22 @@ def fused_gn_silu_conv3x3_plain(x, scale_c, shift_c, w, bias_bc, residual=None):
     if residual is not None:
         y = y + residual.float()
     return y.to(x.dtype)
+
+
+def fused_gn_silu_conv3x3_sharded(x, scale_c, shift_c, w, bias_bc, residual=None, *, sp):
+    """``fused_gn_silu_conv3x3`` of this rank's rows ``x`` of an image split
+    over the ranks of ``sp``: one call on ``[top halo; x; bottom halo]``
+    (each neighbour's nearest row; none at the image's own edges, where the
+    kernel pads with zeros), the residual padded with zero rows to match, the
+    halo rows' outputs cropped."""
+    top, bottom = sp.halo(x, 1, 1)
+    lo, hi = int(sp.rank > 0), int(sp.rank < sp.world - 1)
+    xe = torch.cat([top] * lo + [x] + [bottom] * hi, dim=1)
+    if residual is not None:
+        pad = residual.new_zeros(residual.shape[0], 1, *residual.shape[2:])
+        residual = torch.cat([pad] * lo + [residual] + [pad] * hi, dim=1)
+    y = fused_gn_silu_conv3x3(xe, scale_c, shift_c, w, bias_bc, residual)
+    return y[:, lo:y.shape[1] - hi]
 
 
 def fused_gn_silu_conv3x3(x, scale_c, shift_c, w, bias_bc, residual=None):

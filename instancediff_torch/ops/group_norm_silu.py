@@ -10,8 +10,16 @@ that reads x once. ``gn_plan`` mirrors the kernels' launch plan in plain
 Python. The same statistics launch gives the fused body's per-(B,C) scale and
 shift (``group_norm_affine_cuda``, behind ``fused_gn_conv.gn_channel_affine``).
 ``group_norm_silu_plain`` is the same function in plain PyTorch, with the
-numerics of ``group_norm_silu_reference``. The wrapper uses the plain version
-only for CPU tensors: for a CUDA tensor it launches the kernels or raises."""
+numerics of ``group_norm_silu_reference``.
+
+An image split by rows over the ranks of a ``parallel.spatial.SpatialGroup``
+(``sp``) takes the same GroupNorm in two halves: ``gn_partial_sums`` (the
+statistics launch stopped before the group fold: per-(B,C) fp32 sum and sum
+of squares), summed over the ranks and folded to groups in plain PyTorch
+(``fold_mean_rstd``, as ``group_mean_rstd`` folds), then ``gn_apply``, which
+normalises with a per-(B,C) scale and shift (``gn_affine_sharded``,
+``group_norm_silu_sharded``). The wrappers use the plain versions only for
+CPU tensors: for a CUDA tensor they launch the kernels or raise."""
 
 from __future__ import annotations
 
@@ -99,21 +107,32 @@ def gn_plan(B, HW, C, G, itemsize=2, cluster=None):
                 scratch=2 * B * chunks * G + 2 * B * G)
 
 
+def gn_partial_sums_plain(x):
+    """[2, B, C] float32: the sum and the sum of squares over (H, W) of each
+    channel of x [B,H,W,C], in float32."""
+    xf = x.float()
+    return torch.stack([xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))])
+
+
+def fold_mean_rstd(sums, num_groups, pixels, eps=1e-5):
+    """Per-(B,C) group mean and rstd from per-channel ``sums`` [2, B, C] over
+    ``pixels`` pixels: folded to groups, var = E[x^2] - mean^2."""
+    _, B, C = sums.shape
+    G = num_groups
+    Cg = C // G
+    n = pixels * Cg
+    mean_g = sums[0].reshape(B, G, Cg).sum(-1) / n
+    var_g = sums[1].reshape(B, G, Cg).sum(-1) / n - mean_g**2
+    mean_c = mean_g.repeat_interleave(Cg, dim=1)
+    rstd_c = torch.rsqrt(var_g + eps).repeat_interleave(Cg, dim=1)
+    return mean_c, rstd_c
+
+
 def group_mean_rstd(x, num_groups, eps=1e-5):
     """Per-(B,C) group mean and rstd of x [B,H,W,C]: float32 sum and sum of
     squares over (H,W) per channel, folded to groups, var = E[x^2] - mean^2."""
     B, H, W, C = x.shape
-    G = num_groups
-    Cg = C // G
-    xf = x.float()
-    colsum = xf.sum(dim=(1, 2))
-    colsq = (xf * xf).sum(dim=(1, 2))
-    n = H * W * Cg
-    mean_g = colsum.reshape(B, G, Cg).sum(-1) / n
-    var_g = colsq.reshape(B, G, Cg).sum(-1) / n - mean_g**2
-    mean_c = mean_g.repeat_interleave(Cg, dim=1)
-    rstd_c = torch.rsqrt(var_g + eps).repeat_interleave(Cg, dim=1)
-    return mean_c, rstd_c
+    return fold_mean_rstd(gn_partial_sums_plain(x), num_groups, H * W, eps)
 
 
 def group_norm_silu_plain(x, gamma, beta, num_groups, eps=1e-5, silu=True):
@@ -127,14 +146,21 @@ def group_norm_silu_plain(x, gamma, beta, num_groups, eps=1e-5, silu=True):
     return out.to(x.dtype)
 
 
-def _checked(name, x, gamma, beta, num_groups):
-    """The kernels' inputs, checked: (x contiguous, B, H, W, C, G)."""
+def _checked_x(name, x):
+    """x checked for the kernels: contiguous and 16-byte aligned."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported")
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be [B,H,W,C], got {tuple(x.shape)}")
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x  # the 16-byte loads need an aligned start
+
+
+def _checked(name, x, gamma, beta, num_groups):
+    """The kernels' inputs, checked: (x contiguous, B, H, W, C, G)."""
+    x = _checked_x(name, x)
     B, H, W, C = x.shape
     G = int(num_groups)
     if G <= 0 or C % G:
@@ -143,9 +169,6 @@ def _checked(name, x, gamma, beta, num_groups):
         raise ValueError(f"{name}: gamma and beta must be [C]")
     if gamma.device != x.device or beta.device != x.device:
         raise ValueError(f"{name}: inputs on different devices")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the 16-byte loads need an aligned start
-        x = x.clone()
     return x, B, H, W, C, G
 
 
@@ -236,3 +259,88 @@ def group_norm_silu(x, gamma, beta, num_groups, eps=1e-5, silu=True):
 
 
 group_norm_silu.launches = group_norm_silu.captured = 0
+
+
+def _plan_1(x):
+    """The statistics plan of x [B,H,W,C] without groups: (B, HW, C, plan)."""
+    B, H, W, C = x.shape
+    return B, H * W, C, gn_plan(B, H * W, C, 1, x.element_size(), cluster=0)
+
+
+def gn_partial_sums(x):
+    """[2, B, C] float32: each channel's sum and sum of squares over (H, W)
+    of x [B,H,W,C] float32 or bfloat16 (the statistics launch of
+    ``gn_channel_affine`` without the group fold)."""
+    if x.device.type == "cpu":
+        return gn_partial_sums_plain(x)
+    _build.refuse_autograd("gn_partial_sums", x)
+    x = _checked_x("gn_partial_sums", x)
+    B, HW, C, plan = _plan_1(x)
+    out = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    floats = 2 * B * _cdiv(HW, plan["rows"]) * C
+    stream = _current_stream(x)
+    buf, tickets = _scratch_for(x, stream, floats, B)
+    rc = _build.load("group_norm_silu").gns_partial_sums(
+        x.data_ptr(), out.data_ptr(), buf.data_ptr(), tickets.data_ptr(), B, HW, C,
+        _DTYPES[x.dtype], plan["vec"], plan["rows"], stream)
+    _build.check(rc, "gn_partial_sums")
+    _build.count_launch(gn_partial_sums)
+    return out
+
+
+gn_partial_sums.launches = gn_partial_sums.captured = 0
+
+
+def gn_apply_plain(x, scale, shift, silu=True):
+    """x * scale + shift (then SiLU if asked) with per-(B,C) float32 scale
+    and shift [B, C], in float32, rounded once to x's dtype."""
+    out = x.float() * scale[:, None, None, :] + shift[:, None, None, :]
+    if silu:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
+def gn_apply(x, scale, shift, silu=True):
+    """``gn_apply_plain`` on the GroupNorm apply kernel: x [B,H,W,C] float32
+    or bfloat16, scale and shift [B, C] float32; output in x's dtype."""
+    if x.device.type == "cpu":
+        return gn_apply_plain(x, scale, shift, silu)
+    _build.refuse_autograd("gn_apply", x, scale, shift)
+    x = _checked_x("gn_apply", x)
+    B, HW, C, plan = _plan_1(x)
+    if tuple(scale.shape) != (B, C) or tuple(shift.shape) != (B, C) \
+            or scale.device != x.device or shift.device != x.device:
+        raise ValueError(f"gn_apply: scale and shift must be [B, C] = {(B, C)} on {x.device}")
+    coefs = torch.stack([scale.float(), shift.float()]).contiguous()  # kept alive for the launch
+    out = torch.empty_like(x)
+    rc = _build.load("group_norm_silu").gns_apply_affine(
+        x.data_ptr(), coefs.data_ptr(), out.data_ptr(), B, HW, C, int(silu), _DTYPES[x.dtype],
+        plan["vec"], plan["rows"], _current_stream(x))
+    _build.check(rc, "gn_apply")
+    _build.count_launch(gn_apply)
+    return out
+
+
+gn_apply.launches = gn_apply.captured = 0
+
+
+def gn_affine_sharded(x, gamma, beta, num_groups, eps, sp, plain=False):
+    """GroupNorm's per-(B,C) ``scale = rstd * gamma`` and ``shift = beta -
+    mean * scale`` (float32 [B, C] each) of an image whose rows are split
+    over the ranks of ``sp`` (x: this rank's rows): the per-channel sums of
+    each shard (``gn_partial_sums``; with ``plain`` its plain version),
+    summed over the ranks, folded to groups over the whole image's pixels."""
+    sums = (gn_partial_sums_plain if plain else gn_partial_sums)(x)
+    sp.all_reduce_sum_(sums)
+    B, H, W, C = x.shape
+    mean_c, rstd_c = fold_mean_rstd(sums, num_groups, H * sp.world * W, eps)
+    scale = rstd_c * gamma.float()[None]
+    return scale, beta.float()[None] - mean_c * scale
+
+
+def group_norm_silu_sharded(x, gamma, beta, num_groups, eps, silu, sp, plain=False):
+    """``group_norm_silu`` of an image whose rows are split over the ranks of
+    ``sp``: the statistics across the shards (``gn_affine_sharded``), then
+    ``gn_apply`` on this rank's rows (with ``plain`` the plain versions)."""
+    scale, shift = gn_affine_sharded(x, gamma, beta, num_groups, eps, sp, plain)
+    return (gn_apply_plain if plain else gn_apply)(x, scale, shift, silu)

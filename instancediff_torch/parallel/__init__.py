@@ -12,8 +12,11 @@ optimizer step, so every rank takes the step of the global batch's mean
 loss and the ranks' parameters stay equal. Without a process group, or in a
 world of one, every helper here does nothing. Nothing of
 ``make_mesh``/``NamedSharding`` is needed beyond this: the data axis is the
-process group itself. The JAX package's FSDP and spatial sharding are not
-ported."""
+process group itself.
+
+The JAX package's two other axes are the modules beside this one:
+``mesh.py`` (ZeRO-style FSDP over a dp x fsdp grid of groups) and
+``spatial.py`` (an image's height split over ranks, ``"sp"``)."""
 
 from __future__ import annotations
 
@@ -131,17 +134,18 @@ def _bucketed_(tensors, collective) -> int:
     return total
 
 
-def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> int:
-    """Average ``tensors`` in place over the ranks: flattened into buckets,
-    one all-reduce (sum) per bucket, divided by the world size. Every rank
-    must pass the same list, in the same order. Returns the bytes reduced
-    (0 without a group or in a world of one, where nothing happens)."""
-    world = world_size()
+def all_reduce_mean_(tensors: Iterable[torch.Tensor], group=None) -> int:
+    """Average ``tensors`` in place over the ranks (of ``group``, default
+    the world): flattened into buckets, one all-reduce (sum) per bucket,
+    divided by the ranks' count. Every rank must pass the same list, in the
+    same order. Returns the bytes reduced (0 without a group or in a group of
+    one, where nothing happens)."""
+    world = world_size() if group is None else dist.get_world_size(group)
     if world == 1:
         return 0
 
     def mean_(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(world)
 
     return _bucketed_(tensors, mean_)

@@ -120,12 +120,15 @@ class DDPMSDE:
                      sample_steps: Optional[int] = None, eta: Optional[float] = None,
                      clip_x0: bool = True, generator: Optional[torch.Generator] = None,
                      init_noise: Optional[torch.Tensor] = None,
-                     step_noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                     step_noise: Optional[Sequence[torch.Tensor]] = None,
+                     sp=None) -> torch.Tensor:
         """Sample from pure noise x_T = s * eps, conditioned through the net,
         over the strided grid (``eta`` default 1), one eager ``step`` per
         row. ``init_noise`` ([B,H,W,1]) and ``step_noise`` (one tensor per
         step) replace draws from ``generator``; the draw order is init
-        first, then one per step."""
+        first, then one per step. With ``sp`` mu is this rank's rows, the
+        noise is drawn (or given) whole and sliced (``run_steps``), and the
+        result is this rank's rows."""
         state = SamplerState(mu, self.coeff_table(sample_steps, eta, mu.device))
         return run_steps(self, state, mu, lambda: self.step(state, predict_fn, clip_x0),
-                         generator, init_noise, step_noise)
+                         generator, init_noise, step_noise, sp)

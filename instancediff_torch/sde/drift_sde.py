@@ -150,14 +150,16 @@ class DriftSDE:
                      eta: Optional[float] = None, sample_steps: Optional[int] = None,
                      generator: Optional[torch.Generator] = None,
                      init_noise: Optional[torch.Tensor] = None,
-                     step_noise: Optional[Sequence[torch.Tensor]] = None):
+                     step_noise: Optional[Sequence[torch.Tensor]] = None, sp=None):
         """Reverse sampler over the strided grid, one eager ``step`` per row.
         ``init_noise`` ([B,H,W,1]) and ``step_noise`` (one tensor per step)
         replace draws from ``generator``; the draw order is init first, then
-        one per step."""
+        one per step. With ``sp`` mu is this rank's rows, the noise is drawn
+        (or given) whole and sliced (``run_steps``), and the result is this
+        rank's rows."""
         state = SamplerState(mu, self.coeff_table(sample_steps, eta, mu.device))
         return run_steps(self, state, mu, lambda: self.step(state, predict_fn), generator,
-                         init_noise, step_noise)
+                         init_noise, step_noise, sp)
 
     def reverse_ode(self, mu: torch.Tensor, predict_fn: PredictFn, **kwargs):
         """The deterministic sampler: ``reverse_ddpm`` at eta=0."""

@@ -40,28 +40,40 @@ class SamplerState:
 def run_steps(sde, state: SamplerState, mu: torch.Tensor, run_step: Callable[[], None],
               generator: Optional[torch.Generator] = None,
               init_noise: Optional[torch.Tensor] = None,
-              step_noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+              step_noise: Optional[Sequence[torch.Tensor]] = None, sp=None) -> torch.Tensor:
     """Start ``state`` at ``sde.init_state`` and call ``run_step`` once per
     table row (one eager step, or one graph replay); returns ``state.x``.
     ``init_noise`` ([B,H,W,1]) and ``step_noise`` (one tensor per step)
     replace draws from ``generator``; the draw order is init first, then one
     per step, each drawn before its step (outside a captured graph, so a
-    replay consumes the generator exactly as the eager loop does)."""
+    replay consumes the generator exactly as the eager loop does). With
+    ``sp`` (a ``parallel.spatial.SpatialGroup``) mu and the state are this
+    rank's rows of the images: every rank draws (or is given) the whole
+    images' noise, from a generator seeded alike on every rank, and takes
+    its own rows, so the ranks together draw what one process draws."""
     n_steps = state.table.shape[0]
     if step_noise is not None and len(step_noise) != n_steps:
         raise ValueError(f"step_noise has {len(step_noise)} entries for "
                          f"{n_steps} sampler steps")
+    sharded = sp is not None and sp.world > 1
+    full = (mu.shape[0], mu.shape[1] * sp.world, *mu.shape[2:]) if sharded else mu.shape
+
+    def own(z):
+        return sp.rows(z) if sharded else z
+
     if init_noise is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        eps = torch.randn(full, generator=generator, device=mu.device, dtype=mu.dtype)
     else:
         eps = init_noise.to(mu.device, mu.dtype)
-    state.x.copy_(sde.init_state(mu, eps, state.table))
+    state.x.copy_(sde.init_state(mu, own(eps), state.table))
     state.idx.zero_()
+    z_full = torch.empty(full, device=mu.device, dtype=mu.dtype) if sharded else state.z
     for i in range(n_steps):
         with record_function("sampler_step"):
             if step_noise is None:
-                state.z.normal_(generator=generator)
+                z_full.normal_(generator=generator)
+                state.z.copy_(own(z_full))
             else:
-                state.z.copy_(step_noise[i])
+                state.z.copy_(own(step_noise[i].to(mu.device)))
             run_step()
     return state.x

@@ -8,6 +8,13 @@ shape: on CUDA every chunk replays the engine's one captured sampler step
 from one seeded ``torch.Generator`` on the device, which advances from chunk
 to chunk.
 
+With ``spatial=N`` the Restorer serves inside a process group of N ranks,
+one per card (``python -m torch.distributed.run --nproc_per_node N``, or a
+group the caller joined already): each rank holds the engine on its own
+device, every rank restores the same request, the images' height split over
+the ranks (``parallel/spatial.py``), and ``restore`` returns the whole images
+on every rank, as the JAX Restorer returns its sharded result gathered.
+
 Usage:
     r = Restorer.from_config("Configurations/flagship_test.yml",
                              pth_dir="experiments/flagship_224/models")
@@ -79,10 +86,36 @@ def load_image_tower(opt, model_opt, embed_dim: int, pth_dir: Optional[str]):
     return load_flax_params(tower, load_pytree(path))
 
 
+def spatial_group(spatial: int, device="cuda"):
+    """The ``SpatialGroup`` of a ``spatial``-rank Restorer (None for 0 or
+    1): the process group already joined, else the one the launcher's
+    environment describes (``parallel.init_distributed``: ``cuda`` is this
+    rank's card ``cuda:LOCAL_RANK`` over NCCL, ``cpu`` gloo), which must hold
+    ``spatial`` ranks. Returns (group or None, this rank's device)."""
+    from . import parallel
+    from .parallel.spatial import SpatialGroup
+
+    if not spatial or spatial <= 1:
+        return None, device
+    joined = parallel.world_size() > 1
+    world = parallel.world_size() if joined else int(os.environ.get("WORLD_SIZE", 1))
+    if world != spatial:
+        raise ValueError(f"spatial={spatial} needs a process group of {spatial} ranks, "
+                         f"this one has {world} (launch with python -m "
+                         f"torch.distributed.run --nproc_per_node {spatial})")
+    if not joined:
+        device = parallel.init_distributed(str(device))
+    return SpatialGroup(), device
+
+
 class Restorer:
     def __init__(self, engine, batch_size: int = 8, use_ema: bool = True,
                  sample_steps: Optional[int] = None, seed: int = 0,
-                 eta: Optional[float] = None, device="cuda"):
+                 eta: Optional[float] = None, device="cuda", spatial: int = 0):
+        """``spatial > 1`` shards the images' height over that many ranks
+        (``spatial_group``; the engine must live on this rank's device); each
+        rank's generator is seeded alike, so the ranks draw the same noise."""
+        self.sp, device = spatial_group(spatial, device)
         self.device = resolve_device(device)
         if engine.device != self.device:
             raise ValueError(f"engine lives on {engine.device}, Restorer asked for "
@@ -103,19 +136,18 @@ class Restorer:
         """A Restorer for the model a YAML config names
         (``engine_from_config``), with the bundle ``iteration`` of ``pth_dir``
         (default ``test.pth_dir``). ``device`` takes the place of the JAX
-        version's ``platform``. ``spatial > 1`` (H-sharding over several
-        devices) is not ported and raises."""
+        version's ``platform``. ``spatial > 1`` joins (or uses) a process
+        group of that many ranks and builds the engine on this rank's device
+        (``spatial_group``), then shards each request's height over them."""
         from .config import load_options
 
-        if spatial and spatial > 1:
-            raise NotImplementedError("spatial > 1 shards H over several devices; the "
-                                      "port serves on one card")
+        _, device = spatial_group(spatial, device)
         opt = load_options(opt_path)
         engine = engine_from_config(opt, device=device,
                                     pth_dir=pth_dir or (opt.get("test") or {}).get("pth_dir"),
                                     iteration=iteration, use_ema=use_ema)
         r = cls(engine, batch_size=batch_size, use_ema=use_ema, sample_steps=sample_steps,
-                seed=seed, eta=eta, device=device)
+                seed=seed, eta=eta, device=device, spatial=spatial)
         if opt.get("type_map_ind"):
             r.type_map = dict(opt["type_map_ind"])
         return r
@@ -155,6 +187,7 @@ class Restorer:
                                 ((0, pad), (0, 0), (0, 0)), mode="edge"),
             }
             pred = self.engine.test(batch, self.generator, use_ema=self.use_ema,
-                                    sample_steps=self.sample_steps, eta=self.eta)
+                                    sample_steps=self.sample_steps, eta=self.eta,
+                                    spatial=self.sp)
             out[s:s + n] = pred[:n].float().cpu().numpy()
         return out

@@ -2,6 +2,8 @@
 ``testUM.py``).
 
     python -m instancediff_torch.tools.testUM -opt=Configurations/flagship_test.yml
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m instancediff_torch.tools.testUM -opt=... --spatial 2
 
 Loads the bundle ``test.iter`` from ``test.pth_dir`` (its EMA shadows with
 ``test.use_ema``) and the text tower's sidecar (with ``test.on_device_emb``
@@ -11,8 +13,12 @@ the image tower's too, which then embeds each batch's input in place of its
 scores each image with RMSE/SSIM/PSNR on ``x/2 + 0.5`` at the reference's
 settings, writes ``LQ|pred|GT`` triptychs as raw float32 under
 ``test.result_dir/<artifact type>/`` and prints per-type averages. The flags
-are those of ``testUM.py`` less ``--platform`` and ``--spatial``, plus
-``--device``. ``--knob name=value`` (repeatable) overrides one key of the
+are those of ``testUM.py`` less ``--platform``, plus ``--device``.
+``--spatial N`` splits each batch's height over the N ranks of the process
+group the launcher starts (one per card, ``cuda:LOCAL_RANK``; gloo with
+``--device cpu``): every rank restores every batch on its rows
+(``serving.spatial_group``, ``engine.test(..., spatial=)``) and rank 0 alone
+prints and writes the results. ``--knob name=value`` (repeatable) overrides one key of the
 ``models.<which_model>.engine`` block, as in ``testUM.py``: the value is an
 int when it is digits with an optional ``-``, else a string (``--knob
 fused_gnconv=0`` serves the unfused ResBlock body); an unknown key raises
@@ -31,8 +37,9 @@ import numpy as np
 import torch
 
 from .. import data as data_pkg
+from .. import parallel
 from ..config import load_options
-from ..serving import engine_from_config
+from ..serving import engine_from_config, spatial_group
 from ..utils.img_utils import save_raw
 from ..utils.metrics import eval_restoration
 
@@ -62,6 +69,9 @@ def main(argv=None):
     parser.add_argument("--iter", default=None, help="override test.iter")
     parser.add_argument("--use-ema", type=int, default=None, choices=(0, 1),
                         help="override test.use_ema (1 = EMA shadows)")
+    parser.add_argument("--spatial", type=int, default=0,
+                        help="shard the image height over this many ranks (one process "
+                             "per card, launched by torch.distributed.run)")
     parser.add_argument("--knob", action="append", default=[],
                         help="engine knob override, name=value (e.g. --knob fused_gnconv=0); "
                              "the keys of the models.*.engine block")
@@ -99,7 +109,10 @@ def main(argv=None):
         model_opt = opt["models"][(opt.get("train") or {}).get("which_model") or "DriftNoise"]
         model_opt["engine"] = dict(model_opt.get("engine") or {}, **parse_knobs(args.knob))
     use_ema = bool(test_opt.get("use_ema"))
-    model = engine_from_config(opt, device=args.device, pth_dir=test_opt.get("pth_dir"),
+    joined = parallel.world_size() > 1
+    sp, device = spatial_group(args.spatial, args.device)
+    writer = sp is None or sp.rank == 0
+    model = engine_from_config(opt, device=device, pth_dir=test_opt.get("pth_dir"),
                                iteration=test_opt.get("iter"), use_ema=use_ema)
     generator = torch.Generator(device=model.device).manual_seed(seed)
 
@@ -112,7 +125,8 @@ def main(argv=None):
                 continue
             tic = time.time()
             pred = model.test(batch, generator, use_ema=use_ema,
-                              sample_steps=test_opt.get("sample_steps"), eta=test_opt.get("eta"))
+                              sample_steps=test_opt.get("sample_steps"), eta=test_opt.get("eta"),
+                              spatial=sp)
             pred = pred.float().cpu().numpy()  # waits for the device
             # amortised per-sample time (batch wall / batch size): a throughput
             # figure, the latency of one sample only at batch 1
@@ -127,6 +141,8 @@ def main(argv=None):
                     bucket[k].append(m[k])
                 bucket["time"].append(per_sample_t)
                 bucket["num"] += 1
+                if not writer:
+                    continue
                 to_save = np.concatenate([batch["input"][j, ..., 0], pred[j, ..., 0],
                                           batch["target"][j, ..., 0]], axis=-1)
                 save_raw(to_save, osp.join(
@@ -134,8 +150,10 @@ def main(argv=None):
                 print(f"\n Testing {i}.{j}, {batch['GT_path'][j]}: RMSE={m['RMSE']}, "
                       f"SSIM={m['SSIM']}, PSNR={m['PSNR']} ({per_sample_t:.2f}s)")
 
+    if sp is not None and not joined:
+        parallel.shutdown()
     for name, v in test_results.items():
-        if v["num"] == 0:
+        if v["num"] == 0 or not writer:
             continue
         message = name
         for k in ("RMSE", "SSIM", "PSNR"):

@@ -7,7 +7,6 @@ step of both engines with the BERT tower.
 Every parameter leaf is drawn from a numpy seed; the JAX DDPM engine is built
 once, its inits traced for shapes only."""
 
-import contextlib
 import json
 import os
 
@@ -33,7 +32,8 @@ from instancediff_torch.tools import precompute_embeddings
 from instancediff_torch.utils.checkpoint import load_pytree
 from instancediff_torch.utils.convert import flax_params, load_engine, load_flax_params
 
-from test_torch_engine import _jax_noise, one_torch_thread, randomize  # noqa: F401
+from test_torch_engine import (_jax_noise, inits_shapes_only, one_torch_thread,  # noqa: F401
+                               randomize)
 
 RES, B, T = 16, 2, 4
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,
@@ -188,24 +188,6 @@ def test_bert_loader_matches_jax(vocab_file, tmp_path):
 # ---------------------------------------------------------------- the DDPM engine
 
 
-@contextlib.contextmanager
-def inits_shapes_only(engine_class: str):
-    """While open, the jitted inits in ``<engine_class>.__init__`` (the text
-    tower's and the nets') are traced for shapes only: every leaf is then
-    redrawn from a numpy seed."""
-    real_jit = jax.jit
-
-    def jit(fun, *args, **kwargs):
-        if f"{engine_class}.__init__" not in getattr(fun, "__qualname__", ""):
-            return real_jit(fun, *args, **kwargs)
-        return lambda *a: jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
-                                       jax.eval_shape(fun, *a))
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "jit", jit)
-        yield
-
-
 ENGINE_KW = dict(use_image_context=True, tiny_text_encoder=True, CLIP_Type="BiomedCLIP")
 
 
@@ -286,8 +268,12 @@ def test_biomedclip_engines_take_a_train_step(engine):
 
 @pytest.fixture(scope="module")
 def jax_model():
-    """JAX's tiny ``get_BiomedCLIP``, both towers' leaves redrawn."""
-    model = jax_biomedclip.get_BiomedCLIP(tiny=True)
+    """JAX's tiny ``get_BiomedCLIP``, both towers' leaves redrawn (their
+    inits traced for shapes only, which also stubs the jitted image encoder:
+    jitted again here)."""
+    with inits_shapes_only("BiomedCLIP"):
+        model = jax_biomedclip.get_BiomedCLIP(tiny=True)
+    model._encode_image = jax.jit(lambda p, x: model.visual.apply(p, x))
     rng = np.random.default_rng(6)
     model.visual_params = randomize(jax.tree.map(np.asarray, model.visual_params), rng)
     model.text_params = randomize(jax.tree.map(np.asarray, model.text_params), rng)

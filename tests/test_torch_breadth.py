@@ -134,8 +134,8 @@ def test_smm_less_unet_forward_matches_jax(jax_nets, inputs, class_name, fused):
     kernels' plain versions), against the JAX net in float32."""
     jnet, params = jax_nets(class_name, "none")
     i = inputs
-    want = np.asarray(jnet.apply(params, i["x_a"], i["x_b"], i["t"], i["type_idx"],
-                                 image_context=i["emb"]))
+    want = np.asarray(jax.jit(lambda p, *a: jnet.apply(p, *a[:4], image_context=a[4]))(
+        params, i["x_a"], i["x_b"], i["t"], i["type_idx"], i["emb"]))
     net = load_flax_params(create_net(_settings(class_name, "none"), token_embed_dim=TOKEN_DIM,
                                       device="cpu", use_fused_gnconv=fused), params)
     assert net.dec_0_0.in_ch == 2 * SETTINGS["nf"]  # no score-map channels

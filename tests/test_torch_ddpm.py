@@ -31,7 +31,8 @@ from instancediff_torch.utils import checkpoint as ckpt
 from instancediff_torch.utils.convert import flax_params, load_engine
 
 from test_torch_bundle import _assert_trees_equal, _flat
-from test_torch_engine import _jax_noise, one_torch_thread, randomize  # noqa: F401
+from test_torch_engine import (_jax_noise, inits_shapes_only, one_torch_thread,  # noqa: F401
+                               randomize)
 
 RES, B, T = 16, 2, 4
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,
@@ -41,8 +42,9 @@ SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,
 
 @pytest.fixture(scope="module")
 def jax_engine():
-    eng = JaxDDPMEngine(SETTINGS, sde=JaxDDPMSDE(T=T), image_size=RES, if_train=False,
-                        use_image_context=True, tiny_text_encoder=True)
+    with inits_shapes_only("CLIPDDPMEngine"):
+        eng = JaxDDPMEngine(SETTINGS, sde=JaxDDPMSDE(T=T), image_size=RES, if_train=False,
+                            use_image_context=True, tiny_text_encoder=True)
     rng = np.random.default_rng(0)
     for key in ("noise", "n_ema"):
         eng.state[key] = randomize(eng.state[key], rng)
@@ -83,9 +85,9 @@ def test_single_scoremap_unet_matches_jax(jax_engine, port_engine, inputs):
     text_fn = jax_engine._make_text_fn(jax_engine.text_params)
     text = [np.asarray(text_fn(params["params"]["smm_0"]["context"]))]
     i = inputs
-    want_pred, want_maps = jax_engine.noise_net.apply(
-        params, i["x"], i["mu"], i["t"], i["type_idx"], text_embs=text,
-        image_context=i["emb"])
+    want_pred, want_maps = jax.jit(lambda p, *a: jax_engine.noise_net.apply(
+        p, *a[:4], text_embs=a[4], image_context=a[5]))(
+            params, i["x"], i["mu"], i["t"], i["type_idx"], text, i["emb"])
     net = port_engine.nets["n_ema"]
     assert not net.use_fused_gnconv and net.n_smms == 1
     args = (torch.from_numpy(i["x"]), torch.from_numpy(i["mu"]), torch.from_numpy(i["t"]),

@@ -21,7 +21,7 @@ from instancediff_torch.sde import DriftSDE, strided_sampling_grid
 from instancediff_torch.utils.convert import load_engine
 
 from test_torch_engine import (ENGINE_KW, RES, SETTINGS, T, _jax_noise,  # noqa: F401
-                               one_torch_thread, randomize, shapes_only_init)
+                               inits_shapes_only, one_torch_thread, randomize)
 
 B = 2
 KW = dict(ENGINE_KW, use_degra_context=True)
@@ -29,7 +29,7 @@ KW = dict(ENGINE_KW, use_degra_context=True)
 
 @pytest.fixture(scope="module")
 def engines():
-    with shapes_only_init():
+    with inits_shapes_only("CLIPDriftEngine"):
         jeng = JaxEngine(dnet_settings=SETTINGS, nnet_settings=SETTINGS,
                          sde=JaxSDE(T=T, max_sigma=0.4), if_train=False, image_size=RES, **KW)
     rng = np.random.default_rng(0)

@@ -61,24 +61,44 @@ def randomize(tree, rng):
 
 
 @contextlib.contextmanager
-def shapes_only_init():
-    """While open, JAX's engines trace their nets' jitted init (``init_net``)
-    for shapes only (``jax.eval_shape``, zeros) instead of compiling it: the
-    tests overwrite every leaf from a numpy seed, and the two compiles cost
-    about 20 s on the CPU. Every other ``jax.jit`` is JAX's own."""
+def jits_shapes_only(match: str):
+    """While open, each ``jax.jit`` of a function whose qualified name holds
+    ``match`` is traced for shapes only (``jax.eval_shape``, zeros) instead
+    of compiled: the tests overwrite every leaf from a numpy seed. One
+    function's nets of one configuration (the drift and noise nets of most
+    engines) are traced once. Every other ``jax.jit`` is JAX's own."""
     real_jit = jax.jit
+    traced = {}
 
     def jit(fun, *args, **kwargs):
-        if "init_net" not in getattr(fun, "__qualname__", ""):
+        name = getattr(fun, "__qualname__", "")
+        if match not in name:
             return real_jit(fun, *args, **kwargs)
+        free = dict(zip(fun.__code__.co_freevars, (c.cell_contents for c in fun.__closure__ or ())))
+        net = repr(free.get("net"))
 
         def shapes(*a):
-            return jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), jax.eval_shape(fun, *a))
+            key = (fun.__code__, net, tuple((x.shape, x.dtype) for x in jax.tree.leaves(a)))
+            if key not in traced:
+                traced[key] = jax.eval_shape(fun, *a)
+            return jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), traced[key])
         return shapes
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax, "jit", jit)
         yield
+
+
+def shapes_only_init():
+    """JAX's engines' jitted net inits (``init_net``) for shapes only: the two
+    compiles cost about 20 s on the CPU."""
+    return jits_shapes_only("init_net")
+
+
+def inits_shapes_only(engine_class: str):
+    """The jitted inits in ``<engine_class>.__init__`` (the text tower's and
+    the nets') for shapes only."""
+    return jits_shapes_only(f"{engine_class}.__init__")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -96,7 +116,7 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def jax_engine():
     """The tiny JAX engine with every parameter leaf randomised."""
-    with shapes_only_init():
+    with inits_shapes_only("CLIPDriftEngine"):
         eng = JaxEngine(dnet_settings=SETTINGS, nnet_settings=SETTINGS,
                         sde=JaxSDE(T=T, max_sigma=0.4), if_train=False, image_size=RES,
                         **ENGINE_KW)
@@ -173,8 +193,9 @@ def test_scoremap_module(hw):
     vis = rng.standard_normal((2, hw, hw, 12)).astype(np.float32)
     text = rng.standard_normal((5, 16)).astype(np.float32)
     jsmm = JaxSMM(visual_dim=8, token_embed_dim=24, embed_dim=16)
-    params = randomize(jsmm.init(jax.random.key(0), vis, text), rng)
-    want = np.asarray(jsmm.apply(params, vis, text))
+    # jitted: one compiled program instead of each op compiled eagerly
+    params = randomize(jax.jit(jsmm.init)(jax.random.key(0), vis, text), rng)
+    want = np.asarray(jax.jit(jsmm.apply)(params, vis, text))
     smm = load_flax_params(ScoreMapModule(12, 8, token_embed_dim=24, embed_dim=16), params)
     with torch.no_grad():
         got = smm(torch.from_numpy(vis), torch.from_numpy(text))
@@ -192,8 +213,9 @@ def test_unet_forward(jax_engine, port_engine, inputs, fused):
     params = jax_engine.state["d_ema"]
     text = _jax_text(jax_engine, params)
     i = inputs
-    want_pred, want_maps = net.apply(params, i["x_a"], i["x_b"], i["t"], i["type_idx"],
-                                     text_embs=text, image_context=i["emb"])
+    want_pred, want_maps = jax.jit(lambda p, *a: net.apply(
+        p, *a[:4], text_embs=a[4], image_context=a[5]))(
+            params, i["x_a"], i["x_b"], i["t"], i["type_idx"], text, i["emb"])
     with torch.no_grad():
         pred, maps = port_engine.nets["d_ema"](
             torch.from_numpy(i["x_a"]), torch.from_numpy(i["x_b"]),

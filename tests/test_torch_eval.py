@@ -127,7 +127,8 @@ def test_from_config_serves_a_jax_bundle(jax_engine, bundle):
 
 
 def test_from_config_refuses_what_is_not_ported(bundle, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="one card"):
+    # spatial sharding runs in a group of that many ranks (tests/test_torch_spatial.py)
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         Restorer.from_config(CONFIG, pth_dir=bundle, iteration=ITER, device="cpu", spatial=2)
     opt = yaml.safe_load(open(CONFIG))
     opt["test"]["on_device_emb"] = True

@@ -33,6 +33,10 @@ from instancediff_torch.ops.fused_gn_conv import (
 from instancediff_torch.ops.group_norm_silu import (
     CLUSTER,
     cluster_smem_bytes,
+    gn_apply,
+    gn_apply_plain,
+    gn_partial_sums,
+    gn_partial_sums_plain,
     gn_plan,
     group_norm_silu,
     group_norm_silu_cuda,
@@ -234,6 +238,38 @@ def test_gn_affine_kernel_matches_plain(cuda, dtype, B, C, G):
     for got, w in zip((scale, shift), want):
         assert got.dtype == torch.float32 and got.shape == (B, C)
         torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-4)
+
+
+# the sharded GroupNorm's entries: fp32 sums of the same inputs (summation
+# order only); the apply's output rounded to x's dtype once, as the plain
+# version rounds it (bf16: one ulp where the fp32 values straddle a boundary)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,W,C", [(1, 19, 23, 144), (3, 8, 64, 528), (2, 17, 9, 20),
+                                     (2, 128, 256, 64)])
+def test_gn_sharded_entries_match_plain(cuda, dtype, tol, B, H, W, C):
+    """``gn_partial_sums`` (per-(B,C) sum and sum of squares) and
+    ``gn_apply`` (x * scale + shift, with and without SiLU) against their
+    plain versions: odd H and W, C = 20 on the one-element path in bf16, a
+    half-height flagship slab; both repeat bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(C + B)
+    x = (0.5 + _randn(gen, B, H, W, C)).to(dtype)
+    before = gn_partial_sums.launches
+    sums = gn_partial_sums(x)
+    torch.cuda.synchronize()
+    assert gn_partial_sums.launches == before + 1
+    want = gn_partial_sums_plain(x)
+    assert sums.dtype == torch.float32 and sums.shape == (2, B, C)
+    torch.testing.assert_close(sums, want, rtol=1e-4, atol=1e-4 * H * W)
+    assert torch.equal(gn_partial_sums(x), sums)
+    scale, shift = 1 + _randn(gen, B, C, scale=0.2), _randn(gen, B, C, scale=0.3)
+    for silu in (True, False):
+        before = gn_apply.launches
+        got = gn_apply(x, scale, shift, silu)
+        torch.cuda.synchronize()
+        assert gn_apply.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
+        torch.testing.assert_close(got.float(), gn_apply_plain(x, scale, shift, silu).float(),
+                                   rtol=tol, atol=tol)
+        assert torch.equal(gn_apply(x, scale, shift, silu), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

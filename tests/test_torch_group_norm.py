@@ -87,9 +87,10 @@ def test_unfused_resblock_matches_jax(block_inputs, tokens):
     i = block_inputs
     ctx = i["ctx"][:, :tokens] if tokens else None
     jblock = JaxResBlock(16, use_context=tokens > 0, context_dim=8)
-    params = _randomize(jblock.init(jax.random.key(0), i["h"], i["temb"], ctx),
+    # jitted: one compiled program each instead of every op compiled eagerly
+    params = _randomize(jax.jit(jblock.init)(jax.random.key(0), i["h"], i["temb"], ctx),
                         np.random.default_rng(tokens))
-    want = np.asarray(jblock.apply(params, i["h"], i["temb"], ctx))
+    want = np.asarray(jax.jit(jblock.apply)(params, i["h"], i["temb"], ctx))
     block = load_flax_params(ResBlock(24, 16, 32, 8, context_tokens=tokens), params)
     args = (torch.tensor(i["h"]), torch.tensor(i["temb"]),
             None if ctx is None else torch.tensor(ctx))

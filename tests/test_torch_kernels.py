@@ -234,8 +234,8 @@ def test_self_attention_groupnorm_eps_is_flax_default():
     h = _rand(rng, 2, 4, 4, 32, scale=2e-3)
     mod = JaxSelfAttention2D()
     params = jax.tree.map(lambda a: np.asarray(a) + _rand(rng, *np.shape(a), scale=0.2),
-                          mod.init(jax.random.key(2), h))
-    want = np.asarray(mod.apply(params, h))
+                          jax.jit(mod.init)(jax.random.key(2), h))
+    want = np.asarray(jax.jit(mod.apply)(params, h))
     attn = load_flax_params(SelfAttention2D(32), params)
     with torch.no_grad():
         got = attn(_t(h))
@@ -251,8 +251,8 @@ def test_decoder_layer_layernorm_eps_and_tanh_gelu():
     q, mem = _rand(rng, 2, 5, 16, scale=3e-3), _rand(rng, 2, 9, 16, scale=3e-3)
     mod = JaxDecoderLayer(16)
     params = jax.tree.map(lambda a: np.asarray(a) + _rand(rng, *np.shape(a), scale=0.5),
-                          mod.init(jax.random.key(3), q, mem))
-    want = np.asarray(mod.apply(params, q, mem))
+                          jax.jit(mod.init)(jax.random.key(3), q, mem))
+    want = np.asarray(jax.jit(mod.apply)(params, q, mem))
     layer = load_flax_params(ScaledDecoderLayer(16), params)
     with torch.no_grad():
         got = layer(_t(q), _t(mem)).numpy()

@@ -1,8 +1,9 @@
 """Ranks of the CPU data-parallel tests (``tests/test_torch_parallel.py``):
 each function runs as one rank of a gloo world in a process of its own,
-spawned by ``run_world``. This module imports torch and the port only (no
-JAX), so a rank starts in a few seconds; every rank and the rendezvous have
-a timeout, so a rank that hangs fails the test instead of the run."""
+started by ``run_world``. This module imports torch and the port only (no
+JAX); a fork server that has imported them once forks every rank, so a rank
+starts in well under a second. Every rank and the rendezvous have a
+timeout, so a rank that hangs fails the test instead of the run."""
 
 from __future__ import annotations
 
@@ -24,15 +25,44 @@ def run_world(fn, world: int, *args, timeout: float = WORLD_TIMEOUT) -> list:
     the launcher's environment on a free localhost port; returns the ranks'
     results in rank order and raises with a rank's traceback if one
     failed, or if the world did not finish within ``timeout``."""
+    return finish_world(start_world(fn, world, *args), timeout)
+
+
+# the modules every rank imports, loaded once by the fork server whose forks
+# become the ranks (a rank started from scratch spends seconds importing torch)
+PRELOAD = ["numpy", "torch", "torch.distributed", "torch_dist_workers",
+           "instancediff_torch.models.drift_model", "instancediff_torch.models.ddpm_model",
+           "instancediff_torch.serving", "instancediff_torch.parallel.spatial",
+           "instancediff_torch.parallel.mesh"]
+
+
+def _context():
+    """The fork server context (a server process that has imported
+    ``PRELOAD`` and nothing of JAX forks each rank)."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)
+    return ctx
+
+
+def start_world(fn, world: int, *args) -> tuple:
+    """``run_world``'s first half: the ranks started (the caller may work
+    meanwhile); ``finish_world`` collects them."""
     from instancediff_torch.parallel import free_port
 
-    ctx = mp.get_context("spawn")
+    ctx = _context()
     queue = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, args=(fn, rank, world, port, queue, args))
              for rank in range(world)]
     for p in procs:
         p.start()
+    return procs, queue
+
+
+def finish_world(started: tuple, timeout: float = WORLD_TIMEOUT) -> list:
+    """The ranks' results of a ``start_world`` world, as ``run_world``."""
+    procs, queue = started
+    world = len(procs)
     results, errors = {}, []
     try:
         for _ in range(world):
@@ -194,5 +224,134 @@ def cuda_gloo_rank(rank: int, world: int) -> dict:
         return {"bytes": n, "device": str(tensors[0].device),
                 "mean": [t.cpu().numpy() for t in tensors],
                 "net": [p.detach().cpu().numpy() for p in net.parameters()]}
+    finally:
+        parallel.shutdown()
+
+
+# ---------------------------------------------------------------- spatial
+
+def spatial_engine(settings: dict, engine_kw: dict, state: dict, text_params: dict,
+                   kind: str = "drift", T: int = 3, max_sigma: float = 0.4):
+    """The port's sampling engine of ``settings`` on the CPU, filled with
+    the flax trees ``state`` (per net) and ``text_params`` where given."""
+    from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
+    from instancediff_torch.models.drift_model import CLIPDriftEngine
+    from instancediff_torch.sde import DDPMSDE, DriftSDE
+    from instancediff_torch.utils.convert import load_engine
+
+    if kind == "drift":
+        eng = CLIPDriftEngine(settings, settings, sde=DriftSDE(T=T, max_sigma=max_sigma),
+                              device="cpu", **engine_kw)
+    else:
+        eng = CLIPDDPMEngine(settings, sde=DDPMSDE(T=T), device="cpu", **engine_kw)
+    return eng if state is None else load_engine(eng, state, text_params)
+
+
+def spatial_rank(rank: int, world: int, cases: dict, pair_cases: dict, served=None) -> dict:
+    """Each case of ``cases`` ({name: (engine args, batch, test kwargs)}) as
+    one rank of a gloo world: the engine's ``test`` on the whole batch with
+    the images' height split over the world (``spatial=``), the whole
+    images back on every rank; each of ``pair_cases`` the same over two
+    ranks, in the groups {0, 1}, {2, 3}, ... A case whose kwargs hold
+    ``seed`` draws its noise from a generator seeded with it; the others
+    pass the noise. With ``served`` = (config, images, names, testUM
+    argv): ``Restorer.from_config(config, spatial=world)`` (the engine's
+    initial weights from one torch seed) and its restore of ``images``
+    (``"served"``), and on rank 0 the same with ``spatial=0``
+    (``"served_whole"``); then ``testUM`` with ``--spatial world``
+    (``"testum"``)."""
+    import torch.distributed as dist
+
+    from instancediff_torch import parallel
+    from instancediff_torch.parallel.spatial import SpatialGroup
+    from instancediff_torch.serving import Restorer
+
+    parallel.init_distributed("cpu", timeout=GROUP_TIMEOUT)
+    try:
+        pairs = [dist.new_group([r, r + 1]) for r in range(0, world, 2)]
+        runs = [(SpatialGroup(), cases), (SpatialGroup(pairs[rank // 2]), pair_cases)]
+        out = {}
+        for sp, (name, (args, batch, kw)) in ((sp, c) for sp, cs in runs for c in cs.items()):
+            eng = spatial_engine(*args)
+            kw = dict(kw)
+            if "seed" in kw:
+                kw["generator"] = torch.Generator().manual_seed(kw.pop("seed"))
+            kw = {k: [torch.from_numpy(z) for z in v] if k == "step_noise" else
+                  torch.from_numpy(v) if k == "init_noise" else v for k, v in kw.items()}
+            out[name] = eng.test(batch, spatial=sp, **kw).numpy()
+            out[name + "_world"] = sp.world
+        if served is not None:
+            from instancediff_torch.tools import testUM
+
+            cfg, images, names, argv = served
+            for key, spatial in (("served", world), ("served_whole", 0))[:2 - bool(rank)]:
+                torch.manual_seed(0)
+                r = Restorer.from_config(cfg, batch_size=2, sample_steps=2, device="cpu",
+                                         spatial=spatial)
+                out[key] = r.restore(images, names)
+                out[key + "_world"] = r.sp.world if r.sp else 1
+            torch.manual_seed(0)
+            out["testum"] = testUM.main(argv + ["--spatial", str(world)])
+        return out
+    finally:
+        parallel.shutdown()
+
+
+# ---------------------------------------------------------------- FSDP
+
+def fsdp_rank(rank: int, world: int, name: str, draws: dict, tmp: str) -> dict:
+    """The train golden's case ``name`` on a 2 x 2 dp x fsdp grid (this
+    rank's dp slice of the batch and of the draws): the golden's two steps,
+    their loss terms and Adam's first moments (gathered), the trained nets'
+    parameters after them, and the bytes held against unsharded; then the
+    same case on a 1 x 4 grid (every rank the whole batch), whose ``.state``
+    rank 0 writes under ``tmp``."""
+    from instancediff_torch import parallel
+    from instancediff_torch.parallel.mesh import Grid
+    from instancediff_torch.utils.convert import adam_state, flax_params
+    from tools import make_train_golden as golden
+
+    from instancediff_torch.parallel.mesh import gather_params, shard_params_fsdp
+
+    parallel.init_distributed("cpu", timeout=GROUP_TIMEOUT)
+    try:
+        out = {}
+        for dp, fsdp in ((2, 2), (1, 4)):
+            grid = Grid(dp, fsdp)
+            tree = {"w": torch.arange(16.0).reshape(4, 4), "b": torch.ones(3)}
+            shards = shard_params_fsdp(tree, grid)
+            out[f"roundtrip_{dp}x{fsdp}"] = (
+                {k: (tuple(v[0].shape), v[1]) for k, v in shards.items()},
+                {k: v.numpy() for k, v in gather_params(shards, grid).items()})
+            eng = golden_engine(name)
+            eng.shard_fsdp(grid)
+            batch = parallel.shard_batch(golden.batch(), grid.dp_rank, dp)
+            mine = shard_draws(draws, grid.dp_rank, dp)
+
+            def moments():
+                mus = {}
+                for k in eng.optimizers:
+                    eng.fsdp.gather_()
+                    mus[k] = adam_state(eng.fsdp.adam_view(k), eng.nets[k])[
+                        "inner_state"]["1"]["mu"]
+                eng.fsdp.release_()
+                return mus
+
+            losses, mus = [], [moments()]
+            for i in range(2):
+                kw = {k: torch.from_numpy(np.ascontiguousarray(mine[k][i]))
+                      for k in ("t", "std_noise")}
+                eng.optimize_parameters(batch, epoch=i, **kw)
+                losses.append(dict(eng.loss_info["latest"]))
+                mus.append(moments())
+            eng.fsdp.gather_()
+            params = {k: flax_params(eng.nets[k]) for k in eng.optimizers}
+            eng.fsdp.release_()
+            state_dir = os.path.join(tmp, f"{dp}x{fsdp}")
+            written = eng.save_training_state(state_dir, 1, 2)
+            out[f"{dp}x{fsdp}"] = {"losses": losses, "mus": mus, "params": params,
+                                   "bytes": eng.fsdp.held_bytes(), "written": written,
+                                   "grid": (grid.dp_rank, grid.fsdp_rank)}
+        return out
     finally:
         parallel.shutdown()
