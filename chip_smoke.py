@@ -32,7 +32,8 @@ Phases, one JSON line each, in order:
                 fused conv and flash, at the split-TF32 rate 495/3 = 165
                 TFLOP/s (``TC_FLOPS``; the GroupNorm kernels' fp32 work at
                 67 TFLOP/s), the larger; then the flash kernel at every
-                head width it takes (4 to 128, fp32 and bf16,
+                head width it takes (4 to 128, and 96 for
+                coca_ViT-L-14's pooler; fp32, bf16 and fp16,
                 [8,4,1024,D]) with the kernel and warps the plan picks,
                 here, before the main paths: later, torch.profiler
                 undercounts the kernel libraries' launches;
@@ -209,11 +210,38 @@ Phases, one JSON line each, in order:
                 ``FLASH_FP16_SHAPES``; the kernels line's flash row gains
                 ``towers`` (the phase's launches by dtype and its shapes'
                 measurements) and ``fp16`` (its launches and its check);
+  6d. coca -- (after ``towers``, before ``train``) CoCa at full width,
+                seeded random weights: (a) coca_ViT-B-32 (JAX's defaults,
+                fp32) written as an open_clip state dict (1.0 GB) to a
+                temporary file and read back through the registry's
+                converter (``pretrained.resolve_converter`` ->
+                ``coca.load_torch_coca_weights``) on the card and on the
+                CPU, every parameter equal to the one written; its forward
+                on 8 one-channel 224 px images and ids [8, 76] through the
+                kernels (13 flash launches per ``encode_image``: 12 blocks
+                and the pooler's 256 queries over 50 keys; 12 per decoder
+                pass, 76 queries over 255 keys), against plain flash
+                (``TOL``) and the CPU (``FORWARD_TOL``); (b) captions of 30
+                tokens: greedy (against the plain-flash run: the step logits
+                within ``TOL``, the tokens equal or the first difference's
+                top-2 margin below the logits' error), top-p from a seeded
+                generator, beam search (6 beams in 3 groups), each held to
+                the fixed-shape EOS/PAD contract, ms per caption; (c) the
+                forward in bf16 against the fp32 one (latents within
+                ``FP16_TOL``; logits within ``BF16_FORWARD_TOL`` or 1.5x the
+                plain-flash bf16 run's distance); (d) coca_ViT-L-14's widths
+                at full depth (24 vision layers of 1024, the pooler's 8 heads
+                96 wide over 257 keys), seeded on the card: ``encode_image``
+                and ``decode`` in fp32 and bf16 against plain flash; then
+                every distinct flash launch (Nq, Nk apart) held against its
+                plain version and timed, a ``per_forward`` line per path, and
+                the pooler's shape in fp16. The kernels line's flash row
+                gains ``coca`` (launches by dtype, the shapes' measurements);
   7. train  -- ``tools/trainUM`` at flagship width (224 px, batch 4) over
                 SpeckleMed phantoms: drift fp32 (``flagship_tpu.yml``, remat
-                on) 8 iterations (cut from 12 for the script's time) with
-                checkpoints at 4 and 8 and inline validation at 8, resumed
-                from 4 (no validation or
+                on) 6 iterations (cut from 12, then 8, for the script's
+                time) with checkpoints at 3 and 6 and inline validation at
+                6, resumed from 3 (no validation or
                 checkpoint before its end) and held equal to the
                 uninterrupted run (nets, EMA, Adam moments), these two runs
                 alone under cuDNN deterministic; its bundle served by
@@ -253,9 +281,12 @@ Phases, one JSON line each, in order:
                 fixture recipe's teacher, one phase T=16 -> 8: the student
                 >= degraded + 6 dB and within 1 dB of the teacher), and
                 ``eval_protocol`` tables for both on a port Synthetic set
-                pinned by its manifest. Its launches are printed in a line
-                of its own, not in the ``kernels`` line.
-  9. irsde  -- ``create_sde({"class_name": "IRSDE", "T": 25})`` (cut from
+                pinned by its manifest (the gate and its tables in a process
+                of their own, ``start_gate``, run beside phase ``train``,
+                whose host-bound readings then share the host). Its
+                launches are printed in a line of its own, not in the
+                ``kernels`` line.
+  9. irsde  -- ``create_sde({"class_name": "IRSDE", "T": 12})`` (cut from
                 the config's T=100 for the script's time) driven by
                 two noise predictors with seeded random weights, each on the
                 kernels and on the plain path: the DDPM net at
@@ -264,7 +295,7 @@ Phases, one JSON line each, in order:
                 engine's noise net (fused body: 45 fused conv + 45
                 ``gn_channel_affine`` + 1 flash); 256 px, batch 8, bf16:
                 ``reverse_sde`` (stochastic, injected noise) and
-                ``reverse_ode`` at all 25 steps, kernels vs plain within
+                ``reverse_ode`` at all 12 steps, kernels vs plain within
                 ``TOL[bf16]`` of the plain result's largest value, launches
                 per step held to ``IRSDE_PATHS``, ms per step; then
                 ``ode_sampler`` in fp32 (rtol = atol = 1e-5) at
@@ -299,7 +330,8 @@ Phases, one JSON line each, in order:
                 ``gn_partial_sums`` / ``gn_apply`` of the GroupNorm kernels,
                 the bottleneck's local queries, Nq = N / 2, on the flash
                 kernel against the keys of both ranks, Nk = N), eagerly:
-                512 px, batch 2, 4 steps, eta 0, fp32 and bf16 (fused body),
+                512 px, batch 2, 2 steps (cut from 4 for the script's time),
+                eta 0, fp32 and bf16 (fused body),
                 and 256 px, 2 steps, fp32 on the unfused body; each against
                 the same request unsharded on the card (fp32 within
                 ``SPATIAL_TOL_FP32``, bf16 within ``TOL`` of the largest
@@ -308,6 +340,10 @@ Phases, one JSON line each, in order:
                 holds ``gn_partial_sums`` and ``gn_apply`` against their
                 plain versions and times them at the shapes the sharded
                 path gave them (the kernels line's two sharded entries);
+                and ``tools/restore --spatial 2`` (``SPATIAL_RESTORE``:
+                flagship_tpu.yml's net seeded as ``flagship_engine``'s, 256
+                px, 2 images, 2 steps; rank 0 alone writes) against the same
+                command unsharded, within ``SPATIAL_TOL_FP32``;
  12. fsdp   -- two spawned gloo ranks sharing the card on a 1 x 2 dp x fsdp
                 grid (``engine.shard_fsdp``: parameters, Adam's moments and
                 the EMA shadows split over the ranks, gathered for each
@@ -407,11 +443,15 @@ CONV_SHAPES = [  # (B, H, W, C, Cout, residual)
     # channels: 144 -> 128, 272 -> 256, 528 -> 512 wide)
     (8, 256, 256, 128, 64, False), (8, 128, 128, 256, 128, False),
     (8, 64, 64, 512, 256, False), (8, 32, 32, 512, 256, False)]
-# the bottleneck at 256 and 224 px, and the ViT-B/16 tower at 224 and 256 px
-FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64), (8, 12, 197, 64), (8, 12, 257, 64)]
+# the bottleneck at 256 and 224 px, the ViT-B/16 tower at 224 and 256 px, and
+# coca_ViT-L-14's attentional pooler ([B, H, Nq, Nk, D]: 256 queries in 8
+# heads of 96 over 1 + 16x16 image tokens)
+FLASH_SHAPES = [(8, 4, 1024, 64), (8, 4, 784, 64), (8, 12, 197, 64), (8, 12, 257, 64),
+                (8, 8, 256, 257, 96)]
 # fp16 (BiomedCLIP at fp16 / pure_fp16): the ViT-B/16 tower's shapes and
-# OpenAI RN50's attention pool (32 heads of 64 over 1 + 7x7 tokens)
-FLASH_FP16_SHAPES = [(8, 12, 197, 64), (8, 12, 257, 64), (8, 32, 50, 64)]
+# OpenAI RN50's attention pool (32 heads of 64 over 1 + 7x7 tokens); the
+# coca_ViT-L-14 pooler's
+FLASH_FP16_SHAPES = [(8, 12, 197, 64), (8, 12, 257, 64), (8, 32, 50, 64), (8, 8, 256, 257, 96)]
 GN_SHAPES = [  # (B, H, W, C, groups, silu)
     (8, 256, 256, 64, 32, True), (8, 256, 256, 144, 24, True), (8, 128, 128, 272, 17, True),
     (8, 64, 64, 528, 24, True), (8, 32, 32, 512, 32, True),
@@ -461,9 +501,11 @@ def ptxas_report(logs) -> tuple:
     for log in logs.values():
         for ln in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
-            if m:  # from the kernel's own name on (fgc_..., flash_..., gns_...)
+            if m:  # from the kernel's own name on (fgc_..., flash_..., gns_...): the
+                # last match, past the anonymous namespace's file tag
+                # (..._flash_attention_cu_...), so each instantiation is its own
                 name = m.group(1)
-                entry = name[re.search(r"(fgc|flash|gns)_", name).start():][:48]
+                entry = name[[k.start() for k in re.finditer(r"(fgc|flash|gns)_", name)][-1]:][:48]
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             if m and entry:
                 spills[entry] = int(m.group(1)) + int(m.group(2))
@@ -627,13 +669,18 @@ def measure_conv(shape, dtype, gen):
 
 
 def measure_flash(shape, dtype, gen):
-    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    """The flash kernel at ``shape``: [B, H, N, D], or [B, H, Nq, Nk, D] where
+    the keys are not the queries (CoCa's pooler and cross-attention)."""
+    B, Hh, N, *Nk, D = shape
+    Nk = Nk[0] if Nk else N
+    q = torch.randn(B, Hh, N, D, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(B, Hh, Nk, D, generator=gen, device="cuda").to(dtype) for _ in range(2))
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
     err = check_err(f"flash {shape} {dtype}", got, flash_attention_plain(q, k, v), dtype)
-    B, Hh, N, D = shape
     s = torch.finfo(dtype).bits // 8
-    bound_ms, bound_by = bound(4 * B * Hh * N * D * s, 4.0 * B * Hh * N * N * D, dtype, TC_FLOPS)
+    bound_ms, bound_by = bound(2 * B * Hh * (N + Nk) * D * s, 4.0 * B * Hh * N * Nk * D, dtype,
+                               TC_FLOPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return dict(
         max_abs_err=err, ms=cuda_ms(lambda: flash_attention(q, k, v)),
@@ -2441,16 +2488,432 @@ def towers_phase(gpu, gen, worst) -> tuple:
     return by_dtype, per_shape
 
 
+# ---------------------------------------------------------------- CoCa
+
+# coca_ViT-B-32 at JAX's defaults (build_coca()), and coca_ViT-L-14's widths
+# (open_clip's config: embed 768; vision 1024 wide in 24 layers of 16
+# heads, patch 14; text and decoder 768 wide, 12 heads; the pooler's 8 heads
+# 96 wide), at full depth
+COCA_L14 = dict(embed_dim=768, text_width=768, text_heads=12, mm_width=768, mm_heads=12,
+                patch_size=14, vision_width=1024, vision_layers=24, vision_heads=16)
+COCA_BATCH, COCA_CTX, COCA_SEQ = 8, 76, 30
+COCA_BEAMS, COCA_GROUPS = 6, 3
+COCA_REGISTRY = ("coca_ViT-B-32", "laion2b_s13b_b90k")
+
+
+@contextlib.contextmanager
+def coca_flash(plain: bool = False):
+    """While open, CoCa's unmasked attention (``multi_head_flash`` as
+    ``coca`` and ``text_encoder`` call it) records each launch's ([B, H, Nq,
+    Nk, D], dtype) into the yielded Counter, through the kernel or, with
+    ``plain``, through its plain version."""
+    from instancediff_torch.models import coca as coca_mod
+    from instancediff_torch.models import text_encoder as text_mod
+    from instancediff_torch.ops import flash_attention as flash_mod
+
+    seen = Counter()
+
+    def rec(q, k, v, heads):
+        B, N, C = q.shape
+        seen[((B, heads, N, k.shape[1], C // heads), q.dtype)] += 1
+        if not plain:
+            return flash_mod.multi_head_flash(q, k, v, heads)
+        with mock.patch.object(flash_mod, "flash_attention", flash_attention_plain):
+            return flash_mod.multi_head_flash(q, k, v, heads)
+
+    with mock.patch.object(coca_mod, "multi_head_flash", rec), \
+            mock.patch.object(text_mod, "multi_head_flash", rec):
+        yield seen
+
+
+def coca_state_dict(model) -> dict:
+    """``model``'s parameters in open_clip's CoCa layout (fused ``in_proj``
+    rows q | k | v, the pooler's separate ``q/k/v_proj_weight``, bias-free
+    ``conv1``, projections as [in, out] matrices): the inverse of
+    ``load_torch_coca_weights``."""
+    sd = {}
+
+    def put(key, t):
+        sd[key] = t.detach().float().cpu().clone()
+
+    def lin(prefix, m):
+        put(prefix + ".weight", m.weight)
+        put(prefix + ".bias", m.bias)
+
+    def resblock(prefix, blk, cross=False):
+        put(prefix + "attn.in_proj_weight", torch.cat([blk.q_proj.weight, blk.k_proj.weight,
+                                                       blk.v_proj.weight]))
+        put(prefix + "attn.in_proj_bias", torch.cat([blk.q_proj.bias, blk.k_proj.bias,
+                                                     blk.v_proj.bias]))
+        lin(prefix + "attn.out_proj", blk.out_proj)
+        lin(prefix + "mlp.c_fc", blk.fc)
+        lin(prefix + "mlp.c_proj", blk.proj)
+        for ln in ("ln_1", "ln_1_kv", "ln_2") if cross else ("ln_1", "ln_2"):
+            lin(prefix + ln, getattr(blk, ln))
+
+    vis, txt, dec = model.visual, model.text, model.text_decoder
+    put("visual.conv1.weight", vis.patch_embed.weight)
+    put("visual.class_embedding", vis.class_token.reshape(-1))
+    put("visual.positional_embedding", vis.pos_embed)
+    lin("visual.ln_pre", vis.ln_pre)
+    lin("visual.ln_post", vis.ln_post)
+    put("visual.proj", vis.proj.weight.T)
+    for i in range(vis.layers):
+        resblock(f"visual.transformer.resblocks.{i}.", getattr(vis, f"block_{i}"))
+    pool = vis.attn_pool
+    put("visual.attn_pool.query", pool.query)
+    lin("visual.attn_pool.ln_q", pool.ln_q)
+    lin("visual.attn_pool.ln_k", pool.ln_k)
+    for n in ("q", "k", "v"):
+        put(f"visual.attn_pool.attn.{n}_proj_weight", getattr(pool, f"{n}_proj").weight)
+    put("visual.attn_pool.attn.in_proj_bias", torch.cat([pool.q_proj.bias, pool.k_proj.bias,
+                                                         pool.v_proj.bias]))
+    lin("visual.attn_pool.attn.out_proj", pool.out_proj)
+    put("text.token_embedding.weight", txt.token_embedding.weight)
+    put("text.cls_emb", txt.cls_emb)
+    put("text.positional_embedding", txt.positional_embedding)
+    lin("text.ln_final", txt.ln_final)
+    put("text.text_projection", txt.text_projection.weight.T)
+    for i in range(txt.layers):
+        resblock(f"text.transformer.resblocks.{i}.", getattr(txt, f"block_{i}"))
+    for i in range(dec.layers):
+        resblock(f"text_decoder.resblocks.{i}.", getattr(dec, f"block_{i}"))
+        resblock(f"text_decoder.cross_attn.{i}.", getattr(dec, f"cross_{i}"), cross=True)
+    lin("text_decoder.ln_final", dec.ln_final)
+    put("text_decoder.text_projection", dec.text_projection.weight.T)
+    put("logit_scale", model.logit_scale)
+    return sd
+
+
+def coca_ids(rng, vocab: int) -> torch.Tensor:
+    """[COCA_BATCH, COCA_CTX] token ids: SOT, random tokens, EOT at a random
+    length, then padding (0)."""
+    from instancediff_torch.models.coca import EOS_ID, SOT_ID
+
+    ids = np.zeros((COCA_BATCH, COCA_CTX), np.int64)
+    for b, n in enumerate(rng.integers(4, COCA_CTX + 1, COCA_BATCH)):
+        ids[b, 0], ids[b, n - 1] = SOT_ID, EOS_ID
+        ids[b, 1:n - 1] = rng.integers(1, vocab - 2, n - 2)
+    return torch.from_numpy(ids)
+
+
+def caption_contract(what, out, eos: int, pad: int) -> None:
+    """SOT first; after a row's first EOS or PAD only PAD; an unfinished row
+    ends in EOS."""
+    from instancediff_torch.models.coca import SOT_ID
+
+    rows = out.cpu().numpy()
+    if rows.shape != (COCA_BATCH, COCA_SEQ) or not (rows[:, 0] == SOT_ID).all():
+        raise AssertionError(f"{what}: captions {rows.shape}, first tokens {rows[:, 0]}")
+    for row in rows:
+        stop = np.flatnonzero((row[1:] == eos) | (row[1:] == pad))
+        if not len(stop) or not (row[1:][stop[0] + 1:] == pad).all():
+            raise AssertionError(f"{what}: a caption breaks the EOS/PAD contract: {row}")
+
+
+def hold_kernels(what, got, plain, dtype, ref32=None) -> dict:
+    """Kernels against plain flash on the same outputs (lists of tensors):
+    fp32 within ``TOL``; a 16-bit run, whose bf16 blocks amplify the kernel's
+    rounding of P like any other rounding, no farther from the fp32 plain
+    run ``ref32`` than max(``TOL``, 1.5x the 16-bit plain run's distance
+    from it). Returns the errors (relative to the largest |output|)."""
+    if ref32 is None:
+        return {"kernels_vs_plain": tower_err(f"{what} kernels vs plain", got, plain,
+                                              TOL[dtype]), "tol": TOL[dtype]}
+    plain_err = tower_err(f"{what} plain vs fp32 plain", plain, ref32, float("inf"))
+    tol = max(TOL[dtype], 1.5 * plain_err)
+    return {"kernels_vs_plain": tower_err(f"{what} kernels vs plain", got, plain,
+                                          float("inf")),
+            "kernels_vs_fp32_plain": tower_err(f"{what} kernels vs fp32 plain", got, ref32, tol),
+            "plain_vs_fp32_plain": plain_err, "tol": tol}
+
+
+COCA_OUTPUTS = ("image_features", "text_features", "logits")
+
+
+def coca_forward_check(what, model, images, ids, per_forward, gpu, want_cpu=None, ref32=None):
+    """One forward through the kernels, its flash launches counted (they
+    must be ``per_forward``), against the same forward on the plain flash
+    (``hold_kernels``; ``ref32``: the fp32 plain outputs for a bf16 run)
+    and, when given, the CPU's (``FORWARD_TOL``). Returns (outputs, the
+    plain-flash outputs, launches by (shape, dtype))."""
+    with torch.inference_mode():
+        before = flash_attention.launches
+        with coca_flash() as seen:
+            got = model(images, ids)
+        torch.cuda.synchronize()
+        calls = flash_attention.launches - before
+        with coca_flash(plain=True):
+            plain = model(images, ids)
+    if calls != per_forward or sum(seen.values()) != per_forward:
+        raise AssertionError(f"{what}: {calls} flash launches per forward, want {per_forward}")
+    row = {"phase": "coca", "what": what, "flash_per_forward": calls,
+           "flash_shapes": [[list(s), str(d)] for (s, d) in seen],
+           **hold_kernels(what, [got[k] for k in COCA_OUTPUTS],
+                          [plain[k] for k in COCA_OUTPUTS], got["logits"].dtype,
+                          None if ref32 is None else [ref32[k] for k in COCA_OUTPUTS]),
+           "logits": list(got["logits"].shape), "logit_scale": got["logit_scale"].item()}
+    if want_cpu is not None:
+        row.update(card_vs_cpu=tower_err(f"{what} card vs CPU", [got[k] for k in COCA_OUTPUTS],
+                                         [want_cpu[k] for k in COCA_OUTPUTS], FORWARD_TOL),
+                   cpu_tol=FORWARD_TOL)
+    emit(dict(row, gpu=gpu))
+    return got, plain, seen
+
+
+def coca_generate(gpu, model, images, seen_all) -> dict:
+    """(b) captions on the card: greedy (top-k 1, ``COCA_SEQ`` tokens) held
+    against the plain-flash run (the step logits on the kernels' captions
+    within ``TOL``; equal tokens, or the first differing position's top-2
+    margin below the logits' error), top-p from a seeded generator, beam
+    search (``COCA_BEAMS`` beams in ``COCA_GROUPS`` groups); ms per
+    caption. Returns the phase line's numbers."""
+    from instancediff_torch.models import coca
+
+    eos, pad = coca.EOS_ID, model.pad_id
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            r = fn()
+        torch.cuda.synchronize()
+        return r, (time.time() - t0) * 1e3 / COCA_BATCH
+
+    greedy = dict(seq_len=COCA_SEQ, generation_type="top_k", top_k=1)
+    gen = torch.Generator(device="cuda")
+    with coca_flash() as seen:
+        coca.generate(model, images, gen.manual_seed(0), **greedy)  # warm-up
+        before = flash_attention.launches
+        tokens, ms = timed(lambda: coca.generate(model, images, gen.manual_seed(0), **greedy))
+        launches = flash_attention.launches - before
+    seen_all.update(seen)
+    with coca_flash(plain=True):
+        plain_tokens, plain_ms = timed(lambda: coca.generate(model, images, gen.manual_seed(0),
+                                                             **greedy))
+    per_call = model.visual.layers + 1 + (COCA_SEQ - 1) * model.text_decoder.layers
+    if launches != per_call:
+        raise AssertionError(f"greedy captions: {launches} flash launches, want {per_call}")
+    caption_contract("greedy captions", tokens, eos, pad)
+    with torch.inference_mode():
+        _, embs = model.encode_image(images)
+        logits = model.decode(embs, tokens).float()
+        with coca_flash(plain=True):
+            _, plain_embs = model.encode_image(images)
+            plain_logits = model.decode(plain_embs, tokens).float()
+    logit_err = tower_err("greedy captions' step logits, kernels vs plain", logits, plain_logits,
+                          TOL[torch.float32])
+    differ = (tokens != plain_tokens).any(dim=1)
+    first = []
+    for b in torch.nonzero(differ).flatten().tolist():
+        i = int(torch.nonzero(tokens[b] != plain_tokens[b])[0])
+        row = coca._process_logits(logits[b:b + 1, i - 1], tokens[b:b + 1], i, eos, 5, 1.0)
+        top2 = torch.topk(row[0], 2).values
+        margin = (top2[0] - top2[1]).item()
+        first.append([b, i, margin])
+        if not margin <= logit_err * max(1.0, plain_logits.abs().max().item()):
+            raise AssertionError(f"greedy captions differ at row {b}, position {i}, where the "
+                                 f"top-2 margin {margin} exceeds the logits' error")
+    out["greedy"] = {"ms_per_caption": ms, "plain_ms_per_caption": plain_ms,
+                     "flash_launches": launches, "step_logits_kernels_vs_plain": logit_err,
+                     "rows_equal_to_plain": int((~differ).sum()),
+                     "first_difference_row_pos_margin": first,
+                     "tokens_row0": tokens[0].tolist()}
+    with coca_flash() as seen:
+        top_p, ms = timed(lambda: coca.generate(model, images, gen.manual_seed(1),
+                                                seq_len=COCA_SEQ, generation_type="top_p",
+                                                top_p=0.9))
+        seen_all.update(seen)
+        caption_contract("top-p captions", top_p, eos, pad)
+        out["top_p"] = {"ms_per_caption": ms, "top_p": 0.9, "tokens_row0": top_p[0].tolist()}
+        before = flash_attention.launches
+        beams, ms = timed(lambda: coca.generate(model, images, seq_len=COCA_SEQ,
+                                                generation_type="beam_search",
+                                                num_beams=COCA_BEAMS,
+                                                num_beam_groups=COCA_GROUPS))
+        launches = flash_attention.launches - before
+    seen_all.update(seen)
+    caption_contract("beam-search captions", beams, eos, pad)
+    if launches != per_call:
+        raise AssertionError(f"beam search: {launches} flash launches, want {per_call}")
+    out["beam_search"] = {"ms_per_caption": ms, "beams": COCA_BEAMS, "groups": COCA_GROUPS,
+                          "flash_launches": launches, "tokens_row0": beams[0].tolist()}
+    return out
+
+
+def coca_phase(gpu, gen, worst) -> tuple:
+    """Phase ``coca``: (a) coca_ViT-B-32 at full width and depth (JAX's
+    defaults, fp32): seeded weights written as an open_clip state dict, read
+    back through the registry's converter (``pretrained.resolve_converter``:
+    ``load_torch_coca_weights``) on the card and on the CPU, every
+    parameter equal to the written one; the forward on 8 one-channel 224 px
+    images and ids [8, 76] through the kernels (13 flash launches per
+    ``encode_image``, 12 per decoder pass) against plain flash and the CPU;
+    (b) ``coca_generate``; (c) the same forward in bf16 against the fp32
+    one; (d) coca_ViT-L-14's widths at full depth, seeded on the card:
+    ``encode_image`` (its pooler's 8 heads of 96 on the D = 96
+    instantiation) and ``decode`` in fp32 and bf16 against plain flash;
+    then every distinct flash launch held against its plain version and
+    timed, one ``per_forward`` line per path (errors into
+    ``worst["flash_coca"]``). Returns (the phase's flash launches by dtype,
+    the per-shape measurements)."""
+    from instancediff_torch.models import coca, pretrained
+
+    t_phase = time.time()
+    rng = np.random.default_rng(90)
+    images = torch.from_numpy(rng.uniform(-1, 1, (COCA_BATCH, 224, 224, 1)).astype(np.float32))
+    ids = coca_ids(rng, 49408)
+    launched, per_call = Counter(), {}
+
+    source = coca.build_coca(device="cpu")
+    randomize_(source, seed=91)
+    with torch.no_grad():
+        source.visual.patch_embed.bias.zero_()  # open_clip's patch conv has no bias
+    loader = pretrained.resolve_converter(pretrained.get_pretrained_cfg(*COCA_REGISTRY))
+    if loader is not coca.load_torch_coca_weights:
+        raise AssertionError(f"{COCA_REGISTRY}: the registry resolves {loader}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coca_") as tmp:
+        path = os.path.join(tmp, "open_clip_pytorch_model.bin")
+        sd = coca_state_dict(source)
+        torch.save(sd, path)
+        ckpt_bytes = os.path.getsize(path)
+        del sd
+        t0 = time.time()
+        model = loader(coca.build_coca(device="cuda"), path)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        cpu = loader(coca.build_coca(device="cpu"), path)
+    for (name, want), got in zip(source.state_dict().items(), model.state_dict().values()):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"coca_ViT-B-32: {name} did not load as written")
+    del source
+    emit({"phase": "coca", "what": "(a) coca_ViT-B-32 seeded weights as an open_clip state "
+                                   "dict, loaded through the registry's converter",
+          "converter": f"{loader.__module__}.{loader.__name__}", "checkpoint_bytes": ckpt_bytes,
+          "load_seconds": round(load_s, 3),
+          "parameters": sum(p.numel() for p in model.parameters()), "gpu": gpu})
+    with torch.inference_mode():
+        want_cpu = cpu(images, ids)
+    del cpu
+    images_d, ids_d = images.cuda(), ids.cuda()
+    per_forward = model.visual.layers + 1 + model.text_decoder.layers
+    fp32, fp32_plain, seen = coca_forward_check(
+        "(a) coca_ViT-B-32 forward, fp32, 8 images at 224 px and ids [8, 76]", model, images_d,
+        ids_d, per_forward, gpu, want_cpu)
+    launched.update(seen)
+    per_call["coca_b32_forward_fp32"] = dict(seen)
+
+    seen_gen = Counter()
+    captions = coca_generate(gpu, model, images_d, seen_gen)
+    launched.update(seen_gen)
+    per_call["coca_b32_captions_fp32 (greedy twice, top-p, beam search)"] = dict(seen_gen)
+    emit({"phase": "coca", "what": f"(b) coca_ViT-B-32 captions on the card, {COCA_BATCH} "
+                                   f"images, {COCA_SEQ} tokens, fp32", **captions, "gpu": gpu})
+
+    cast_compute_(model, torch.bfloat16, master=True)
+    bf16, bf16_plain, seen = coca_forward_check("(c) coca_ViT-B-32 forward, bf16", model,
+                                                images_d, ids_d, per_forward, gpu,
+                                                ref32=fp32_plain)
+    launched.update(seen)
+    per_call["coca_b32_forward_bf16"] = dict(seen)
+    # the unit-norm latents within the towers phase's 16-bit tolerance of
+    # fp32; the logits (through 36 bf16 blocks) within BF16_FORWARD_TOL, or
+    # no farther than 1.5x the plain-flash bf16 forward's own distance
+    keys = ("image_features", "text_features")
+    bf16_err = tower_err("coca_ViT-B-32 bf16 vs fp32 latents", [bf16[k] for k in keys],
+                         [fp32[k] for k in keys], FP16_TOL)
+    plain_logits_err = tower_err("coca_ViT-B-32 bf16 vs fp32 logits, plain flash",
+                                 bf16_plain["logits"], fp32_plain["logits"], 1.0)
+    logits_tol = max(BF16_FORWARD_TOL, 1.5 * plain_logits_err)
+    logits_err = tower_err("coca_ViT-B-32 bf16 vs fp32 logits", bf16["logits"], fp32["logits"],
+                           logits_tol)
+    emit({"phase": "coca", "what": "(c) coca_ViT-B-32 bf16 forward against the fp32 one",
+          "latents_max_rel_err": bf16_err, "latents_tol": FP16_TOL,
+          "logits_max_rel_err": logits_err, "logits_tol": logits_tol,
+          "plain_flash_logits_max_rel_err": plain_logits_err, "gpu": gpu})
+    del model, fp32, bf16, fp32_plain, bf16_plain, want_cpu
+    torch.cuda.empty_cache()
+
+    with torch.device("cuda"):
+        large = coca.CoCa(**COCA_L14)
+    randomize_(large, seed=92)
+    ref32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        cast_compute_(large, dtype, master=True)
+        name = f"coca_l14_{str(dtype).replace('torch.', '')}"
+        with torch.inference_mode():
+            before = flash_attention.launches
+            with coca_flash() as seen:
+                latent, embs = large.encode_image(images_d)
+                got = [latent, embs, large.decode(embs, ids_d)]
+            torch.cuda.synchronize()
+            calls = flash_attention.launches - before
+            with coca_flash(plain=True):
+                latent, embs = large.encode_image(images_d)
+                plain = [latent, embs, large.decode(embs, ids_d)]
+        want_calls = large.visual.layers + 1 + large.text_decoder.layers
+        if calls != want_calls or sum(seen.values()) != want_calls:
+            raise AssertionError(f"{name}: {calls} flash launches, want {want_calls}")
+        if ((large.visual.attn_pool.n_head, 256, 257, 96), dtype) not in {
+                ((s[1], s[2], s[3], s[4]), d) for s, d in seen}:
+            raise AssertionError(f"{name}: the pooler did not run at D = 96: {seen}")
+        errs = hold_kernels(name, got, plain, dtype, ref32)
+        ref32 = ref32 or plain
+        launched.update(seen)
+        per_call[name] = dict(seen)
+        emit({"phase": "coca", "what": f"(d) coca_ViT-L-14 widths, full depth, "
+                                       f"{str(dtype).replace('torch.', '')}: encode_image and "
+                                       "decode on ids [8, 76], kernels vs plain flash",
+              "flash_per_call": calls, "flash_shapes": [[list(s), str(d)] for (s, d) in seen],
+              **errs, "gpu": gpu})
+    del large
+    torch.cuda.empty_cache()
+
+    measured = {}
+    for path, shapes in per_call.items():
+        tot, per_shape = Counter(), []
+        for (shape, dtype), count in shapes.items():
+            if (shape, dtype) not in measured:
+                measured[(shape, dtype)] = measure_flash(shape, dtype, gen)
+            m = measured[(shape, dtype)]
+            per_shape.append([list(shape), str(dtype).replace("torch.", ""), count,
+                              round(m["ms"], 4), round(m["device_ms"], 4),
+                              round(m["bound_ms"], 4), round(m["library_ms"], 4)])
+            for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += m[key] * count
+            worst["flash_coca"] = max(worst["flash_coca"], m["max_abs_err"])
+        emit({"phase": "per_forward", "kernel": "flash", "path": path,
+              "launches_per_forward": sum(shapes.values()),
+              **{k: round(v, 4) for k, v in tot.items()},
+              "shapes_nq_nk_dtype_count_ms_device_bound_library": per_shape, "gpu": gpu})
+    pooler = (COCA_BATCH, 8, 256, 257, 96)
+    measured[(pooler, torch.float16)] = m = measure_flash(pooler, torch.float16, gen)
+    emit({"phase": "coca", "what": "the coca_ViT-L-14 pooler's shape in fp16", "shape": pooler,
+          **m, "tol": TOL[torch.float16], "gpu": gpu})
+    by_dtype = Counter()
+    for (_, dtype), count in launched.items():
+        by_dtype[str(dtype).replace("torch.", "")] += count
+    per_shape = [dict(shape=list(s), dtype=str(d).replace("torch.", ""),
+                      **{k: m[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "max_abs_err")})
+                 for (s, d), m in measured.items()]
+    emit({"phase": "coca", "what": "the phase", "seconds": round(time.time() - t_phase, 3),
+          "flash_launches_by_dtype": dict(by_dtype), "gpu": gpu})
+    return by_dtype, per_shape
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_CONFIGS = {"drift_fp32": "Configurations/flagship_tpu.yml",
                  "drift_bf16": "Configurations/flagship_bf16_tpu.yml",
                  "ddpm": "Configurations/flagship_ddpm_tpu.yml"}
 # the drift fp32 run: 2 epochs of TRAIN_SAVE iterations at the configs' batch
-# 4 (cut from 2 of 6 for the script's time), a checkpoint at each epoch's end
-# (where a resume re-enters), inline validation at the end; bf16 and DDPM:
-# one epoch of SHORT_ITERS, validated at its end
-TRAIN_ITERS, TRAIN_SAVE, SHORT_ITERS, TIMED_STEPS = 8, 4, 4, 6
+# 4 (cut from 2 of 6, then of 4, for the script's time), a checkpoint at each
+# epoch's end (where a resume re-enters), inline validation at the end; bf16
+# and DDPM: one epoch of SHORT_ITERS, validated at its end; TIMED_STEPS (cut
+# from 6) timed after 2 warm-ups
+TRAIN_ITERS, TRAIN_SAVE, SHORT_ITERS, TIMED_STEPS = 6, 3, 4, 4
 # the CUDA-vs-CPU gradient check: a narrower drift engine, fp32, the tiny text tower
 GRAD_NET = dict(in_nc=2, out_nc=5, nf=64, ch_mult=[1, 2], num_res_blocks=2, context_dim=512,
                 text_module="scoremap", score_map_chan=16)
@@ -3221,15 +3684,54 @@ def distill_gate(gpu, tmp) -> Counter:
     return total
 
 
-def distill_phase_chip(gpu) -> None:
-    """Phase ``distill``: (a) at flagship width and (b) the gate; its
-    launches in a line of its own. (b)'s demo runs later, beside phases
-    ``irsde`` and ``dist`` (``start_demo``, ``finish_demo``)."""
+GATE_SCRIPT = """import json, os, sys
+import chip_smoke
+os.chdir(chip_smoke.ROOT)  # the gate's configs are read from the repository
+launches = chip_smoke.distill_gate(sys.argv[1], sys.argv[2])
+print(json.dumps({"gate_launches": dict(launches)}))
+"""
+
+
+def start_gate(gpu, tmp) -> tuple:
+    """``distill_gate`` (b) started in a process of its own: a tiny net's
+    train steps are host-bound, so it runs beside phase ``train``. Returns
+    (process, start time)."""
+    script = os.path.join(tmp, "distill_gate.py")
+    with open(script, "w") as f:
+        f.write(GATE_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    gate_dir = os.path.join(tmp, "gate")
+    os.makedirs(gate_dir)
+    return start_logged([sys.executable, script, gpu, gate_dir], gate_dir, env), time.time()
+
+
+def finish_gate(started) -> Counter:
+    """Wait for ``start_gate``'s process, print its phase lines; returns its
+    kernel launches."""
+    proc, t0 = started
+    out, err = finish_logged(proc, DEMO_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"the distillation gate rc {proc.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    *lines, last = out.strip().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    emit({"phase": "distill", "what": "the gate's process (beside phase train)",
+          "seconds": round(time.time() - t0, 3)})
+    return Counter(json.loads(last)["gate_launches"])
+
+
+def distill_phase_chip(gpu, gate) -> None:
+    """Phase ``distill``: (a) at flagship width, and (b) the gate, which
+    ``start_gate`` started beside phase ``train``; its launches in a line of
+    its own. (b)'s demo runs later, beside phases ``irsde`` and ``dist``
+    (``start_demo``, ``finish_demo``)."""
     t0 = time.time()
     total = Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
         total.update(distill_flagship(gpu, tmp))
-        total.update(distill_gate(gpu, tmp))
+    total.update(finish_gate(gate))
     if not all(total[k] for k in ("conv", "flash", "affine")):
         raise AssertionError(f"the distill phase launched {dict(total)}")
     emit({"phase": "distill", "what": "kernel launches of the phase (the teachers' rollouts, "
@@ -3599,13 +4101,16 @@ def dist_phase(gpu, started) -> None:
 # captured), against the same request unsharded on the same card: (what,
 # dtype, engine knobs, px, steps)
 SPATIAL_WORLD, SPATIAL_BATCH, SPATIAL_TIMEOUT = 2, 2, 900
-SPATIAL_REQUESTS = (("fused body, fp32", torch.float32, None, 512, 4),
-                    ("fused body, bf16", torch.bfloat16, None, 512, 4),
+SPATIAL_REQUESTS = (("fused body, fp32", torch.float32, None, 512, 2),
+                    ("fused body, bf16", torch.bfloat16, None, 512, 2),
                     ("unfused body, fp32", torch.float32, {"fused_gnconv": False}, 256, 2))
 # sharded vs unsharded: fp32 within SPATIAL_TOL_FP32 (abs); bf16 within
 # ``TOL`` relative to the largest output, the bound phase ``parity`` holds
 # kernels to against plain versions (``check_graph_vs_eager``)
 SPATIAL_TOL_FP32 = 1e-4
+# ``tools/restore --spatial 2``: flagship_tpu.yml's net (fp32) at 256 px, its
+# weights seeded as ``flagship_engine``'s, 2 images, 2 steps, eta 0
+SPATIAL_RESTORE = dict(config="Configurations/flagship_tpu.yml", res=256, images=2, steps=2)
 # the sharded GroupNorm's two kernel entries: their wrappers, plain
 # versions, sources, the TPU code they stand for, the nearest PyTorch call
 SHARDED_NAMES = {"sums": "gn_partial_sums", "apply": "gn_apply"}
@@ -3711,7 +4216,48 @@ def measure_sharded(kname, key, gen) -> dict:
                 bound_by=bound_by)
 
 
-def spatial_rank(rank, device="cuda:0") -> dict:
+def spatial_restore_inputs(tmp, write: bool = True) -> list:
+    """``SPATIAL_RESTORE``'s config (no bundle: the engine's own weights,
+    which ``seeded_engines`` then seeds) and images, written under ``tmp``
+    when ``write``; the ``tools/restore`` argv less ``--out`` and
+    ``--spatial``."""
+    cfg = os.path.join(tmp, "restore.yml")
+    files = [os.path.join(tmp, f"scan{i}.npy") for i in range(SPATIAL_RESTORE["images"])]
+    if write:
+        opt = yaml.safe_load(open(SPATIAL_RESTORE["config"]))
+        opt["resolution"] = SPATIAL_RESTORE["res"]
+        opt["test"] = dict(opt.get("test") or {}, pth_dir=None, on_device_emb=False)
+        with open(cfg, "w") as f:
+            yaml.safe_dump(opt, f)
+        rng = np.random.default_rng(42)
+        res = SPATIAL_RESTORE["res"]
+        for path in files:
+            np.save(path, rng.uniform(-1, 1, (res, res)).astype(np.float32))
+    types = [ARTIFACT_PROMPTS[0], ARTIFACT_PROMPTS[-1]][:len(files)]
+    return ["-opt", cfg, "--images", *files, "--type", *types, "--pre-normalized",
+            "--sample-steps", str(SPATIAL_RESTORE["steps"]), "--eta", "0"]
+
+
+@contextlib.contextmanager
+def seeded_engines():
+    """While open, ``serving.engine_from_config`` seeds the engine it builds
+    as ``flagship_engine`` seeds its own (the EMA nets, the text tower)."""
+    from instancediff_torch import serving
+
+    build = serving.engine_from_config
+
+    def seeded(*args, **kwargs):
+        eng = build(*args, **kwargs)
+        for i, key in enumerate(("d_ema", "n_ema")):
+            randomize_(eng.nets[key], seed=10 + i)
+        randomize_(eng.text_encoder, seed=20)
+        return eng
+
+    with mock.patch.object(serving, "engine_from_config", seeded):
+        yield
+
+
+def spatial_rank(rank, restore_dir=None, device="cuda:0") -> dict:
     """One of ``SPATIAL_WORLD`` gloo ranks sharing the card: each request of
     ``SPATIAL_REQUESTS`` through ``Restorer(spatial=SPATIAL_WORLD)`` (the
     kernels' counts zeroed just before and read just after, the shapes the
@@ -3719,7 +4265,10 @@ def spatial_rank(rank, device="cuda:0") -> dict:
     alone serves the same request unsharded (``compiled=False``, the same
     seed) and holds the two apart, and, in this fresh process (torch.profiler
     still records the kernel libraries here), holds the sharded GroupNorm's
-    two kernels against their plain versions at the recorded shapes."""
+    two kernels against their plain versions at the recorded shapes. With
+    ``restore_dir`` (``spatial_restore_inputs``): ``tools/restore --spatial
+    SPATIAL_WORLD`` (rank 0 writes under ``restore_dir``/sharded), then on
+    rank 0 the same command without ``--spatial`` (``restore_dir``/whole)."""
     import datetime
 
     dev = parallel.init_distributed(device, backend="gloo",
@@ -3776,6 +4325,24 @@ def spatial_rank(rank, device="cuda:0") -> dict:
             out["requests"].append(req)
             del eng, restorer
             torch.cuda.empty_cache()
+        if restore_dir is not None:
+            from instancediff_torch.tools import restore
+
+            argv = spatial_restore_inputs(restore_dir, write=rank == 0)
+            parallel.barrier()
+            t0 = time.time()
+            with seeded_engines():
+                torch.manual_seed(0)  # what randomize_ keeps (biases' init) alike
+                written = restore.main(argv + ["--spatial", str(SPATIAL_WORLD), "--out",
+                                               os.path.join(restore_dir, "sharded")])
+                out["restore"] = {"written": written, "seconds": round(time.time() - t0, 3)}
+                parallel.barrier()
+                if rank == 0:
+                    torch.manual_seed(0)
+                    t0 = time.time()
+                    out["restore"].update(whole=restore.main(
+                        argv + ["--out", os.path.join(restore_dir, "whole")]),
+                        whole_seconds=round(time.time() - t0, 3))
         if rank == 0:
             gen = torch.Generator(device=dev).manual_seed(41)
             out["measured"] = {k: [(key, n, measure_sharded(k, key, gen))
@@ -3789,6 +4356,30 @@ def spatial_rank(rank, device="cuda:0") -> dict:
         parallel.shutdown()
 
 
+def spatial_restore_check(ranks, gpu) -> None:
+    """``tools/restore --spatial 2``: rank 0 alone wrote, one file per image,
+    each within ``SPATIAL_TOL_FP32`` of the unsharded command's."""
+    got = [r["restore"]["written"] for r in ranks]
+    want = ranks[0]["restore"]["whole"]
+    names = [os.path.basename(p) for p in want]
+    if [os.path.basename(p) for p in got[0]] != names or any(got[1:]) \
+            or len(names) != SPATIAL_RESTORE["images"]:
+        raise AssertionError(f"tools/restore --spatial: wrote {got}, unsharded {want}")
+    err = max(float(np.abs(np.fromfile(a, np.float32) - np.fromfile(b, np.float32)).max())
+              for a, b in zip(got[0], want))
+    if not err <= SPATIAL_TOL_FP32:
+        raise AssertionError(f"tools/restore --spatial: {err} from the unsharded images")
+    emit({"phase": "spatial", "what": f"tools/restore --spatial {SPATIAL_WORLD} over the gloo "
+                                      f"ranks ({SPATIAL_RESTORE['config']}'s net, fp32, "
+                                      f"{SPATIAL_RESTORE['res']} px, "
+                                      f"{SPATIAL_RESTORE['images']} images, "
+                                      f"{SPATIAL_RESTORE['steps']} steps, eta 0) against the "
+                                      "same command unsharded",
+          "files": names, "max_abs_err": err, "tol": SPATIAL_TOL_FP32,
+          "seconds_per_rank": [r["restore"]["seconds"] for r in ranks],
+          "unsharded_seconds": ranks[0]["restore"]["whole_seconds"], "gpu": gpu})
+
+
 def spatial_phase(gpu) -> dict:
     """Phase ``spatial``: ``spatial_rank`` on ``SPATIAL_WORLD`` spawned
     ranks. Fails unless every request is finite, every rank launched the
@@ -3797,10 +4388,12 @@ def spatial_phase(gpu) -> dict:
     sharded result is within the tolerance of the unsharded one. Returns the
     kernels line's entries of the two sharded GroupNorm kernels."""
     t_phase = time.time()
-    ranks = spawn_world(spatial_rank, SPATIAL_WORLD, timeout=SPATIAL_TIMEOUT)
-    errors = [r["error"] for r in ranks if "error" in r]
-    if errors:
-        raise AssertionError("spatial ranks failed:\n" + "\n".join(errors))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_restore_") as restore_dir:
+        ranks = spawn_world(spatial_rank, SPATIAL_WORLD, restore_dir, timeout=SPATIAL_TIMEOUT)
+        errors = [r["error"] for r in ranks if "error" in r]
+        if errors:
+            raise AssertionError("spatial ranks failed:\n" + "\n".join(errors))
+        spatial_restore_check(ranks, gpu)
     total = Counter()
     for i, (what, dtype, opts, res, steps) in enumerate(SPATIAL_REQUESTS):
         reqs = [r["requests"][i] for r in ranks]
@@ -3963,7 +4556,7 @@ def fsdp_phase(gpu) -> None:
 
 # T cut from the configs' 100 for the script's time: the loops' depth, not
 # their widths (each step is one full-width noise-net forward)
-IRSDE_OPT = {"class_name": "IRSDE", "T": 25}
+IRSDE_OPT = {"class_name": "IRSDE", "T": 12}
 # per noise-net forward (one per sampler step / function evaluation): the
 # DDPM net on the unfused body; the drift engine's noise net on the fused body
 IRSDE_PATHS = {"ddpm": {"conv": 0, "flash": 1, "gn": 45, "affine": 0},
@@ -4018,7 +4611,7 @@ def irsde_loops(sde, noise_fn, mu, init, steps, plain: bool) -> dict:
 
 
 def irsde_phase(gpu) -> Counter:
-    """Phase ``irsde``: ``create_sde(IRSDE_OPT)`` (T=25)
+    """Phase ``irsde``: ``create_sde(IRSDE_OPT)`` (T=12)
     driven by two noise predictors at full width with seeded random weights
     (the DDPM net of flagship_ddpm_tpu.yml's widths, unfused body; the
     flagship drift engine's noise net, fused body), 256 px, batch 8, bf16:
@@ -4544,15 +5137,28 @@ def main() -> int:
     towers_launches, towers_shapes = towers_phase(gpu, gen, worst)
     marks.append(("towers", time.time()))
 
-    # 7. training: trainUM at flagship width, resume, serving what it
-    # trained; after the kernels' timings, which its profiles would disturb
-    train_phase(gpu)
-    marks.append(("train", time.time()))
+    # 6d. CoCa: coca_ViT-B-32 from an open_clip state dict, its captions,
+    # bf16, coca_ViT-L-14's widths (the pooler at D = 96); before train, for
+    # the same profiler reason
+    coca_launches, coca_shapes = coca_phase(gpu, gen, worst)
+    marks.append(("coca", time.time()))
 
+    # 7. training: trainUM at flagship width, resume, serving what it
+    # trained; after the kernels' timings, which its profiles would disturb.
     # 8. distillation: the teacher's rollouts on the kernels inside a
-    # training loop, at flagship width and on the gate's tiny widths
-    distill_phase_chip(gpu)
-    marks.append(("distill", time.time()))
+    # training loop, at flagship width and on the gate's tiny widths (the
+    # gate, a tiny host-bound net in a process of its own, runs beside train)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as gate_tmp:
+        gate = start_gate(gpu, gate_tmp)
+        try:
+            train_phase(gpu)
+            marks.append(("train", time.time()))
+            distill_phase_chip(gpu, gate)
+            marks.append(("distill", time.time()))
+        finally:
+            if gate[0].poll() is None:
+                gate[0].kill()
+                gate[0].wait()
 
     # 9. IR-SDE on the kernels (its launches count in the kernels line), and
     # 10. data-parallel training
@@ -4606,10 +5212,16 @@ def main() -> int:
                                                        "plain_ms", "bound_ms", "bound_by",
                                                        "library_ms", "max_abs_err")}
                                     for m in check_fp16]}
+    # CoCa's flash launches (fp32 and bf16) and the measurements of their
+    # shapes, Nq and Nk apart
+    entries["flash"]["coca"] = {"launches_by_dtype": dict(coca_launches),
+                                "max_abs_err": worst["flash_coca"], "per_shape": coca_shapes}
     idle = [k for k, e in entries.items() if not e["launches"]] + (
         [] if launches["flash_tower"] else ["flash (image tower)"]) + (
         [] if towers_launches["float16"] and towers_launches["float32"]
-        else ["flash (towers, fp16 and fp32)"])
+        else ["flash (towers, fp16 and fp32)"]) + (
+        [] if coca_launches["float32"] and coca_launches["bfloat16"]
+        else ["flash (coca, fp32 and bf16)"])
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
     entries = list(entries.values())

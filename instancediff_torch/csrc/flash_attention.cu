@@ -7,7 +7,10 @@
 // flagship's widths, 4 to 128 at the repo's other configurations; the ViT
 // image tower has D = 64, and so have the RN50 CLIP tower's attention pool
 // ([B, 32, 50, 64]), the dense ViT and the reference context decoder's self-
-// attention. The launch plan (which kernel serves a (D, dtype)) is
+// attention; CoCa's towers D = 64 and its coca_ViT-L-14 attentional pooler
+// (embed 768 over 8 heads) D = 96, with 256 queries over the image tokens
+// (Nk = 50 or 257), as its decoder's cross-attention has L queries over 255
+// keys. The launch plan (which kernel serves a (D, dtype)) is
 // ops/flash_attention.py:flash_plan, which mirrors flash_forward below.
 // Every (D, dtype) of HEAD_WIDTHS x {bf16, fp16, fp32} runs on the tensor
 // cores.
@@ -65,7 +68,9 @@
 // query rows), which halves the K/V traffic and the splits of K and V per
 // query row against 4 warps, or 4 where 64-row blocks pad N to over a tenth
 // fewer rows (N = 257: 320 against 384); `python3 chip_smoke.py --sweep
-// flash` times both.
+// flash` times both. D = 96 keeps 64-key tiles in both kernels: the 16-bit
+// row stride is 104 halves (13 chunks of 16 B, an odd count) and 53,248 B of
+// shared memory; the fp32 one 100 floats (4 mod 8), 153,600 B at 8 warps.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -598,7 +603,7 @@ cudaError_t launch_d(int dtype, int path, int warps, const void* q, const void* 
 // tensor-core kernel (bf16 or fp16, 8 warps), 2 = the fp32 split-TF32
 // tensor-core kernel with `warps` 4 or 8,
 // as ops/flash_attention.py:flash_plan chooses (the path must match the
-// dtype); D in {4, 8, 16, 32, 64, 128}. Returns cudaGetLastError().
+// dtype); D in {4, 8, 16, 32, 64, 96, 128}. Returns cudaGetLastError().
 extern "C" int flash_forward(const void* q, const void* k, const void* v, void* o, int BH, int N,
                              int Nk, int D, float scale, int dtype, int path, int warps,
                              void* stream) {
@@ -614,6 +619,7 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v, void* 
     case 16: return (int)launch_d<16>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
     case 32: return (int)launch_d<32>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
     case 64: return (int)launch_d<64>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
+    case 96: return (int)launch_d<96>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
     case 128: return (int)launch_d<128>(dtype, path, warps, q, k, v, o, BH, N, Nk, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -8,10 +8,8 @@ resolution.
   of fetching it.
 - each cfg's ``converter`` names the torch-checkpoint converter in this
   package (``module.function`` under ``instancediff_torch.models``), so
-  resolving a tag yields everything needed to fill a module. The CoCa rows
-  name ``coca.load_torch_coca_weights``, which waits for the CoCa slice of
-  the port (ROADMAP queue 1): ``resolve_converter`` and
-  ``resolve_pretrained`` raise for them.
+  resolving a tag yields everything needed to fill a module (the CoCa rows:
+  ``coca.load_torch_coca_weights``).
 """
 
 from __future__ import annotations
@@ -83,8 +81,7 @@ _PRETRAINED: Dict[str, Dict[str, dict]] = {
     "ViT-L-16-CL32-GAP": {
         "clipa": _apcfg(filename="vit_l16_cl32_gap.pt"),
     },
-    # CoCa registry rows (reference pretrained.py:279-286,324-325); their
-    # converter waits for the CoCa slice
+    # CoCa registry rows (reference pretrained.py:279-286,324-325)
     "coca_ViT-B-32": {
         "laion2b_s13b_b90k": _pcfg(
             hf_hub="laion/CoCa-ViT-B-32-laion2B-s13B-b90k/",
@@ -171,30 +168,22 @@ def download_pretrained(cfg: dict, cache_dir: Optional[str] = None) -> str:
         f"directories (or set $INSTANCEDIFF_ASSETS)")
 
 
-# converter modules that the port does not have yet, and the slice they wait for
-_PENDING = {"coca": "the CoCa slice (instancediff_tpu/models/coca.py is not ported yet; "
-                    "ROADMAP queue 1)"}
-
-
 def resolve_converter(cfg: dict):
     """The callable a cfg's ``converter`` names (``module.function`` under
-    ``instancediff_torch.models``), or None for a row without one; raises
-    NotImplementedError for a converter of a module not ported yet."""
+    ``instancediff_torch.models``), or None for a row without one."""
     import importlib
 
     conv = cfg.get("converter")
     if conv is None:
         return None
     mod_name, _, fn_name = conv.rpartition(".")
-    if mod_name in _PENDING:
-        raise NotImplementedError(f"converter {conv!r} waits for {_PENDING[mod_name]}")
     return getattr(importlib.import_module(f"instancediff_torch.models.{mod_name}"), fn_name)
 
 
 def resolve_pretrained(model: str, tag: str,
                        cache_dir: Optional[str] = None) -> Tuple[str, dict]:
-    """(local checkpoint path, cfg incl. the converter name) for a tag;
-    raises for a tag whose converter is not ported yet."""
+    """(local checkpoint path, cfg incl. the converter name) for a tag; its
+    converter is resolved first, so a row naming none the port has raises."""
     cfg = get_pretrained_cfg(model, tag)
     if not cfg:
         raise KeyError(f"no pretrained cfg for {model}:{tag}; known: "

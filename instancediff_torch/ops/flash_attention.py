@@ -22,8 +22,9 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _DTYPE_NAMES = "float32, bfloat16 or float16, all equal"
 # the head widths the kernels are instantiated for (``flash_forward`` in the
-# source): the UNet bottleneck's 4 heads give D = nf * ch_mult[-1] / 4
-HEAD_WIDTHS = (4, 8, 16, 32, 64, 128)
+# source): the UNet bottleneck's 4 heads give D = nf * ch_mult[-1] / 4; the
+# towers' heads are 64 wide, coca_ViT-L-14's attentional pooler's 96
+HEAD_WIDTHS = (4, 8, 16, 32, 64, 96, 128)
 _PATHS = {"tc": 1, "tf32x3": 2}
 
 

@@ -13,7 +13,14 @@ Inputs: ``.raw`` (flat float32, ``--res`` squared), ``.npy`` ([H,W] or
 ``.png`` preview, and prints each raw path. Serving goes through
 ``Restorer.from_config`` (the bundle, the text tower's sidecar, one compiled
 sampler on CUDA); the flags are those of ``tools/restore.py`` less
-``--platform`` and ``--spatial``, plus ``--device``."""
+``--platform``, plus ``--device``.
+
+``--spatial N`` splits the images' height over the N ranks of the process
+group that launched the tool (``serving.spatial_group``; eagerly, gathered
+whole on every rank), and rank 0 alone writes and prints::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m instancediff_torch.tools.restore -opt=... --images ... --spatial 2"""
 
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import os
 
 import numpy as np
 
+from .. import parallel
 from ..config import load_options
 from ..data.med_dataset import normalize_pair
 from ..serving import Restorer
@@ -78,6 +86,9 @@ def main(argv=None):
                     help="strided fast sampling (< SDE T)")
     ap.add_argument("--eta", type=float, default=None,
                     help="ancestral-noise scale (1=DDPM posterior, 0=DDIM)")
+    ap.add_argument("--spatial", type=int, default=0,
+                    help="shard the images' height over this many ranks of the launcher's "
+                         "process group during sampling")
     ap.add_argument("--batch", type=int, default=None,
                     help="sampler batch size (default: number of images, capped at 8)")
     ap.add_argument("--seed", type=int, default=0)
@@ -112,17 +123,22 @@ def main(argv=None):
     stack = np.stack(images).astype(np.float32)
 
     n = len(images)
+    joined = parallel.world_size() > 1
     restorer = Restorer.from_config(
         args.opt, pth_dir=args.pth_dir, iteration=iteration, use_ema=not args.no_ema,
         batch_size=args.batch or min(n, 8), sample_steps=args.sample_steps,
-        device=args.device, seed=args.seed, eta=args.eta)
+        device=args.device, seed=args.seed, eta=args.eta, spatial=args.spatial)
     unknown = sorted({t for t in types if t not in restorer.type_map})
     if unknown:  # a typo would silently condition on artifact index 0
         raise SystemExit(f"unknown --type {unknown}; valid: {sorted(restorer.type_map)}")
 
     restored01 = restorer.restore(stack, types) / 2.0 + 0.5  # metric space
-    os.makedirs(args.out, exist_ok=True)
+    if restorer.sp is not None and not joined:
+        parallel.shutdown()
     paths = []
+    if restorer.sp is not None and restorer.sp.rank != 0:
+        return paths
+    os.makedirs(args.out, exist_ok=True)
     for path, rec in zip(args.images, restored01):
         stem = os.path.splitext(os.path.basename(path))[0]
         raw_path = os.path.join(args.out, f"{stem}_restored.raw")

@@ -33,7 +33,7 @@ from instancediff_torch.utils.checkpoint import load_pytree
 from instancediff_torch.utils.convert import flax_params, load_engine, load_flax_params
 
 from test_torch_engine import (_jax_noise, inits_shapes_only, one_torch_thread,  # noqa: F401
-                               randomize)
+                               quick_jax_compiles, randomize)
 
 RES, B, T = 16, 2, 4
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,

@@ -35,7 +35,7 @@ from instancediff_torch.models.unet import LearnableForwardUNet, LearnableForwar
 from instancediff_torch.utils import file_utils, img_utils, metrics, tracing
 from instancediff_torch.utils.convert import flax_params, load_flax_params
 
-from test_torch_engine import one_torch_thread, randomize  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles, randomize  # noqa: F401
 
 RES, B, TOKEN_DIM = 16, 2, 24
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], num_res_blocks=1, context_dim=16,

@@ -32,6 +32,7 @@ from instancediff_torch.data import transforms as tf
 from instancediff_torch.models import big_vision, clip_vit, hf_configs, openai, pretrained
 from instancediff_torch.utils.convert import flax_params, load_flax_params
 
+from test_torch_engine import quick_jax_compiles  # noqa: F401
 from test_torch_vision_towers import (_close, _t, assert_trees_equal, init, one_torch_thread,  # noqa: F401
                                       rn_state_dict)
 
@@ -113,24 +114,25 @@ def test_registry_queries_match_jax():
 
 
 def test_registry_converters_resolve():
-    """Every row's converter names a callable of the port, but the CoCa
-    rows', which wait for the CoCa slice: resolving them raises and names
-    it."""
+    """Every row's converter names a callable of the port, the CoCa rows'
+    the port's ``coca.load_torch_coca_weights``."""
+    from instancediff_torch.models import coca
+
+    n_coca = 0
     for model, tag in pretrained.list_pretrained():
         cfg = pretrained.get_pretrained_cfg(model, tag)
         conv = cfg.get("converter")
         if conv is None:
             assert pretrained.resolve_converter(cfg) is None
-        elif conv.startswith("coca."):
-            with pytest.raises(NotImplementedError, match="CoCa slice"):
-                pretrained.resolve_converter(cfg)
-            with pytest.raises(NotImplementedError, match="CoCa slice"):
-                pretrained.resolve_pretrained(model, tag)
-        else:
-            fn = pretrained.resolve_converter(cfg)
-            assert callable(fn) and fn.__module__.startswith("instancediff_torch.models")
-            if fn.__name__ == "load_big_vision_weights":
-                assert cfg["filename"].endswith(".npz")
+            continue
+        fn = pretrained.resolve_converter(cfg)
+        assert callable(fn) and fn.__module__.startswith("instancediff_torch.models")
+        if fn.__name__ == "load_big_vision_weights":
+            assert cfg["filename"].endswith(".npz")
+        if conv.startswith("coca."):
+            assert fn is coca.load_torch_coca_weights
+            n_coca += 1
+    assert n_coca == 4
 
 
 def test_local_resolution_never_connects(tmp_path, monkeypatch):

@@ -35,7 +35,8 @@ from instancediff_torch.tools import testUM
 from instancediff_torch.utils.convert import flax_params, load_flax_params
 
 from test_torch_biomedclip import init_shapes, inits_shapes_only
-from test_torch_engine import _jax_noise, one_torch_thread, randomize  # noqa: F401
+from test_torch_engine import (_jax_noise, one_torch_thread, quick_jax_compiles,  # noqa: F401
+                               randomize)
 from test_torch_eval import _dataset_opt, _jax_options
 
 CONFIG = "Configurations/tiny_cpu.yml"

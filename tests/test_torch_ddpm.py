@@ -32,7 +32,7 @@ from instancediff_torch.utils.convert import flax_params, load_engine
 
 from test_torch_bundle import _assert_trees_equal, _flat
 from test_torch_engine import (_jax_noise, inits_shapes_only, one_torch_thread,  # noqa: F401
-                               randomize)
+                               quick_jax_compiles, randomize)
 
 RES, B, T = 16, 2, 4
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,

@@ -21,7 +21,8 @@ from instancediff_torch.sde import DriftSDE, strided_sampling_grid
 from instancediff_torch.utils.convert import load_engine
 
 from test_torch_engine import (ENGINE_KW, RES, SETTINGS, T, _jax_noise,  # noqa: F401
-                               inits_shapes_only, one_torch_thread, randomize)
+                               inits_shapes_only, one_torch_thread, quick_jax_compiles,
+                               randomize)
 
 B = 2
 KW = dict(ENGINE_KW, use_degra_context=True)

@@ -53,7 +53,7 @@ from instancediff_torch.utils.parity import check_grads, check_params, grad_tole
 from tools import make_distill_golden as golden
 from tools import make_train_golden as train_golden
 
-from test_torch_engine import one_torch_thread  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
 from test_torch_train import (ADAM_CAP, GRAD_FLOOR, GRAD_TOL, REDUCTION_TOL, TOL_BF16, _flat)
 
 GOLDEN = golden.OUT

@@ -113,6 +113,22 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def quick_jax_compiles():
+    """The JAX references compiled with most of XLA's optimisations off
+    (``jax_disable_most_optimizations``): the parity files' tiny programs
+    compile about a quarter faster and run as fast, and their values stay
+    within the tests' tolerances. Restored afterwards, and JAX's caches
+    cleared, so that no executable compiled so outlives the module: a file
+    that needs JAX's bytes as its defaults give them (``test_torch_bundle``'s
+    golden hashes) leaves it out."""
+    was = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", was)
+    jax.clear_caches()
+
+
 @pytest.fixture(scope="module")
 def jax_engine():
     """The tiny JAX engine with every parameter leaf randomised."""

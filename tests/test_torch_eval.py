@@ -38,7 +38,8 @@ from instancediff_torch.utils.convert import flax_params
 from instancediff_torch.utils.metrics import eval_restoration
 
 from test_torch_bundle import _flat
-from test_torch_engine import _jax_noise, one_torch_thread, shapes_only_init  # noqa: F401
+from test_torch_engine import (_jax_noise, one_torch_thread, quick_jax_compiles,  # noqa: F401
+                               shapes_only_init)
 
 CONFIG = "Configurations/tiny_cpu.yml"
 ITER, RES, EMB = 4, 32, 16

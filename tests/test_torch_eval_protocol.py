@@ -23,7 +23,7 @@ from instancediff_torch.models import create_model
 from instancediff_torch.tools import eval_manifest, eval_protocol, make_synth_dataset
 from instancediff_torch.utils.convert import flax_params, load_flax_params
 
-from test_torch_engine import one_torch_thread  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
 
 FLAGSHIP_SET = "dataset/flagship224"
 TYPES = ["speckle in OCT", "Gaussian noise in MRI"]

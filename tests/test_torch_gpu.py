@@ -124,7 +124,7 @@ def test_kernels_repeat_bit_for_bit(cuda, dtype):
     a = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
     b = fused_gn_silu_conv3x3(x, scale, shift, w, bias, residual=res)
     assert torch.equal(a, b)
-    for D in (8, 64, 128):
+    for D in (8, 64, 96, 128):
         q, k, v = (_randn(gen, 2, 4, 784, D).to(dtype) for _ in range(3))
         assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
 
@@ -1097,3 +1097,41 @@ def test_tracing_sees_the_kernels(cuda, tmp_path):
     assert any(e.get("name") == "request" for e in events)
     stats = tracing.device_memory_stats()["cuda:0"]
     assert 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"] <= stats["bytes_limit"]
+
+
+@pytest.mark.parametrize("embed", [64, 768], ids=["pool_d8", "pool_d96"])
+def test_coca_on_cuda_matches_the_cpu(cuda, embed):
+    """A CoCa whose heads the kernel takes (vision width 128 in 2 heads of
+    64; the pooler's 8 heads 8 wide at embed 64, or 96 wide at embed 768,
+    as coca_ViT-L-14's; the text and decoder widths the embedding's, in
+    heads 16 or 64 wide), fp32: the
+    forward on the card (its unmasked attention on the flash kernel: 2 + 1
+    per ``encode_image``, 2 per decoder pass) against the CPU's plain
+    version within 1e-4; greedy captions equal; beam search runs."""
+    from instancediff_torch.models import coca
+
+    heads = 4 if embed == 64 else 12
+    model = coca.CoCa(embed_dim=embed, vocab_size=96, context_length=12, text_width=embed,
+                      text_heads=heads, text_layers=2, mm_width=embed, mm_heads=heads,
+                      mm_layers=2, image_size=64, patch_size=16, vision_width=128,
+                      vision_layers=2, vision_heads=2, n_queries=9)
+    _randomize_(model, seed=5)
+    images = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(6)) * 2 - 1
+    ids = torch.tensor([[1, 5, 9, 3, 0, 0], [1, 7, 2, 8, 4, 6]])
+    kw = dict(seq_len=8, min_seq_len=2, sot_token_id=1, eos_token_id=2, pad_token_id=0)
+    with torch.inference_mode():
+        want = model(images, ids)
+        greedy = coca.generate(model, images, torch.Generator(), **kw)
+        model.to(cuda)
+        before = flash_attention.launches
+        got = model(images.to(cuda), ids.to(cuda))
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 2 + 1 + 2
+        on_card = coca.generate(model, images.to(cuda), torch.Generator(device=cuda), **kw)
+        assert torch.equal(on_card.cpu(), greedy)
+        beams = coca.generate(model, images.to(cuda), generation_type="beam_search",
+                              num_beams=4, num_beam_groups=2, **kw)
+    assert beams.shape == (2, 8) and (beams[:, 0] == 1).all()
+    for k in ("image_features", "text_features", "logits"):
+        scale = max(1.0, want[k].abs().max().item())
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-4 * scale)

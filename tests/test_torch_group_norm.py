@@ -24,6 +24,8 @@ from instancediff_torch.models.unet import ResBlock
 from instancediff_torch.ops.group_norm_silu import group_norm_silu, group_norm_silu_plain
 from instancediff_torch.utils.convert import load_flax_params
 
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
+
 # the drift decoder concats (Cg = 6, 16, 22) and the level-0 width
 GN_SHAPES = [(144, 24), (272, 17), (528, 24), (64, 32)]
 

@@ -32,7 +32,7 @@ from instancediff_torch.sde.odeint import odeint
 from instancediff_torch.utils import sde_utils
 from instancediff_torch.utils.convert import load_flax_params
 
-from test_torch_engine import one_torch_thread, randomize  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles, randomize  # noqa: F401
 
 TOL = 1e-5
 ODE_TOL = 1e-4

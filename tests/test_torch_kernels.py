@@ -41,6 +41,8 @@ from instancediff_torch.ops.fused_gn_conv import (
 from instancediff_torch.ops.group_norm_silu import group_norm_silu
 from instancediff_torch.utils.convert import load_flax_params
 
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -66,13 +68,15 @@ def test_flash_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("D", [4, 8, 128])
+@pytest.mark.parametrize("D", [4, 8, 128, 96])
 def test_flash_plain_matches_pallas_interpret_at_other_head_widths(D):
     """The widths the repo's other configurations give the bottleneck's 4
-    heads (tiny_cpu.yml 4, the demos 8, nf 128 128): JAX's Pallas kernel
-    takes any D, and so does the port's plain version."""
+    heads (tiny_cpu.yml 4, the demos 8, nf 128 128) and coca_ViT-L-14's
+    attentional pooler (96, its queries fewer than its keys): JAX's Pallas
+    kernel takes any D, and so does the port's plain version."""
     rng = np.random.default_rng(D)
-    q, k, v = (_rand(rng, 2, 4, 64, D) for _ in range(3))
+    q = _rand(rng, 2, 4, 64, D)
+    k, v = (_rand(rng, 2, 4, 96 if D == 96 else 64, D) for _ in range(2))
     want = np.asarray(pk.flash_attention(q, k, v, q_tile=32, kv_tile=32, interpret=True))
     got = flash_attention(_t(q), _t(k), _t(v))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
@@ -87,8 +91,8 @@ def test_flash_plan_per_head_width_and_dtype(dtype):
         plan = flash_plan(D, dtype)
         assert plan["path"] == ("tf32x3" if dtype == torch.float32 else "tc")
         assert plan["D"] == D
-    assert HEAD_WIDTHS == (4, 8, 16, 32, 64, 128)
-    for D in (1, 2, 12, 48, 96, 256):
+    assert HEAD_WIDTHS == (4, 8, 16, 32, 64, 96, 128)
+    for D in (1, 2, 12, 48, 80, 256):
         with pytest.raises(ValueError, match=f"D={D}"):
             flash_plan(D, dtype)
     with pytest.raises(TypeError, match="float64"):

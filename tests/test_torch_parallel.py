@@ -27,7 +27,7 @@ from instancediff_torch import parallel
 from instancediff_torch.utils.convert import flax_params, load_flax_params
 
 import torch_dist_workers as workers
-from test_torch_engine import one_torch_thread  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
 from test_torch_train import _flat, check_against, port_engine, run_port, stored  # noqa: F401
 from test_torch_trainum import write_config
 

@@ -27,7 +27,7 @@ from instancediff_torch.ops.fused_gn_conv import packed_copies, packed_weights
 from instancediff_torch.sde import DDPMSDE, DriftSDE, strided_sampling_grid
 from instancediff_torch.serving import Restorer
 
-from test_torch_engine import _jax_noise
+from test_torch_engine import _jax_noise, one_torch_thread, quick_jax_compiles  # noqa: F401
 
 GRIDS = [(None, 0.0), (None, 0.5), (None, 1.0), (4, 0.0), (4, 0.5), (4, 1.0), (6, 0.0),
          (6, 0.5), (6, 1.0)]

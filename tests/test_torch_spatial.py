@@ -44,13 +44,13 @@ from instancediff_torch.ops.group_norm_silu import (gn_affine_sharded,
                                                     group_norm_silu_plain,
                                                     group_norm_silu_sharded)
 from instancediff_torch.parallel.spatial import SpatialGroup, check_height, shard_spatial
-from instancediff_torch.tools import testUM
+from instancediff_torch.tools import restore, testUM
 from instancediff_torch.utils.convert import flax_params
 
 import torch_dist_workers as workers
 from chip_smoke import write_speckle_med
 from test_torch_engine import (_jax_noise, inits_shapes_only, one_torch_thread,  # noqa: F401
-                               randomize)
+                               quick_jax_compiles, randomize)
 
 # JAX's tests/test_spatial.py engine
 SETTINGS = dict(in_nc=2, out_nc=5, nf=4, ch_mult=[1, 2], context_dim=8,
@@ -231,7 +231,8 @@ def test_four_ranks_sample_as_one_process_and_as_jax(tmp_path):
       unfused body (the GroupNorm's sharded form) and the DDPM sampler,
       each against the port's unsharded call;
     - ``Restorer.from_config(spatial=4)`` against ``spatial=0``, and
-      ``testUM --spatial 4`` against ``testUM`` (rank 0 alone writes)."""
+      ``testUM --spatial 4`` against ``testUM`` and ``tools/restore
+      --spatial 4`` against ``tools/restore`` (rank 0 alone writes)."""
     mu = np.asarray(jnp.clip(jax.random.normal(jax.random.key(0), (2, RES, RES, 1)), -1, 1))
     batch = {"input": mu, "type_idx": np.array([0, 3]), "A_emb": np.zeros((2, 1, 8),
                                                                           np.float32)}
@@ -269,8 +270,15 @@ def test_four_ranks_sample_as_one_process_and_as_jax(tmp_path):
     cfg.write_text(yaml.safe_dump(opt))
     images = rng.uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
     argv = ["-opt", str(cfg), "--device", "cpu", "--sample-steps", "2"]
+    files = []
+    for i, im in enumerate(images):
+        files.append(str(tmp_path / f"scan{i}.npy"))
+        np.save(files[-1], im[..., 0])
+    restore_argv = argv + ["--images", *files, "--type", *names, names[0], "--pre-normalized",
+                           "--batch", "2"]
     started = workers.start_world(workers.spatial_rank, 4, cases, pair_cases,
-                                  (str(cfg), images, names + names[:1], argv))
+                                  (str(cfg), images, names + names[:1], argv,
+                                   restore_argv + ["--out", str(tmp_path / "restored")]))
 
     want_jax = np.asarray(jax_engine(state, text).test(
         {k: jnp.asarray(v) for k, v in batch.items()}, key=jax.random.key(3)))
@@ -289,6 +297,8 @@ def test_four_ranks_sample_as_one_process_and_as_jax(tmp_path):
     whole.write_text(yaml.safe_dump(opt))
     torch.manual_seed(0)
     testum = testUM.main(["-opt", str(whole)] + argv[2:])
+    torch.manual_seed(0)
+    restored = restore.main(restore_argv + ["--out", str(tmp_path / "restored_whole")])
     ranks = workers.finish_world(started)
 
     for r in ranks:  # every rank holds the whole images
@@ -307,3 +317,10 @@ def test_four_ranks_sample_as_one_process_and_as_jax(tmp_path):
             assert r["testum"][name]["num"] == v["num"] == 2
             for k in ("RMSE", "SSIM", "PSNR"):
                 np.testing.assert_allclose(r["testum"][name][k], v[k], rtol=1e-4)
+    # tools/restore --spatial 4: rank 0 writes what one process writes
+    assert [r["restore"] == [] for r in ranks] == [False, True, True, True]
+    assert [os.path.basename(p) for p in ranks[0]["restore"]] == \
+        [os.path.basename(p) for p in restored] == [f"scan{i}_restored.raw" for i in range(3)]
+    for got, want in zip(ranks[0]["restore"], restored):
+        np.testing.assert_allclose(np.fromfile(got, np.float32), np.fromfile(want, np.float32),
+                                   **TOL)

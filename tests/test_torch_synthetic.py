@@ -22,7 +22,7 @@ from instancediff_torch.ops.degradations import apply_degradation
 from instancediff_torch.tools import eval_protocol, make_synth_dataset
 from instancediff_torch.tools.eval_manifest import MANIFEST_NAME, verify_manifest
 
-from test_torch_engine import one_torch_thread  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
 
 
 def _files(root):

@@ -22,6 +22,8 @@ from instancediff_tpu.ops import pallas_kernels as pk
 
 from instancediff_torch.ops.fused_gn_conv import SLICE, pack_weights_tf32x3, split_tf32
 
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
+
 TOL = 1e-5  # the fp32 limit the card's tests hold the kernels to
 
 
@@ -74,9 +76,9 @@ def conv_model(x, scale, shift, w, bias, res=None, passes=3):
     return y if res is None else y + res
 
 
-def _flash_inputs(D):
+def _flash_inputs(D, nk=64):
     rng = np.random.default_rng(100 + D)
-    return tuple(_rand(rng, 2, 4, 64, D) for _ in range(3))
+    return (_rand(rng, 2, 4, 64, D),) + tuple(_rand(rng, 2, 4, nk, D) for _ in range(2))
 
 
 def _conv_inputs(C, Cout, residual):
@@ -121,12 +123,13 @@ def test_split_tf32_is_the_rna_rounding():
     assert rel.max() <= 2.0 ** -21
 
 
-@pytest.mark.parametrize("D", [4, 8, 64, 128])
+@pytest.mark.parametrize("D", [4, 8, 64, 128, 96])
 def test_flash_tf32x3_matches_pallas_interpret(D):
     """The fp32 flash kernel's arithmetic at the head widths of the repo's
     configurations (4: tiny_cpu.yml, 8: the demos, 64: the flagship and
-    the ViT tower, 128: nf 128) against JAX's Pallas kernel."""
-    q, k, v = _flash_inputs(D)
+    the ViT tower, 128: nf 128, 96: coca_ViT-L-14's attentional pooler,
+    here with 96 keys for 64 queries) against JAX's Pallas kernel."""
+    q, k, v = _flash_inputs(D, nk=96 if D == 96 else 64)
     want = np.asarray(pk.flash_attention(q, k, v, q_tile=32, kv_tile=32, interpret=True))
     got = flash_model(_t(q), _t(k), _t(v))
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)

@@ -49,7 +49,7 @@ from instancediff_torch.utils.convert import (adam_state, engine_state, flax_par
 from instancediff_torch.utils.parity import check_grads, check_params, grad_tolerances
 from tools import make_train_golden as golden
 
-from test_torch_engine import one_torch_thread  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
 
 GOLDEN = golden.OUT
 TOL_BF16 = 1e-2

@@ -23,7 +23,7 @@ from instancediff_torch.config import check_resume, dict2str, parse
 from instancediff_torch.models.drift_model import CLIPDriftEngine
 from instancediff_torch.tools import trainUM
 
-from test_torch_engine import one_torch_thread  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "Configurations", "tiny_cpu.yml")

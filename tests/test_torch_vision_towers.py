@@ -28,6 +28,8 @@ from instancediff_torch.models import vision_towers as vt
 from instancediff_torch.ops import attention
 from instancediff_torch.utils.convert import flax_params, load_flax_params
 
+from test_torch_engine import quick_jax_compiles  # noqa: F401
+
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():

@@ -255,11 +255,12 @@ def spatial_rank(rank: int, world: int, cases: dict, pair_cases: dict, served=No
     ranks, in the groups {0, 1}, {2, 3}, ... A case whose kwargs hold
     ``seed`` draws its noise from a generator seeded with it; the others
     pass the noise. With ``served`` = (config, images, names, testUM
-    argv): ``Restorer.from_config(config, spatial=world)`` (the engine's
-    initial weights from one torch seed) and its restore of ``images``
-    (``"served"``), and on rank 0 the same with ``spatial=0``
+    argv, restore argv): ``Restorer.from_config(config, spatial=world)``
+    (the engine's initial weights from one torch seed) and its restore of
+    ``images`` (``"served"``), and on rank 0 the same with ``spatial=0``
     (``"served_whole"``); then ``testUM`` with ``--spatial world``
-    (``"testum"``)."""
+    (``"testum"``) and ``tools/restore`` with ``--spatial world`` (the
+    paths it wrote, ``"restore"``)."""
     import torch.distributed as dist
 
     from instancediff_torch import parallel
@@ -281,9 +282,9 @@ def spatial_rank(rank: int, world: int, cases: dict, pair_cases: dict, served=No
             out[name] = eng.test(batch, spatial=sp, **kw).numpy()
             out[name + "_world"] = sp.world
         if served is not None:
-            from instancediff_torch.tools import testUM
+            from instancediff_torch.tools import restore, testUM
 
-            cfg, images, names, argv = served
+            cfg, images, names, argv, restore_argv = served
             for key, spatial in (("served", world), ("served_whole", 0))[:2 - bool(rank)]:
                 torch.manual_seed(0)
                 r = Restorer.from_config(cfg, batch_size=2, sample_steps=2, device="cpu",
@@ -292,6 +293,8 @@ def spatial_rank(rank: int, world: int, cases: dict, pair_cases: dict, served=No
                 out[key + "_world"] = r.sp.world if r.sp else 1
             torch.manual_seed(0)
             out["testum"] = testUM.main(argv + ["--spatial", str(world)])
+            torch.manual_seed(0)
+            out["restore"] = restore.main(restore_argv + ["--spatial", str(world)])
         return out
     finally:
         parallel.shutdown()
