@@ -73,7 +73,8 @@ Phases, one JSON line each, in order:
                                   Configurations/flagship_ddpm_tpu.yml's widths
                                   (single score map, T=100, max_sigma 1): 45
                                   GroupNorm, 1 flash launch;
-                then phase ``per_forward`` (6. below) on the three paths'
+                then phase ``gaps`` (3a. below), then phase ``per_forward``
+                (6. below) on the three paths'
                 launch shapes, and then ``profile``: one request's replayed
                 steps per path, each alone on the device (a synchronise
                 before and after each replay), under torch.profiler: per
@@ -82,6 +83,18 @@ Phases, one JSON line each, in order:
                 the replays against steps x the per-step counts, and the
                 host's kernel and graph launches per step (the call's text
                 encodings counted apart); the SM clock before and after;
+  3a. gaps  -- on main's flagship bf16 drift engine: an 8-image, 4-step
+                request on the compiled sampler (256 px); then
+                ``engine.set_sde`` to a DriftSDE with another max_sigma
+                (``GAPS_SIGMA``) and the same T, and the request again: it
+                must capture anew (``captures`` + 1), give the same engine's
+                eager output on the new SDE within the ``parity`` rule
+                (``check_graph_vs_eager``), differ from the old SDE's output,
+                and ``get_visuals()`` must equal what it returned; its
+                launches (replays, warm-up, eager) held to ``PATHS["drift"]``
+                and counted in the kernels line; then ``ops.resize.resize_like``
+                at every ``jax.image.resize`` method name on the card against
+                the CPU, within 1e-5 in fp32; the engine gets its SDE back;
   4. parity  -- full-width fp32 sampler calls (batch 2, 2 steps, eta 0)
                 replayed from the graph against the eager loop (1e-5 abs),
                 drift and DDPM; then UNet forwards (fp32, batch 2) through
@@ -1010,7 +1023,9 @@ def profile_step(eng, gen, path) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     batch = flagship_batch(gen)
-    eng.test(batch, gen, sample_steps=SAMPLE_STEPS, eta=ETA)  # the graph exists: a warm call
+    # a warm call: it captures the step anew where phase ``gaps``' set_sde
+    # dropped main's graph, so the profiled call below only replays
+    eng.test(batch, gen, sample_steps=SAMPLE_STEPS, eta=ETA)
     torch.cuda.synchronize()
     entry = eng.last_graph
     replay = entry.replay
@@ -1264,6 +1279,75 @@ def serve_full_steps(eng, gpu, phase="main", name="drift") -> Counter:
               "ms_per_step": round(seconds / T * 1e3, 3),
               "img_per_s": round(BATCH / seconds, 4), "launches": got, "gpu": gpu})
     return total
+
+
+# phase gaps: the other max_sigma, and resize_like's cases (method names,
+# [B, H, W, C] -> (h, w)) on the card
+GAPS_SIGMA = 0.3
+RESIZE_CASES = [((2, 64, 48, 3), (128, 36)), ((2, 63, 50, 3), (16, 70))]
+RESIZE_TOL = 1e-5
+
+
+def gaps_phase(eng, gpu) -> Counter:
+    """Phase ``gaps`` (see the module docstring) on ``eng``, main's bf16
+    drift engine. Returns the kernels' launches."""
+    from instancediff_torch.ops.resize import METHODS, resize_like
+
+    old = eng.sde
+    rng = np.random.default_rng(5)
+    batch = {"input": rng.uniform(-1, 1, (BATCH, RES, RES, 1)).astype(np.float32),
+             "type_idx": np.arange(BATCH) % len(ARTIFACT_PROMPTS)}
+    n_steps = len(strided_sampling_grid(T, SAMPLE_STEPS)[0])
+
+    def request(compiled=True):
+        return eng.test(batch, torch.Generator(device="cuda").manual_seed(6),
+                        sample_steps=SAMPLE_STEPS, eta=ETA, compiled=compiled)
+
+    zero_launches()
+    captures = [eng.captures]
+    before = request()
+    eng.set_sde(DriftSDE(T=old.T, max_sigma=GAPS_SIGMA, eta=old.eta))
+    captures.append(eng.captures)
+    t0 = time.time()
+    got = request()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    captures.append(eng.captures)
+    visuals_equal = bool(np.array_equal(eng.get_visuals(), got.cpu().numpy()))
+    eager = request(compiled=False)
+    launches = read_launches()
+    eng.set_sde(old)
+    # main captured the first request's graph, unless its key differs: a
+    # capturing request counts its warm-up step beside its replays, an
+    # eager one every step
+    warmups = captures[2] - captures[0]
+    want = {k: n * (3 * n_steps + warmups) for k, n in PATHS["drift"].items()}
+    moved = (got - before).abs().max().item()
+    if (captures[2] != captures[1] + 1 or not visuals_equal or not moved > 0
+            or launches != want):
+        raise AssertionError(f"gaps: captures {captures}, get_visuals equal {visuals_equal}, "
+                             f"moved {moved}, launches {launches} (want {want})")
+    parity = check_graph_vs_eager("gaps request after set_sde", got, eager, torch.bfloat16)
+    resize = {}
+    for shape, (h, w) in RESIZE_CASES:
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(7)) * 2 - 1
+        for name in METHODS:
+            on_card = resize_like(x.cuda(), h, w, name).cpu()
+            err = (on_card - resize_like(x, h, w, name)).abs().max().item()
+            resize[name] = max(resize.get(name, 0.0), err)
+    bad = {k: v for k, v in resize.items() if not v <= RESIZE_TOL}
+    if bad:
+        raise AssertionError(f"gaps: resize_like on the card vs the CPU beyond {RESIZE_TOL}: "
+                             f"{bad}")
+    emit({"phase": "gaps", "what": "set_sde on main's bf16 drift engine (max_sigma "
+                                   f"{old.max_sigma} -> {GAPS_SIGMA}, T={old.T}), 8 images, "
+                                   f"256 px, {n_steps} steps; resize_like on the card",
+          "captures_before_after_set_sde_request": captures[1:], **parity,
+          "max_abs_diff_from_old_sde": moved, "get_visuals_equals_output": visuals_equal,
+          "seconds_capturing_request": round(seconds, 4), "launches": launches,
+          "resize_cuda_vs_cpu_max_abs_err": resize, "resize_cases": RESIZE_CASES,
+          "resize_tol": RESIZE_TOL, "gpu": gpu})
+    return Counter(launches)
 
 
 def compare_forwards(what, got, want, gpu) -> None:
@@ -5039,6 +5123,11 @@ def main() -> int:
         if path == "drift":
             launches.update(serve_full_steps(eng, gpu))
     marks.append(("main", time.time()))
+
+    # 3a. the engine accessors (set_sde recaptures, get_visuals) and
+    # resize_like's methods on the card
+    launches.update(gaps_phase(engines["drift"], gpu))
+    marks.append(("gaps", time.time()))
 
     # 6. every kernel of every path, per UNet forward at that path's own
     # launch shapes; the kernels line takes the first path that launches it

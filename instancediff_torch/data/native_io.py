@@ -56,6 +56,16 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads. A query only: ``read_batch``
+    still raises where it does not."""
+    try:
+        load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def mode_for(name: str) -> int:
     """Per-artifact-type normalisation mode (``med_dataset.normalize_pair``)."""
     if name == "scatter artifact in CT":

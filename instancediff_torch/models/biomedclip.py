@@ -40,6 +40,7 @@ from .clip_vit import CLIPVisionTower, load_torch_clip_vision_weights
 from .layers import cast_compute_
 from .text_encoder import (CLIPTextContextEncoder, HFContextTextEncoder, load_torch_bert_weights,
                            load_torch_clip_text_weights, read_state_dict)
+from . import tokenizer
 from .tokenizer import BertWordPieceTokenizer, ClipBPETokenizer
 from .vision_towers import ModifiedResNet, load_torch_clip_resnet_weights
 
@@ -204,7 +205,12 @@ def get_BiomedCLIP(vocab_path=None, checkpoint_path=None, tiny=False, precision=
     """The BiomedCLIP model of the reference's loader, its weights from
     ``checkpoint_path`` or the ``params`` / ``text_params`` trees (paths or
     trees; ``tools/export_image_params.py --biomedclip --seed S`` writes
-    those of the JAX loader's draw from ``seed=S``)."""
+    those of the JAX loader's draw from ``seed=S``). Without ``vocab_path``
+    the tokenizer reads the reference's ``vocab.txt`` when that one file is
+    present (JAX's rule for this loader, tiny or not), else it hashes."""
+    if vocab_path is None:
+        cand = os.path.join(tokenizer._REFERENCE_ASSET_DIR, "vocab.txt")
+        vocab_path = cand if os.path.isfile(cand) else None
     return BiomedCLIP(vocab_path=vocab_path,
                       checkpoint_path=checkpoint_path, params=params, text_params=text_params,
                       tiny=tiny, precision=precision, device=device)

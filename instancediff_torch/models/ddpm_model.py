@@ -42,6 +42,7 @@ class CLIPDDPMEngine(SamplingEngine):
     ``load`` or a JAX engine's weights with ``utils.convert.load_engine``."""
 
     TRAINED = {"noise": ("n_opt", "n_ema")}
+    NET_NAMES = ("noise_net",)
 
     def __init__(self, net_settings: Dict, noise_net_lr: float = 2e-5,
                  weight_decay: float = 1e-4, beta1: float = 0.9, beta2: float = 0.99,
@@ -145,6 +146,10 @@ class CLIPDDPMEngine(SamplingEngine):
             return net(x, mu, t_b, type_idx, inputs["text"], img_ctx, sp=sp)[0]
 
         return predict
+
+
+# the reference config's class name (class_name: CLIPDDPMModel)
+CLIPDDPMModel = CLIPDDPMEngine
 
 
 def create_CLIPDDPMModel(train_opt, model_opt, phase="train", **kwargs) -> CLIPDDPMEngine:

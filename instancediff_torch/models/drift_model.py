@@ -55,6 +55,7 @@ class CLIPDriftEngine(SamplingEngine):
     ``utils.convert.load_engine``."""
 
     TRAINED = {"drift": ("d_opt", "d_ema"), "noise": ("n_opt", "n_ema")}
+    NET_NAMES = ("drift_net", "noise_net")
 
     def __init__(self, dnet_settings: Dict, nnet_settings: Dict,
                  drift_net_lr: float = 2e-5, noise_net_lr: float = 2e-5,

@@ -60,7 +60,7 @@ from .optim import cosine_annealing_lr, ema_update, make_adam, set_lr
 from .clip_vit import image_context
 from .text_encoder import (HFContextTextEncoder, build_text_encoder, load_torch_bert_weights,
                            load_torch_clip_text_weights)
-from .tokenizer import BertWordPieceTokenizer, ClipBPETokenizer
+from .tokenizer import BertWordPieceTokenizer, ClipBPETokenizer, default_vocab_path
 from .unet import LearnableForwardUNetMultiScoreMap
 
 ARTIFACT_PROMPTS = (
@@ -230,7 +230,12 @@ class SamplingEngine:
         # the prompts' ids, and for the BERT tower their mask ([CLS] text
         # [SEP] padded to the context length); None for CLIP's BPE ids
         self.prompt_mask = None
-        if isinstance(text, HFContextTextEncoder):
+        bert = isinstance(text, HFContextTextEncoder)
+        if tokenizer_vocab_path is None and not tiny_text_encoder:
+            # the reference's vocab when present, as the JAX engines find it;
+            # a tiny tower (vocab 512) keeps the hashed ids
+            tokenizer_vocab_path = default_vocab_path("bert" if bert else "bpe")
+        if bert:
             tok = BertWordPieceTokenizer(tokenizer_vocab_path,
                                          context_length=text.context_length,
                                          vocab_size=text.vocab_size)
@@ -265,6 +270,8 @@ class SamplingEngine:
         self.last_graph: Optional[CompiledStep] = None
         self._pool = None
         self._stream = None
+        # the last sampler call's result (``get_visuals``)
+        self.output: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------ bundles
     # An engine provides ``_load_nets(models_dir, iteration, load_ema)`` and
@@ -547,7 +554,30 @@ class SamplingEngine:
     # encodings, None where absent), ``_predictor(inputs, use_ema)``:
     # ``predict(x, row)`` for ``sde.step``, reading only those tensors (with
     # ``sp``, a ``SpatialGroup``: this rank's rows of x and mu), and
-    # ``_step_nets(use_ema)``: the nets that ``predict`` runs.
+    # ``_step_nets(use_ema)``: the nets that ``predict`` runs, named in
+    # ``NET_NAMES`` (the JAX engine's ``get_nets`` keys).
+
+    def set_sde(self, sde) -> None:
+        """Train and sample with ``sde`` from now on (JAX's ``set_sde``, which
+        drops the jitted train step and sampler built on the old one). The
+        captured sampler graphs read the old SDE's coefficient table, and
+        ``graph_key`` does not name the SDE, so they are dropped: the next
+        compiled call captures anew."""
+        self.sde = sde
+        self.graphs.clear()
+        self.last_graph = None
+
+    def get_visuals(self) -> np.ndarray:
+        """The last sampler call's result as a numpy array (on CUDA that
+        call's own output, not a graph buffer a later replay rewrites)."""
+        if self.output is None:
+            raise RuntimeError("no sampler call yet: call test first")
+        return self.output.cpu().numpy()
+
+    def get_nets(self, use_ema: bool = False) -> Dict[str, torch.nn.Module]:
+        """The sampler's nets (or their EMA shadows) under the JAX engine's
+        keys, ``NET_NAMES``."""
+        return dict(zip(self.NET_NAMES, self._step_nets(use_ema)))
 
     @torch.inference_mode()
     def test(self, batch, generator: Optional[torch.Generator] = None, use_ema: bool = True,
@@ -608,12 +638,14 @@ class SamplingEngine:
                 inputs["mu"], self._predictor(inputs, use_ema, spatial), eta=eta,
                 sample_steps=sample_steps, generator=generator, init_noise=init_noise,
                 step_noise=step_noise, sp=spatial)
-            return spatial.gather_h(x)
+            self.output = spatial.gather_h(x)
+            return self.output
         if not compiled:
-            return self.sde.reverse_ddpm(
+            self.output = self.sde.reverse_ddpm(
                 inputs["mu"], self._predictor(inputs, use_ema), eta=eta,
                 sample_steps=sample_steps, generator=generator, init_noise=init_noise,
                 step_noise=step_noise)
+            return self.output
         key = self._graph_key(inputs, use_ema, sample_steps, eta)
         entry = self.graphs.get(key)
         if entry is not None and entry.weights != weights_version(self._step_nets(use_ema)):
@@ -627,7 +659,8 @@ class SamplingEngine:
         entry.calls += 1
         run_steps(self.sde, entry.state, entry.inputs["mu"], entry.replay, generator,
                   init_noise, step_noise)
-        return entry.state.x.clone()
+        self.output = entry.state.x.clone()
+        return self.output
 
     def _graph_key(self, inputs, use_ema: bool, sample_steps: Optional[int],
                   eta: Optional[float]) -> tuple:

@@ -5,16 +5,18 @@ pool's and the dense ViT's loaders use, ``resample_grid_rows``), and the
 1-D linear resampling of a text position table.
 
 ``interpolate_pos_embed`` is JAX's ``jax.image.resize(method="cubic")``
-written out: separable Keys-cubic weights (a = -0.5) at half-pixel
-centres, the kernel widened by the scale when downsampling (JAX's default
-antialiasing), each output's weights normalised to sum 1. torch's
-``F.interpolate(mode="bicubic")`` uses a = -0.75 and does not antialias, so
-it would give other values."""
+written out: separable Keys-cubic weights (a = -0.5, ``ops/resize.py:
+resize_weights``) at half-pixel centres, the kernel widened by the scale
+when downsampling (JAX's default antialiasing), each output's weights
+normalised to sum 1. torch's ``F.interpolate(mode="bicubic")`` uses a =
+-0.75 and does not antialias, so it would give other values."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.resize import resize_weights
 
 
 def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
@@ -40,52 +42,13 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
     return emb.astype(np.float32)
 
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
-
-
-def cubic_resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] float32 weights of JAX's antialiased cubic resize along
-    one axis (``jax._src.image.scale.compute_weight_mat``, float32 math)."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (n_out / n_in))  # JAX's Python-float scale, then float32
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
-    w = _keys_cubic(x).astype(f32)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(f32)
-
-
-def linear_resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] float32 weights of JAX's linear resize along one axis
-    without antialiasing (``jax.image.resize(..., "bilinear",
-    antialias=False)``): the triangle kernel at half-pixel centres, each
-    output's weights normalised to sum 1 (so an edge sample takes the edge
-    row, as ``F.interpolate(align_corners=False)`` clamps it)."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (n_out / n_in))
-    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
-    w = np.maximum(f32(0.0), f32(1.0) - x).astype(f32)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(f32)
-
-
 def resample_grid_rows(pos, n_new: int) -> torch.Tensor:
     """A [1 + g*g, D] position table (class row first) with its grid rows
-    resized bilinearly to g'*g' = ``n_new`` (``linear_resize_weights`` on
-    both axes, the loaders' ``jax.image.resize(..., "bilinear",
-    antialias=False)``); a float32 tensor, the table as it is when the grid
-    does not change."""
+    resized bilinearly to g'*g' = ``n_new`` (``resize_weights`` without
+    antialiasing on both axes, the loaders' ``jax.image.resize(...,
+    "bilinear", antialias=False)``; an edge sample takes the edge row, as
+    ``F.interpolate(align_corners=False)`` clamps it); a float32 tensor, the
+    table as it is when the grid does not change."""
     pos = torch.as_tensor(np.asarray(pos, dtype=np.float32))
     n_old = pos.shape[0] - 1
     if n_old == n_new:
@@ -93,7 +56,7 @@ def resample_grid_rows(pos, n_new: int) -> torch.Tensor:
     g_old, g_new = int(round(float(np.sqrt(n_old)))), int(round(float(np.sqrt(n_new))))
     if g_old * g_old != n_old or g_new * g_new != n_new:
         raise ValueError(f"non-square position grids: {n_old} -> {n_new} tokens")
-    w = torch.from_numpy(linear_resize_weights(g_old, g_new)).double()
+    w = torch.from_numpy(resize_weights(g_old, g_new, "linear", antialias=False)).double()
     grid = pos[1:].reshape(g_old, g_old, -1).double()
     grid = torch.einsum("hwd,hy,wx->yxd", grid, w, w).float()
     return torch.cat([pos[:1], grid.reshape(g_new * g_new, -1)], dim=0)
@@ -110,7 +73,7 @@ def interpolate_pos_embed(pos, target_len: int, n_prefix: int = 1) -> torch.Tens
     g_old, g_new = int(round(float(np.sqrt(n_old)))), int(round(float(np.sqrt(n_new))))
     if g_old * g_old != n_old or g_new * g_new != n_new:
         raise ValueError(f"non-square position grids: {n_old} -> {n_new} tokens")
-    w = torch.from_numpy(cubic_resize_weights(g_old, g_new)).to(pos.device)
+    w = torch.from_numpy(resize_weights(g_old, g_new, "cubic")).to(pos.device)
     grid = pos[n_prefix:].reshape(g_old, g_old, -1)
     grid = torch.einsum("hwd,hy,wx->yxd", grid.double(), w.double(), w.double()).float()
     return torch.cat([pos[:n_prefix], grid.reshape(g_new * g_new, -1)], dim=0)

@@ -68,6 +68,10 @@ class ScoreMapModule(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(float(visual_dim) ** -0.5))
         self.score_bias = nn.Parameter(torch.tensor(0.0))
 
+    def get_context(self) -> nn.Parameter:
+        """The learnable context tokens [n_ctx, token_embed_dim] (JAX's accessor)."""
+        return self.context
+
     def forward(self, vis, text_emb, sp=None):
         B, h, w, C = vis.shape
         K = text_emb.shape[0]

@@ -226,6 +226,27 @@ def _hash_id(token: str, vocab_size: int, reserved: int = 10) -> int:
 
 _WORD_RE = re.compile(r"[a-z0-9]+|[^\sa-z0-9]")
 
+# Where the reference implementation's tokenizer data lies: the JAX
+# package's fixed directory, ``reference/models/BiomedCLIP`` in the root
+# user's home whoever runs (so both packages find the same files),
+# ``vocab.txt`` for WordPiece and ``bpe_simple_vocab_16e6.txt.gz`` for CLIP's
+# BPE, the latter in the nested package directory. Only read.
+_REFERENCE_ASSET_DIR = os.path.join(os.path.expanduser("~root"), "reference", "models",
+                                    "BiomedCLIP")
+
+
+def default_vocab_path(kind: str) -> str | None:
+    """The reference's vocab file for tokenizer ``kind`` ("bert":
+    ``vocab.txt``, else the BPE merges), looked up in ``_REFERENCE_ASSET_DIR``
+    and then in its ``BiomedCLIP/`` subdirectory; None when absent (the
+    tokenizers then hash)."""
+    name = "vocab.txt" if kind == "bert" else "bpe_simple_vocab_16e6.txt.gz"
+    for sub in ("", "BiomedCLIP"):
+        cand = os.path.join(_REFERENCE_ASSET_DIR, sub, name)
+        if os.path.isfile(cand):
+            return cand
+    return None
+
 
 def _basic_tokenize(text: str):
     return _WORD_RE.findall(text.lower())

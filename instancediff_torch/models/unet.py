@@ -340,7 +340,9 @@ class LearnableForwardUNetMultiScoreMap(nn.Module):
 
     def smm_contexts(self):
         """Each SMM's learnable context tokens, for the text tower."""
-        return [getattr(self, f"smm_{i}").context for i in range(self.n_smms)]
+        return [getattr(self, f"smm_{i}").get_context() for i in range(self.n_smms)]
+
+    get_smm_contexts = smm_contexts  # JAX's name
 
     def forward(self, x_a, x_b, t, type_idx, text_embs: Optional[Sequence[torch.Tensor]] = None,
                 image_context: Optional[torch.Tensor] = None,

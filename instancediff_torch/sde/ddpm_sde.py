@@ -132,3 +132,9 @@ class DDPMSDE:
         state = SamplerState(mu, self.coeff_table(sample_steps, eta, mu.device))
         return run_steps(self, state, mu, lambda: self.step(state, predict_fn, clip_x0),
                          generator, init_noise, step_noise, sp)
+
+    def set_gpu(self, device=None):
+        """The SDE itself (JAX's no-op): its schedule tables stay on the CPU,
+        and each sampler call builds its coefficient table on the device of
+        its input."""
+        return self

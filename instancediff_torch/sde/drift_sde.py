@@ -164,3 +164,9 @@ class DriftSDE:
     def reverse_ode(self, mu: torch.Tensor, predict_fn: PredictFn, **kwargs):
         """The deterministic sampler: ``reverse_ddpm`` at eta=0."""
         return self.reverse_ddpm(mu, predict_fn, eta=0.0, **kwargs)
+
+    def set_gpu(self, device=None):
+        """The SDE itself (JAX's no-op): its schedule tables stay on the CPU,
+        and each sampler call builds its coefficient table on the device of
+        its input."""
+        return self

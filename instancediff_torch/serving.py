@@ -57,8 +57,8 @@ def engine_from_config(opt, device="cuda", pth_dir: Optional[str] = None, iterat
     model_opt = opt["models"][train_opt.get("which_model") or "DriftNoise"]
     if opt.get("type_map_ind") and not model_opt.get("type_map_ind"):
         model_opt["type_map_ind"] = opt["type_map_ind"]
-    sde = create_sde(opt["sdes"][train_opt.get("which_sde") or "driftSDE"])
-    engine = create_model(None, model_opt, phase="test", sde=sde, device=device)
+    engine = create_model(None, model_opt, phase="test", device=device)
+    engine.set_sde(create_sde(opt["sdes"][train_opt.get("which_sde") or "driftSDE"]))
     if pth_dir:
         engine.load(pth_dir, iteration, use_ema=use_ema)
     if (opt.get("test") or {}).get("on_device_emb") and hasattr(engine, "attach_image_tower"):

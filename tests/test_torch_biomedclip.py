@@ -33,7 +33,7 @@ from instancediff_torch.utils.checkpoint import load_pytree
 from instancediff_torch.utils.convert import flax_params, load_engine, load_flax_params
 
 from test_torch_engine import (_jax_noise, inits_shapes_only, one_torch_thread,  # noqa: F401
-                               quick_jax_compiles, randomize)
+                               quick_jax_compiles, randomize, run_together)
 
 RES, B, T = 16, 2, 4
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,
@@ -117,18 +117,37 @@ def _tokens(vocab_file):
     return jax_tok.BertWordPieceTokenizer(vocab_file, 32, 512)(TEXTS[:4])
 
 
-@pytest.mark.parametrize("pooler", ["cls_last_hidden_state_pooler", "mean_pooler",
-                                    "max_pooler"])
-@pytest.mark.parametrize("n_ctx", [0, 3])
-def test_bert_tower_matches_jax(vocab_file, pooler, n_ctx):
+POOLERS = ("cls_last_hidden_state_pooler", "mean_pooler", "max_pooler")
+N_CTX = (0, 3)
+
+
+def _ctx(n_ctx):
+    return (np.random.default_rng(2).standard_normal((n_ctx, 48)).astype(np.float32)
+            if n_ctx else None)
+
+
+@pytest.fixture(scope="module")
+def jax_berts(vocab_file):
+    """{(pooler, n_ctx): (params, JAX's tower output)} for each pooler of
+    ``POOLERS`` with and without spliced context, computed together
+    (``run_together``)."""
+    ids, mask = _tokens(vocab_file)
+    towers = {(pooler, n): _jax_bert(pooler_type=pooler) for pooler in POOLERS for n in N_CTX}
+    outs, = run_together([mod.apply for mod, _ in towers.values()],
+                         [(params, ids, mask, _ctx(n))
+                          for (_, n), (_, params) in towers.items()])
+    return {k: (params, out) for (k, (_, params)), out in zip(towers.items(), outs)}
+
+
+@pytest.mark.parametrize("pooler", POOLERS)
+@pytest.mark.parametrize("n_ctx", N_CTX)
+def test_bert_tower_matches_jax(jax_berts, vocab_file, pooler, n_ctx):
     """Padded prompts (mask zeros), with and without spliced context, each
     pooler: within 1e-5."""
-    mod, params = _jax_bert(pooler_type=pooler)
+    params, want = jax_berts[pooler, n_ctx]
     ids, mask = _tokens(vocab_file)
     assert (mask == 0).any()
-    ctx = (np.random.default_rng(2).standard_normal((n_ctx, 48)).astype(np.float32)
-           if n_ctx else None)
-    want = mod.apply(params, ids, mask, ctx)
+    ctx = _ctx(n_ctx)
     port = load_flax_params(text_encoder.HFContextTextEncoder(**TINY_BERT, pooler_type=pooler),
                             params)
     with torch.no_grad():
@@ -203,9 +222,28 @@ def jax_engine():
     return eng
 
 
-@pytest.mark.parametrize("eta,sample_steps", [(1.0, None), (0.0, 2)],
-                         ids=["eta1_T4", "eta0_strided2"])
-def test_biomedclip_ddpm_sampler_matches_jax(jax_engine, eta, sample_steps):
+SAMPLERS = {"eta1_T4": (1.0, None), "eta0_strided2": (0.0, 2)}
+
+
+def _sampler_inputs():
+    rng = np.random.default_rng(1)
+    mu = rng.uniform(-1, 1, (B, RES, RES, 1)).astype(np.float32)
+    return mu, np.array([2, 0], np.int32), rng.standard_normal((B, 1, 16)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_samples(jax_engine):
+    """JAX's ``build_sample_fn`` output for each case of ``SAMPLERS`` from
+    ``jax.random.key(7)``, computed together (``run_together``)."""
+    outs, = run_together([jax_engine.build_sample_fn(sample_steps=sample_steps, eta=eta)
+                          for eta, sample_steps in SAMPLERS.values()],
+                         [(jax_engine.state["n_ema"], jax_engine.text_params,
+                           *_sampler_inputs(), jax.random.key(7))] * len(SAMPLERS))
+    return dict(zip(SAMPLERS.values(), outs))
+
+
+@pytest.mark.parametrize("eta,sample_steps", SAMPLERS.values(), ids=SAMPLERS.keys())
+def test_biomedclip_ddpm_sampler_matches_jax(jax_engine, jax_samples, eta, sample_steps):
     """The DDPM engine with the BERT tower (WordPiece ids and mask, 48-wide
     SMM context): within 1e-4 of JAX's ``build_sample_fn`` on JAX's noise."""
     eng = load_engine(CLIPDDPMEngine(SETTINGS, sde=DDPMSDE(T=T), device="cpu", **ENGINE_KW),
@@ -213,14 +251,9 @@ def test_biomedclip_ddpm_sampler_matches_jax(jax_engine, eta, sample_steps):
     np.testing.assert_array_equal(eng.prompt_ids.numpy(), np.asarray(jax_engine.prompt_ids))
     np.testing.assert_array_equal(eng.prompt_mask.numpy(), np.asarray(jax_engine.prompt_mask))
     assert eng.token_embed_dim == 48
-    rng = np.random.default_rng(1)
-    mu = rng.uniform(-1, 1, (B, RES, RES, 1)).astype(np.float32)
-    type_idx = np.array([2, 0], np.int32)
-    emb = rng.standard_normal((B, 1, 16)).astype(np.float32)
+    mu, type_idx, emb = _sampler_inputs()
     key = jax.random.key(7)
-    sample = jax.jit(jax_engine.build_sample_fn(sample_steps=sample_steps, eta=eta))
-    want = np.asarray(sample(jax_engine.state["n_ema"], jax_engine.text_params, mu, type_idx,
-                             emb, key))
+    want = jax_samples[eta, sample_steps]
     n_steps = T if sample_steps is None else sample_steps
     eps, zs = _jax_noise(key, mu.shape, n_steps)
     got = eng.test({"input": mu, "type_idx": type_idx, "A_emb": emb}, sample_steps=sample_steps,
@@ -266,60 +299,105 @@ def test_biomedclip_engines_take_a_train_step(engine):
 # ---------------------------------------------------------------- BiomedCLIP
 
 
+def _jax_biomedclip(**kw):
+    """JAX's ``BiomedCLIP`` of ``kw``, its inits traced for shapes only
+    (which also stubs the jitted image encoder: jitted again here)."""
+    with inits_shapes_only("BiomedCLIP"):
+        model = jax_biomedclip.get_BiomedCLIP(**kw) if "clip_type" not in kw \
+            else jax_biomedclip.BiomedCLIP(**kw)
+    model._encode_image = jax.jit(lambda p, x: model.visual.apply(p, x))
+    return model
+
+
 @pytest.fixture(scope="module")
 def jax_model():
-    """JAX's tiny ``get_BiomedCLIP``, both towers' leaves redrawn (their
-    inits traced for shapes only, which also stubs the jitted image encoder:
-    jitted again here)."""
-    with inits_shapes_only("BiomedCLIP"):
-        model = jax_biomedclip.get_BiomedCLIP(tiny=True)
-    model._encode_image = jax.jit(lambda p, x: model.visual.apply(p, x))
+    """JAX's tiny ``get_BiomedCLIP``, both towers' leaves redrawn."""
+    model = _jax_biomedclip(tiny=True)
     rng = np.random.default_rng(6)
     model.visual_params = randomize(jax.tree.map(np.asarray, model.visual_params), rng)
     model.text_params = randomize(jax.tree.map(np.asarray, model.text_params), rng)
     return model
 
 
-def test_biomedclip_matches_jax(jax_model, vocab_file):
+LOW_PRECISIONS = ("bf16", "pure_bf16", "fp16", "pure_fp16")
+# (clip_type, vision_tower) of the RN tower and the CLIP flavour
+VARIANTS = (("BiomedCLIP", "resnet"), ("CLIP", "vit"), ("CLIP", "resnet"))
+VARIANT_TEXTS = ["speckle in OCT", "noise in cryo-EM image", "low dose CT"]
+
+
+def _encodings(model, images, texts, logits=True):
+    """``model``'s ``encode_image`` and ``encode_text`` (and its logits) as
+    numpy arrays."""
+    out = [model.encode_image(images), model.encode_text(texts)]
+    return [np.asarray(a) for a in out + ([model(images, texts)] if logits else [])]
+
+
+@pytest.fixture(scope="module")
+def jax_towers(jax_model, vocab_file):
+    """JAX's models and their encodings, computed once for the module:
+    ``jax_model`` on ``vocab_file``; at each of
+    ``LOW_PRECISIONS`` (the trees cast for pure_*); each of ``VARIANTS``,
+    both towers' leaves redrawn (BatchNorm variances kept positive)."""
+    jax_model.tokenizer = jax_tok.BertWordPieceTokenizer(vocab_file, 32, 512)
+    images = np.random.default_rng(7).uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
+    low_images = np.random.default_rng(8).uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
+    jobs = {"fp32": lambda: _encodings(jax_model, images, TEXTS[:4]),
+            "fp32_low_images": lambda: _encodings(jax_model, low_images, TEXTS[:4], False)}
+    models = {}
+    for precision in LOW_PRECISIONS:
+        low = jnp.bfloat16 if "bf16" in precision else jnp.float16
+        want = models[precision] = _jax_biomedclip(tiny=True, precision=precision)
+        want.tokenizer = jax_model.tokenizer
+        cast = (lambda t, low=low: jax.tree.map(lambda x: jnp.asarray(x, low), t)) \
+            if precision.startswith("pure_") else (lambda t: t)
+        want.visual_params = cast(jax_model.visual_params)
+        want.text_params = cast(jax_model.text_params)
+        jobs[precision] = lambda want=want: _encodings(want, low_images, TEXTS[:4], False)
+    for variant in VARIANTS:
+        clip_type, vision_tower = variant
+        want = models[variant] = _jax_biomedclip(clip_type=clip_type, vision_tower=vision_tower,
+                                                 tiny=True)
+        rng = np.random.default_rng(9)
+        want.visual_params = jax.tree_util.tree_map_with_path(
+            lambda path, v: np.abs(v) + 0.5 if path[-1].key == "var" else v,
+            randomize(jax.tree.map(np.asarray, want.visual_params), rng))
+        want.text_params = randomize(jax.tree.map(np.asarray, want.text_params), rng)
+        variant_images = np.random.default_rng(10).uniform(-1, 1, (3, 32, 32, 1)).astype(
+            np.float32)
+        jobs[variant] = lambda want=want, x=variant_images: _encodings(want, x, VARIANT_TEXTS)
+    out = {name: job() for name, job in jobs.items()}
+    return {"images": images, "low_images": low_images, "models": models, **out}
+
+
+def test_biomedclip_matches_jax(jax_model, jax_towers, vocab_file):
     """``encode_image`` / ``encode_text`` (L2-normalised) and the logits,
     from the JAX towers' trees: within 1e-5."""
     model = biomedclip.get_BiomedCLIP(vocab_path=vocab_file, tiny=True,
                                       params=jax_model.visual_params,
                                       text_params=jax_model.text_params, device="cpu")
-    jax_model.tokenizer = jax_tok.BertWordPieceTokenizer(vocab_file, 32, 512)
-    images = np.random.default_rng(7).uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
-    for got, want in ((model.encode_image(images), jax_model.encode_image(images)),
-                      (model.encode_text(TEXTS[:4]), jax_model.encode_text(TEXTS[:4])),
-                      (model(images, TEXTS[:4]), jax_model(images, TEXTS[:4]))):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    images = jax_towers["images"]
+    for got, want in zip((model.encode_image(images), model.encode_text(TEXTS[:4]),
+                          model(images, TEXTS[:4])), jax_towers["fp32"], strict=True):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("precision", ["bf16", "pure_bf16", "fp16", "pure_fp16"])
-def test_biomedclip_low_precision_matches_jax(jax_model, vocab_file, precision):
+@pytest.mark.parametrize("precision", LOW_PRECISIONS)
+def test_biomedclip_low_precision_matches_jax(jax_model, jax_towers, vocab_file, precision):
     """``precision`` bf16 / fp16 (16-bit compute, float32 parameters) and
     pure_bf16 / pure_fp16 (the parameters cast too): ``encode_image`` and
     ``encode_text`` within 1e-2 of JAX's model at that precision (XLA's CPU
     fp16 against the port's, whose CPU attention is the float32 plain
     version), from the same trees; both within 1e-2 of JAX's fp32 model."""
     low = jnp.bfloat16 if "bf16" in precision else jnp.float16
-    with inits_shapes_only("BiomedCLIP"):
-        want = jax_biomedclip.get_BiomedCLIP(tiny=True, precision=precision)
-    want._encode_image = jax.jit(lambda p, x: want.visual.apply(p, x))
-    want.tokenizer = jax_tok.BertWordPieceTokenizer(vocab_file, 32, 512)
-    jax_model.tokenizer = want.tokenizer
-    cast = (lambda t: jax.tree.map(lambda x: jnp.asarray(x, low), t)) \
-        if precision.startswith("pure_") else (lambda t: t)
-    want.visual_params, want.text_params = (cast(jax_model.visual_params),
-                                            cast(jax_model.text_params))
     model = biomedclip.get_BiomedCLIP(vocab_path=vocab_file, tiny=True, precision=precision,
                                       params=jax_model.visual_params,
                                       text_params=jax_model.text_params, device="cpu")
-    images = np.random.default_rng(8).uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
-    fp32 = (jax_model.encode_image(images), jax_model.encode_text(TEXTS[:4]))
-    for got, ref, full in ((model.encode_image(images), want.encode_image(images), fp32[0]),
-                           (model.encode_text(TEXTS[:4]), want.encode_text(TEXTS[:4]), fp32[1])):
+    images = jax_towers["low_images"]
+    for got, ref, full in zip((model.encode_image(images), model.encode_text(TEXTS[:4])),
+                              jax_towers[precision], jax_towers["fp32_low_images"],
+                              strict=True):
         assert got.dtype == {jnp.bfloat16: torch.bfloat16, jnp.float16: torch.float16}[low]
-        assert np.asarray(ref).dtype == low
+        assert ref.dtype == low
         np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=0,
                                    atol=1e-2)
         for side in (got.float().numpy(), np.asarray(ref, np.float32)):
@@ -360,34 +438,24 @@ def test_biomedclip_refuses_what_it_cannot_do(jax_model):
                               params=jax_model.visual_params)
 
 
-@pytest.mark.parametrize("clip_type,vision_tower", [("BiomedCLIP", "resnet"), ("CLIP", "vit"),
-                                                    ("CLIP", "resnet")])
-def test_biomedclip_resnet_and_clip_match_jax(clip_type, vision_tower):
+@pytest.mark.parametrize("clip_type,vision_tower", VARIANTS)
+def test_biomedclip_resnet_and_clip_match_jax(jax_towers, clip_type, vision_tower):
     """``vision_tower="resnet"`` (the RN family's ``ModifiedResNet``, width
     8, its attention pool's heads of 64) and ``clip_type="CLIP"`` (the
     OpenAI ViT, the CLIP text tower, the BPE tokenizer's hash fallback):
     ``encode_image``, ``encode_text`` and the logits within 1e-5 of JAX's
     tiny model from the same trees."""
-    with inits_shapes_only("BiomedCLIP"):
-        want = jax_biomedclip.BiomedCLIP(clip_type=clip_type, vision_tower=vision_tower,
-                                         tiny=True)
-    want._encode_image = jax.jit(lambda p, x: want.visual.apply(p, x))
-    rng = np.random.default_rng(9)
-    # BatchNorm variances (zeros from the shapes-only init) kept positive
-    want.visual_params = jax.tree_util.tree_map_with_path(
-        lambda path, v: np.abs(v) + 0.5 if path[-1].key == "var" else v,
-        randomize(jax.tree.map(np.asarray, want.visual_params), rng))
-    want.text_params = randomize(jax.tree.map(np.asarray, want.text_params), rng)
+    want = jax_towers["models"][clip_type, vision_tower]
     model = biomedclip.BiomedCLIP(clip_type=clip_type, vision_tower=vision_tower, tiny=True,
                                   params=want.visual_params, text_params=want.text_params,
                                   device="cpu")
     assert type(model.visual).__name__ == ("ModifiedResNet" if vision_tower == "resnet"
                                            else "CLIPVisionTower")
-    texts = ["speckle in OCT", "noise in cryo-EM image", "low dose CT"]
+    texts = VARIANT_TEXTS
     images = np.random.default_rng(10).uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
-    for got, ref in ((model.encode_image(images), want.encode_image(images)),
-                     (model.encode_text(texts), want.encode_text(texts)),
-                     (model(images, texts), want(images, texts))):
+    for got, ref in zip((model.encode_image(images), model.encode_text(texts),
+                         model(images, texts)), jax_towers[clip_type, vision_tower],
+                        strict=True):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                    atol=1e-5 * max(1.0, np.abs(np.asarray(ref)).max()))
 

@@ -196,6 +196,30 @@ def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
     assert "breadth.request" in names and any("mm" in str(n) for n in names)
 
 
+def test_pytest_timeline_records_and_sums_files(tmp_path, monkeypatch):
+    """The test-suite timeline: each file's span and CPU per worker, the
+    controller's machine counters, and the summary's sums by prefix."""
+    from instancediff_torch.tools import pytest_timeline as tl
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tl, "_TIMELINE", tl._Timeline())
+    monkeypatch.setattr(tl, "_SESSION", {})
+    monkeypatch.delenv("PYTEST_XDIST_WORKER", raising=False)
+    tl.pytest_sessionstart(None)
+    for path in ("tests/test_torch_a.py", "tests/test_b.py"):
+        tl._TIMELINE.start(path)
+        sum(i * i for i in range(200_000))
+    tl.pytest_unconfigure(None)
+    rows, session = tl.load(tl.OUT_DIR)
+    assert [r["file"] for r in rows] == ["tests/test_torch_a.py", "tests/test_b.py"]
+    assert all(r["t1"] >= r["t0"] and r["cpu"] > 0 and r["worker"] == "main" for r in rows)
+    shares = tl.cpu_shares(session)
+    assert not shares or abs(sum(shares.values()) - 1) < 1e-9
+    text = tl.summary(tl.OUT_DIR)
+    assert "test_torch_* files: wall" in text and "all files: wall" in text
+    assert "ended last: test_b.py" in text
+
+
 def test_device_memory_stats_empty_on_the_cpu():
     assert tracing.device_memory_stats() == jax_tracing.device_memory_stats() == {}
 

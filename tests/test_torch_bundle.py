@@ -141,9 +141,10 @@ def jax_outputs(jax_engine):
 
 
 def _port_engine():
+    """The port's sampling engine of the golden's config, as JAX's."""
     opt = load_options(GOLDEN_CONFIG)
-    return create_model(None, opt["models"]["DriftNoise"], sde=create_sde(opt["sdes"]["driftSDE"]),
-                        device="cpu")
+    return create_model(None, opt["models"]["DriftNoise"], phase="test",
+                        sde=create_sde(opt["sdes"]["driftSDE"]), device="cpu")
 
 
 def _port_sample(engine, use_ema):
@@ -382,8 +383,8 @@ def test_torch_clip_checkpoint_loads_as_in_jax(jax_engine, jax_bundle, tmp_path,
     params = jax_load_clip_text_weights(jax_engine.text_params, path)
     opt = load_options(GOLDEN_CONFIG)
     opt["models"]["DriftNoise"]["text_encoder_pretrain_path"] = path
-    eng = create_model(None, opt["models"]["DriftNoise"], sde=create_sde(opt["sdes"]["driftSDE"]),
-                       device="cpu")
+    eng = create_model(None, opt["models"]["DriftNoise"], phase="test",
+                       sde=create_sde(opt["sdes"]["driftSDE"]), device="cpu")
     assert eng.text_weights == "pretrained"
     ctx = np.random.default_rng(3).standard_normal((8, 48)).astype(np.float32)
     for c in (None, ctx):

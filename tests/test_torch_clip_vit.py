@@ -36,7 +36,7 @@ from instancediff_torch.utils.convert import flax_params, load_flax_params
 
 from test_torch_biomedclip import init_shapes, inits_shapes_only
 from test_torch_engine import (_jax_noise, one_torch_thread, quick_jax_compiles,  # noqa: F401
-                               randomize)
+                               randomize, run_together)
 from test_torch_eval import _dataset_opt, _jax_options
 
 CONFIG = "Configurations/tiny_cpu.yml"
@@ -81,18 +81,31 @@ def _close(got, want, tol):
 # ---------------------------------------------------------------- the tower
 
 
-@pytest.mark.parametrize("flavour,pos_type,ls_init,dtype", [
-    ("timm", "learnable", None, "float32"), ("timm", "sin_cos_2d", 0.1, "float32"),
-    ("openai", "learnable", 0.1, "float32"), ("openai", "sin_cos_2d", None, "float32"),
-    ("timm", "learnable", None, "bfloat16"), ("timm", "sin_cos_2d", 0.1, "bfloat16")])
-def test_tower_matches_jax(flavour, pos_type, ls_init, dtype):
+# (flavour, pos_embed_type, ls_init, dtype) of each tower case
+TOWER_CASES = [("timm", "learnable", None, "float32"), ("timm", "sin_cos_2d", 0.1, "float32"),
+               ("openai", "learnable", 0.1, "float32"), ("openai", "sin_cos_2d", None, "float32"),
+               ("timm", "learnable", None, "bfloat16"), ("timm", "sin_cos_2d", 0.1, "bfloat16")]
+
+
+@pytest.fixture(scope="module")
+def jax_towers():
+    """{case: (params, JAX's output on ``_images(2)``)} for each of
+    ``TOWER_CASES``, computed together (``run_together``)."""
+    towers = {case: _jax_tower(flavour=case[0], dtype=getattr(jnp, case[3]), **TINY,
+                               pos_embed_type=case[1], ls_init=case[2]) for case in TOWER_CASES}
+    outs, = run_together([tower.apply for tower, _ in towers.values()],
+                         [(params, _images(2)) for _, params in towers.values()])
+    return {case: (towers[case][1], out) for case, out in zip(towers, outs)}
+
+
+@pytest.mark.parametrize("flavour,pos_type,ls_init,dtype", TOWER_CASES)
+def test_tower_matches_jax(jax_towers, flavour, pos_type, ls_init, dtype):
     """Both flavours, both position tables, with and without LayerScale;
     fp32 within 1e-5, bf16 (fp32 norms; the timm flavour, which the engines
     and BiomedCLIP build) within 1e-2 of the largest output."""
     kw = dict(TINY, pos_embed_type=pos_type, ls_init=ls_init)
-    tower, params = _jax_tower(flavour=flavour, dtype=getattr(jnp, dtype), **kw)
+    params, want = jax_towers[flavour, pos_type, ls_init, dtype]
     x = _images(2)
-    want = tower.apply(params, x)
     got = _port_tower(params, getattr(torch, dtype), flavour=flavour, **kw)
     assert [k for k in got.state_dict() if "ls_" in k] == (
         [] if ls_init is None else ["block_0.ls_1", "block_0.ls_2", "block_1.ls_1",
@@ -295,15 +308,47 @@ def _request(jax_engine):
             "A_emb": rng.standard_normal((2, 1, EMB)).astype(np.float32)}
 
 
-def _sample_both(jax_engine, port_engine, batch, key=jax.random.key(5)):
-    want = np.asarray(jax_engine.test(batch, key, sample_steps=STEPS))
+def _port_sample(port_engine, batch, key=jax.random.key(5)):
     eps, zs = _jax_noise(key, batch["input"].shape, STEPS)
-    got = port_engine.test(batch, sample_steps=STEPS, init_noise=torch.tensor(eps),
-                           step_noise=[torch.tensor(z) for z in zs])
-    return got.numpy(), want
+    return port_engine.test(batch, sample_steps=STEPS, init_noise=torch.tensor(eps),
+                            step_noise=[torch.tensor(z) for z in zs]).numpy()
 
 
-def test_biomedclip_drift_sampler_matches_jax(jax_engine, bundle, tmp_path):
+@pytest.fixture(scope="module")
+def jax_samples(jax_engine, bundle, tmp_path_factory):
+    """JAX's samples of the request from ``jax.random.key(5)`` (the
+    program JAX's ``test`` jits, ``build_sample_fn``), computed together
+    (``run_together``): the engine as built (the image context ``A_emb``),
+    and the engine as JAX's ``Restorer.from_config`` serves it with
+    ``test.on_device_emb`` (its ``create_model`` patched to return the
+    fixture's engine: the bundle loaded, the tower drawn from key 7 and
+    attached; detached afterwards), on the request and on it with ``A_emb``
+    negated. Also the tower's parameters and the config."""
+    batch, key = _request(jax_engine), jax.random.key(5)
+
+    def args(b, tparams=None):
+        return (jax_engine.state["d_ema"], jax_engine.state["n_ema"], jax_engine.text_params,
+                b["input"], b["type_idx"], b["A_emb"], key, tparams)
+
+    plain, plain_args = jax_engine.build_sample_fn(sample_steps=STEPS), args(batch)
+    cfg = _config(tmp_path_factory.mktemp("tower_cfg"), on_device_emb=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_models, "create_model", lambda *a, **k: jax_engine)
+        r = JaxRestorer.from_config(cfg, pth_dir=bundle, iteration=ITER)
+    assert r.engine is jax_engine and jax_engine.image_tower is not None
+    try:
+        towered, tparams = jax_engine.build_sample_fn(sample_steps=STEPS), \
+            jax_engine.image_tower_params
+        (want, tower), (_, again) = run_together(
+            [plain, towered], [plain_args, args(batch, tparams)],
+            [plain_args, args(dict(batch, A_emb=-batch["A_emb"]), tparams)])
+    finally:
+        jax_engine.image_tower = jax_engine.image_tower_params = jax_engine._sample_fn = None
+    return {"plain": want, "tower": tower, "tower_negated_emb": again, "tower_params": tparams,
+            "cfg": cfg}
+
+
+def test_biomedclip_drift_sampler_matches_jax(jax_engine, jax_samples, bundle, tmp_path):
     """``CLIP_Type: BiomedCLIP`` (the PubMedBERT tower, WordPiece ids and
     mask, 48-wide SMM contexts) served from JAX's bundle through
     ``from_config``, the image context from ``A_emb``: within 1e-4 of JAX
@@ -313,42 +358,30 @@ def test_biomedclip_drift_sampler_matches_jax(jax_engine, bundle, tmp_path):
     assert eng.image_tower is None and eng.prompt_mask is not None
     np.testing.assert_array_equal(eng.prompt_ids.numpy(), np.asarray(jax_engine.prompt_ids))
     np.testing.assert_array_equal(eng.prompt_mask.numpy(), np.asarray(jax_engine.prompt_mask))
-    got, want = _sample_both(jax_engine, eng, _request(jax_engine))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    got = _port_sample(eng, _request(jax_engine))
+    np.testing.assert_allclose(got, jax_samples["plain"], rtol=0, atol=1e-4)
 
 
-@pytest.fixture
-def jax_restorer_with_tower(jax_engine, bundle, tmp_path, monkeypatch):
-    """JAX's ``Restorer.from_config`` with ``test.on_device_emb`` on the
-    fixture's engine (its ``create_model`` patched to return it): the bundle
-    loaded, the tower drawn from key 7 and attached; detached afterwards."""
-    monkeypatch.setattr(jax_models, "create_model", lambda *a, **k: jax_engine)
-    cfg = _config(tmp_path, on_device_emb=True)
-    r = JaxRestorer.from_config(cfg, pth_dir=bundle, iteration=ITER)
-    assert r.engine is jax_engine and jax_engine.image_tower is not None
-    yield r, cfg
-    jax_engine.image_tower = jax_engine.image_tower_params = jax_engine._sample_fn = None
-
-
-def test_tower_from_config_matches_jax(jax_restorer_with_tower, bundle, tmp_path):
+def test_tower_from_config_matches_jax(jax_engine, jax_samples, bundle, tmp_path):
     """``from_config`` with ``test.on_device_emb``: the port reads the tower
     ``tools/export_image_params.py`` wrote (JAX's key-7 draw) and embeds the
     input itself; ``A_emb`` is not read. Within 1e-4 of JAX on JAX's noise;
     without the sidecar it raises."""
-    jax_r, cfg = jax_restorer_with_tower
+    cfg = jax_samples["cfg"]
     r = Restorer.from_config(cfg, pth_dir=bundle, iteration=ITER, device="cpu")
     eng = r.engine
-    for path, leaf in jax.tree_util.tree_leaves_with_path(jax_r.engine.image_tower_params):
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jax_samples["tower_params"]):
         sub = flax_params(eng.image_tower)
         for k in path:
             sub = sub[k.key]
         np.testing.assert_array_equal(sub, np.asarray(leaf))
-    batch = _request(jax_r.engine)
-    got, want = _sample_both(jax_r.engine, eng, batch)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    batch = _request(jax_engine)
+    got = _port_sample(eng, batch)
+    np.testing.assert_allclose(got, jax_samples["tower"], rtol=0, atol=1e-4)
     # the image context is the tower's: another A_emb changes nothing
-    again, _ = _sample_both(jax_r.engine, eng, dict(batch, A_emb=-batch["A_emb"]))
+    again = _port_sample(eng, dict(batch, A_emb=-batch["A_emb"]))
     np.testing.assert_array_equal(again, got)
+    np.testing.assert_array_equal(jax_samples["tower_negated_emb"], jax_samples["tower"])
     empty = tmp_path / "no_sidecar"
     empty.mkdir()
     for name in os.listdir(bundle):

@@ -25,7 +25,7 @@ from instancediff_tpu.models import coca as jcoca
 from instancediff_torch.models import coca, pretrained
 from instancediff_torch.utils.convert import flax_params, load_flax_params
 
-from test_torch_engine import one_torch_thread, quick_jax_compiles  # noqa: F401
+from test_torch_engine import one_torch_thread, quick_jax_compiles, run_together  # noqa: F401
 from test_torch_vision_towers import _close, assert_trees_equal, randomize
 
 SOT, EOS, PAD = 1, 2, 0
@@ -35,8 +35,8 @@ IDS = np.array([[1, 5, 9, 3, 0, 0, 0, 0], [1, 7, 2, 8, 4, 6, 0, 0]], np.int32)
 @pytest.fixture(scope="module")
 def ref():
     """JAX's tiny CoCa (its tree traced for shapes only, every leaf redrawn),
-    its jitted methods, the port's CoCa holding the same tree, and the
-    images."""
+    its jitted methods, the port's CoCa holding the same tree, the images,
+    and JAX's outputs of the module's tests (``_jax_outputs``)."""
     model = jcoca.build_coca(tiny=True)
     imgs = np.random.default_rng(0).uniform(-1, 1, (2, 16, 16, 1)).astype(np.float32)
     shapes = jax.eval_shape(model.init, jax.random.key(1), imgs, IDS)
@@ -45,7 +45,37 @@ def ref():
     port = load_flax_params(coca.build_coca(tiny=True, device="cpu"), tree)
     fns = {name: jax.jit(functools.partial(model.apply, method=name))
            for name in ("__call__", "encode_image", "encode_text", "decode")}
-    return dict(model=model, tree=tree, port=port, imgs=imgs, fns=fns)
+    return dict(model=model, tree=tree, port=port, imgs=imgs, fns=fns,
+                out=_jax_outputs(model, tree, imgs, fns))
+
+
+def _jax_outputs(model, tree, imgs, fns):
+    """JAX's outputs of the module's tests, computed together
+    (``run_together``): the forward with and without text, the encoders,
+    ``decode`` on the image tokens (with them), the bf16 model's forward,
+    ``generate`` for each of ``GENERATE_CASES`` (from
+    ``jax.random.key(GENERATE_KEY)``) and ``generate_beamsearch`` for each of
+    ``BEAM_CASES``."""
+    bf16 = jcoca.build_coca(tiny=True, dtype=jnp.bfloat16)
+    def decode(p, x, ids):
+        embs = fns["encode_image"](p, x)[1]
+        return embs, fns["decode"](p, embs, ids)
+
+    jobs = {"forward": (fns["__call__"], (tree, imgs, IDS)),
+            "image_only": (fns["__call__"], (tree, imgs)),
+            "encode_image": (fns["encode_image"], (tree, imgs)),
+            "encode_text": (fns["encode_text"], (tree, IDS)),
+            "decode": (decode, (tree, imgs, IDS)),
+            "bf16": (bf16.apply, (tree, imgs, IDS))}
+    jobs.update({case: (lambda p, x, k, kw=_generate_kw(case):
+                        jcoca.generate(model, p, x, k, **kw),
+                        (tree, imgs, jax.random.key(GENERATE_KEY)))
+                 for case in GENERATE_CASES})
+    jobs.update({case: (lambda p, x, kw=_beam_kw(case):
+                        jcoca.generate_beamsearch(model, p, x, **kw), (tree, imgs))
+                 for case in BEAM_CASES})
+    outs, = run_together([fn for fn, _ in jobs.values()], [a for _, a in jobs.values()])
+    return dict(zip(jobs, outs))
 
 
 def _t(a):
@@ -66,19 +96,19 @@ def _outputs(got, want):
 def test_matches_jax(ref, what):
     """The forward dict (all five outputs), the image-only pair, the two
     encoders (normalised latents and tokens) and ``decode``'s logits."""
-    port, tree, fns, imgs = ref["port"], ref["tree"], ref["fns"], ref["imgs"]
+    port, imgs, want = ref["port"], ref["imgs"], ref["out"][what]
     with torch.no_grad():
         if what == "forward":
-            _outputs(port(_t(imgs), _t(IDS)), fns["__call__"](tree, imgs, IDS))
+            _outputs(port(_t(imgs), _t(IDS)), want)
         elif what == "image_only":
-            _outputs(port(_t(imgs)), fns["__call__"](tree, imgs))
+            _outputs(port(_t(imgs)), want)
         elif what in ("encode_image", "encode_text"):
             arg = imgs if what == "encode_image" else IDS
-            for g, w in zip(getattr(port, what)(_t(arg)), fns[what](tree, arg), strict=True):
+            for g, w in zip(getattr(port, what)(_t(arg)), want, strict=True):
                 _close(g, w)
         else:
-            embs = fns["encode_image"](tree, imgs)[1]
-            _close(port.decode(_t(embs), _t(IDS)), fns["decode"](tree, embs, IDS))
+            embs, logits = want
+            _close(port.decode(_t(embs), _t(IDS)), logits)
 
 
 def test_forward_contract(ref):
@@ -101,9 +131,7 @@ def test_bf16_forward_matches_jax(ref):
     bf16 tolerance) of JAX's bf16 and fp32 models; the logits (up to ~3 in
     size, through four bf16 layers) no farther from JAX's fp32 logits than
     twice JAX's own bf16 logits lie from them."""
-    model = jcoca.build_coca(tiny=True, dtype=jnp.bfloat16)
-    want = jax.jit(model.apply)(ref["tree"], ref["imgs"], IDS)
-    full = ref["fns"]["__call__"](ref["tree"], ref["imgs"], IDS)
+    want, full = ref["out"]["bf16"], ref["out"]["forward"]
     port = load_flax_params(coca.build_coca(tiny=True, dtype=torch.bfloat16, device="cpu"),
                             ref["tree"])
     with torch.no_grad():
@@ -152,17 +180,30 @@ GENERATE_CASES = {
 }
 
 
+BEAM_CASES = {"4x2": (4, 2), "1x1": (1, 1)}
+GENERATE_KEY = 3
+
+
+def _generate_kw(case):
+    return dict(GENERATE_CASES[case], sot_token_id=SOT, eos_token_id=EOS, pad_token_id=PAD)
+
+
+def _beam_kw(case):
+    beams, groups = BEAM_CASES[case]
+    return dict(seq_len=8, num_beams=beams, num_beam_groups=groups, min_seq_len=2,
+                sot_token_id=SOT, eos_token_id=EOS, pad_token_id=PAD)
+
+
 @pytest.mark.parametrize("case", list(GENERATE_CASES))
 def test_generate_matches_jax(ref, case):
     """Tokens equal JAX's ``generate``; the sampling cases on JAX's own
     per-step draws. The fixed-shape contract: SOT first, after the first
     EOS or PAD only PAD, EOS forced at the end of an unfinished row, no EOS
     before ``min_seq_len``."""
-    kw = dict(GENERATE_CASES[case], sot_token_id=SOT, eos_token_id=EOS, pad_token_id=PAD)
-    model, tree, imgs = ref["model"], ref["tree"], ref["imgs"]
-    key = jax.random.key(3)
-    want = np.asarray(jax.jit(lambda p, x, k: jcoca.generate(model, p, x, k, **kw))(
-        tree, imgs, key))
+    kw = _generate_kw(case)
+    model, imgs = ref["model"], ref["imgs"]
+    key = jax.random.key(GENERATE_KEY)
+    want = ref["out"][case]
     greedy = kw.get("top_k") == 1
     rng = (torch.Generator().manual_seed(0) if greedy
            else iter(_jax_gumbel(key, kw["seq_len"] - 1, (2, model.vocab_size))))
@@ -185,16 +226,12 @@ def test_generate_refuses_unknown_type_and_missing_rng(ref):
         coca.generate(ref["port"], _t(ref["imgs"]))
 
 
-@pytest.mark.parametrize("beams,groups", [(4, 2), (1, 1)], ids=["4x2", "1x1"])
-def test_beam_search_matches_jax(ref, beams, groups):
+@pytest.mark.parametrize("case", list(BEAM_CASES))
+def test_beam_search_matches_jax(ref, case):
     """Tokens equal JAX's ``generate_beamsearch`` (8 positions)."""
-    kw = dict(seq_len=8, num_beams=beams, num_beam_groups=groups, min_seq_len=2,
-              sot_token_id=SOT, eos_token_id=EOS, pad_token_id=PAD)
-    model = ref["model"]
-    want = np.asarray(jax.jit(lambda p, x: jcoca.generate_beamsearch(model, p, x, **kw))(
-        ref["tree"], ref["imgs"]))
-    got = coca.generate(ref["port"], _t(ref["imgs"]), generation_type="beam_search", **kw)
-    np.testing.assert_array_equal(got.numpy(), want)
+    got = coca.generate(ref["port"], _t(ref["imgs"]), generation_type="beam_search",
+                        **_beam_kw(case))
+    np.testing.assert_array_equal(got.numpy(), ref["out"][case])
     assert (got[:, 0] == SOT).all()
 
 

@@ -17,12 +17,13 @@ import jax
 import torch
 
 from instancediff_tpu.models.ddpm_model import CLIPDDPMEngine as JaxDDPMEngine
+from instancediff_tpu.models.ddpm_model import CLIPDDPMModel as JaxDDPMModel
 from instancediff_tpu.sde.ddpm_sde import DDPMSDE as JaxDDPMSDE
 from instancediff_tpu.sde.schedules import make_cosine_alphas_bar as jax_cosine_abar
 from instancediff_tpu.utils import checkpoint as jax_ckpt
 
 from instancediff_torch.models import create_model
-from instancediff_torch.models.ddpm_model import CLIPDDPMEngine
+from instancediff_torch.models.ddpm_model import CLIPDDPMEngine, CLIPDDPMModel
 from instancediff_torch.models.engine import TEXT_SIDECAR
 from instancediff_torch.sde import (DDPMSDE, create_sde, make_cosine_alphas_bar,
                                     strided_sampling_grid)
@@ -32,7 +33,7 @@ from instancediff_torch.utils.convert import flax_params, load_engine
 
 from test_torch_bundle import _assert_trees_equal, _flat
 from test_torch_engine import (_jax_noise, inits_shapes_only, one_torch_thread,  # noqa: F401
-                               quick_jax_compiles, randomize)
+                               quick_jax_compiles, randomize, run_together)
 
 RES, B, T = 16, 2, 4
 SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,
@@ -40,11 +41,18 @@ SETTINGS = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1, 2], context_dim=16,
                 num_res_blocks=1)
 
 
+# the SDE the engines are built with; ``set_sde`` then gives them the one
+# every sampler test uses (max_sigma 1), as the JAX drivers set theirs
+BUILT_SIGMA = 0.5
+
+
 @pytest.fixture(scope="module")
 def jax_engine():
     with inits_shapes_only("CLIPDDPMEngine"):
-        eng = JaxDDPMEngine(SETTINGS, sde=JaxDDPMSDE(T=T), image_size=RES, if_train=False,
-                            use_image_context=True, tiny_text_encoder=True)
+        eng = JaxDDPMEngine(SETTINGS, sde=JaxDDPMSDE(T=T, max_sigma=BUILT_SIGMA),
+                            image_size=RES, if_train=False, use_image_context=True,
+                            tiny_text_encoder=True)
+    eng.set_sde(JaxDDPMSDE(T=T))
     rng = np.random.default_rng(0)
     for key in ("noise", "n_ema"):
         eng.state[key] = randomize(eng.state[key], rng)
@@ -52,11 +60,18 @@ def jax_engine():
     return eng
 
 
+def _port_engine(jax_engine, sde):
+    eng = CLIPDDPMEngine(SETTINGS, sde=sde, use_image_context=True, tiny_text_encoder=True,
+                         device="cpu")
+    return load_engine(eng, jax_engine.state, jax_engine.text_params)
+
+
 @pytest.fixture(scope="module")
 def port_engine(jax_engine):
-    eng = CLIPDDPMEngine(SETTINGS, sde=DDPMSDE(T=T), use_image_context=True,
-                         tiny_text_encoder=True, device="cpu")
-    return load_engine(eng, jax_engine.state, jax_engine.text_params)
+    """The port's engine with JAX's weights, given its SDE as JAX's was."""
+    eng = _port_engine(jax_engine, DDPMSDE(T=T, max_sigma=BUILT_SIGMA))
+    eng.set_sde(DDPMSDE(T=T))
+    return eng
 
 
 @pytest.fixture(scope="module")
@@ -77,17 +92,36 @@ def test_cosine_alphas_bar_equals_jax():
                                       np.asarray(jax_cosine_abar(steps)))
 
 
-def test_single_scoremap_unet_matches_jax(jax_engine, port_engine, inputs):
-    """One SMM (level 0), so the level-1 decoder concat has no score-map
-    channels; the unfused body and head on every block. Then the port's
-    fused body on the same weights."""
+# (eta, sample_steps) of each sampler test
+SAMPLERS = {"eta0_T4": (0.0, None), "eta1_T4": (1.0, None), "eta1_strided2": (1.0, 2)}
+SAMPLE_KEY = 7
+
+
+@pytest.fixture(scope="module")
+def jax_refs(jax_engine, inputs):
+    """JAX's references, computed together (``run_together``): the EMA
+    net's forward (with its text encoding) and ``build_sample_fn``'s output
+    for each case of ``SAMPLERS`` from ``jax.random.key(SAMPLE_KEY)``."""
     params = jax_engine.state["n_ema"]
     text_fn = jax_engine._make_text_fn(jax_engine.text_params)
     text = [np.asarray(text_fn(params["params"]["smm_0"]["context"]))]
     i = inputs
-    want_pred, want_maps = jax.jit(lambda p, *a: jax_engine.noise_net.apply(
-        p, *a[:4], text_embs=a[4], image_context=a[5]))(
-            params, i["x"], i["mu"], i["t"], i["type_idx"], text, i["emb"])
+    fns = [lambda p, *a: jax_engine.noise_net.apply(p, *a[:4], text_embs=a[4],
+                                                   image_context=a[5])]
+    fns += [jax_engine.build_sample_fn(sample_steps=sample_steps, eta=eta)
+            for eta, sample_steps in SAMPLERS.values()]
+    out, = run_together(fns, [(params, i["x"], i["mu"], i["t"], i["type_idx"], text, i["emb"])]
+                        + [(params, jax_engine.text_params, i["mu"], i["type_idx"], i["emb"],
+                            jax.random.key(SAMPLE_KEY))] * len(SAMPLERS))
+    return {"unet": (text, out[0]), **dict(zip(SAMPLERS.values(), out[1:]))}
+
+
+def test_single_scoremap_unet_matches_jax(jax_refs, port_engine, inputs):
+    """One SMM (level 0), so the level-1 decoder concat has no score-map
+    channels; the unfused body and head on every block. Then the port's
+    fused body on the same weights."""
+    text, (want_pred, want_maps) = jax_refs["unet"]
+    i = inputs
     net = port_engine.nets["n_ema"]
     assert not net.use_fused_gnconv and net.n_smms == 1
     args = (torch.from_numpy(i["x"]), torch.from_numpy(i["mu"]), torch.from_numpy(i["t"]),
@@ -109,25 +143,50 @@ def test_single_scoremap_unet_matches_jax(jax_engine, port_engine, inputs):
     np.testing.assert_allclose(fused_maps[0].numpy(), maps[0].numpy(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("eta,sample_steps", [(0.0, None), (1.0, None), (1.0, 2)],
-                         ids=["eta0_T4", "eta1_T4", "eta1_strided2"])
-def test_ddpm_sampler_matches_build_sample_fn(jax_engine, port_engine, inputs, eta,
+@pytest.mark.parametrize("eta,sample_steps", SAMPLERS.values(), ids=SAMPLERS.keys())
+def test_ddpm_sampler_matches_build_sample_fn(jax_refs, port_engine, inputs, eta,
                                               sample_steps):
     """``CLIPDDPMEngine.test`` against JAX ``build_sample_fn`` from pure noise
     with JAX's draws fed in: clipped x0, the DDIM(eta) posterior, the
-    sigma^2 clip and no noise on the last step."""
-    mu, key = inputs["mu"], jax.random.key(7)
-    sample = jax.jit(jax_engine.build_sample_fn(sample_steps=sample_steps, eta=eta))
-    want = np.asarray(sample(jax_engine.state["n_ema"], jax_engine.text_params, mu,
-                             inputs["type_idx"], inputs["emb"], key))
-    n_steps = len(strided_sampling_grid(T, sample_steps)[0])
-    eps, zs = _jax_noise(key, mu.shape, n_steps)
-    got = port_engine.test(
-        {"input": mu, "type_idx": inputs["type_idx"], "A_emb": inputs["emb"]},
-        sample_steps=sample_steps, eta=eta, init_noise=torch.tensor(eps),
-        step_noise=[torch.tensor(z) for z in zs])
+    sigma^2 clip and no noise on the last step; ``get_visuals`` is the
+    call's output, as JAX's is."""
+    mu = inputs["mu"]
+    batch = {"input": mu, "type_idx": inputs["type_idx"], "A_emb": inputs["emb"]}
+    got = _port_sample(port_engine, batch, jax.random.key(SAMPLE_KEY), sample_steps, eta)
     assert got.shape == mu.shape
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(port_engine.get_visuals(), got.numpy())
+    np.testing.assert_allclose(got.numpy(), jax_refs[eta, sample_steps], rtol=0, atol=1e-4)
+
+
+def _port_sample(engine, batch, key, sample_steps=None, eta=None):
+    """The port engine's ``test`` with JAX's noise for ``key``."""
+    n_steps = len(strided_sampling_grid(T, sample_steps)[0])
+    eps, zs = _jax_noise(key, batch["input"].shape, n_steps)
+    return engine.test(batch, sample_steps=sample_steps, eta=eta, init_noise=torch.tensor(eps),
+                       step_noise=[torch.tensor(z) for z in zs])
+
+
+def test_set_sde_after_build_samples_as_built_with_it(jax_engine, port_engine, inputs):
+    """The engine that got its SDE by ``set_sde`` (held against JAX's after
+    JAX's ``set_sde`` above) samples bit for bit as one built with that SDE,
+    and not as one on the SDE it was built with."""
+    batch = {"input": inputs["mu"], "type_idx": inputs["type_idx"], "A_emb": inputs["emb"]}
+    key = jax.random.key(SAMPLE_KEY)
+    got = _port_sample(port_engine, batch, key)
+    assert torch.equal(got, _port_sample(_port_engine(jax_engine, DDPMSDE(T=T)), batch, key))
+    assert not torch.equal(got, _port_sample(_port_engine(jax_engine, DDPMSDE(
+        T=T, max_sigma=BUILT_SIGMA)), batch, key))
+
+
+@pytest.mark.parametrize("use_ema", [False, True], ids=["online", "ema"])
+def test_get_nets_as_jax(jax_engine, port_engine, use_ema):
+    """JAX's key, and the net (or its EMA shadow) holding JAX's weights; the
+    reference config's class name ``CLIPDDPMModel`` names the engine in
+    both packages."""
+    nets, jax_nets = port_engine.get_nets(use_ema), jax_engine.get_nets(use_ema)
+    assert list(nets) == list(jax_nets) == ["noise_net"]
+    _assert_trees_equal(flax_params(nets["noise_net"]), jax_nets["noise_net"])
+    assert CLIPDDPMModel is CLIPDDPMEngine and JaxDDPMModel is JaxDDPMEngine
 
 
 def test_restorer_serves_the_ddpm_engine(port_engine):

@@ -192,6 +192,20 @@ def test_native_reader_raises_instead_of_falling_back(tmp_path, monkeypatch):
         native_io.read_batch([str(good)], 16, [0])
 
 
+def test_native_io_available_as_in_jax(tmp_path, monkeypatch):
+    """``available()`` reports what JAX's reports on this machine; a library
+    that does not build makes it False and leaves ``read_batch`` raising."""
+    from instancediff_tpu.data import native_io as jax_native_io
+
+    assert native_io.available() == jax_native_io.available()
+    monkeypatch.setattr(native_io, "_lib", None)
+    monkeypatch.setattr(native_io, "LIB_PATH", str(tmp_path / "lib.so"))
+    monkeypatch.setenv("CXX", "false")
+    assert native_io.available() is False
+    with pytest.raises(RuntimeError, match="failed"):
+        native_io.read_batch([str(tmp_path / "x.raw")], 16, [0])
+
+
 def test_eval_restoration_equals_jax():
     rng = np.random.default_rng(5)
     target = rng.uniform(-1, 1, (48, 40)).astype(np.float32)

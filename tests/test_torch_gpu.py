@@ -482,6 +482,44 @@ def test_graph_is_recaptured_after_an_in_place_weight_update(cuda, path):
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_set_sde_recaptures_and_replays_as_eager(deterministic, path):
+    """``set_sde`` after a capture with the same T and step count (the same
+    ``graph_key``): the next compiled call captures anew, and its replays
+    equal the eager loop on the new SDE, not the old SDE's output."""
+    eng = _graph_engine(path, torch.float32)
+    batch = _graph_batch(0)
+
+    def run(compiled=None):
+        return eng.test(batch, torch.Generator(device="cuda").manual_seed(3), sample_steps=3,
+                        compiled=compiled)
+
+    old = run()
+    assert eng.captures == 1
+    eng.set_sde(DDPMSDE(T=GRAPH_T, max_sigma=0.5) if path == "ddpm"
+                else DriftSDE(T=GRAPH_T, max_sigma=0.3))
+    got = run()
+    assert eng.captures == 2 and len(eng.graphs) == 1
+    _assert_graph_matches_eager(got, run(compiled=False), torch.float32)
+    assert (got - old).abs().max().item() > 0
+
+
+def test_get_visuals_survives_a_second_replay(cuda):
+    """``get_visuals`` is the last call's own output: a later call replays
+    the same graph into its buffers and leaves the earlier result as it
+    was."""
+    eng = _graph_engine("drift", torch.bfloat16)
+    gen = torch.Generator(device=cuda)
+    first = eng.test(_graph_batch(0), gen.manual_seed(1), sample_steps=2)
+    visuals = eng.get_visuals()
+    np.testing.assert_array_equal(visuals, first.cpu().numpy())
+    second = eng.test(_graph_batch(1), gen.manual_seed(2), sample_steps=2)
+    assert eng.captures == 1 and eng.last_graph.calls == 2
+    np.testing.assert_array_equal(visuals, first.cpu().numpy())
+    np.testing.assert_array_equal(eng.get_visuals(), second.cpu().numpy())
+    assert not torch.equal(first, second)
+
+
 def test_compiled_needs_a_cuda_engine(cuda):
     eng = CLIPDDPMEngine(dict(GRAPH_NET, nf=8, ch_mult=[1, 2]), sde=DDPMSDE(T=GRAPH_T),
                          tiny_text_encoder=True, device="cpu")

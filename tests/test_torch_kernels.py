@@ -273,22 +273,48 @@ def test_decoder_layer_layernorm_eps_and_tanh_gelu():
 # --------------------------------------------------------------------------- #
 
 
-def test_port_imports_no_jax():
+IMPORT_CHECK = (
+    "import importlib, pkgutil, sys\n"
+    "import instancediff_torch as p\n"
+    "for m in pkgutil.walk_packages(p.__path__, 'instancediff_torch.'):\n"
+    "    importlib.import_module(m.name)\n"
+    "import chip_smoke\n"
+    "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'instancediff_tpu'))\n"
+    "assert not bad, bad\n"
+    "print('ok', len([n for n in sys.modules if n.startswith('instancediff_torch')]))\n")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fresh_interpreters():
+    """The checks that run in a fresh interpreter, each seconds of importing
+    torch and the port, started with the module's first test so that they
+    run beside the others: the import check, and (without CUDA)
+    ``chip_smoke.py`` itself. ``finish(name)`` waits for one and gives its
+    CompletedProcess."""
+    cmds = {"imports": [sys.executable, "-c", IMPORT_CHECK]}
+    if not torch.cuda.is_available():
+        cmds["chip_smoke"] = [sys.executable, "chip_smoke.py"]
+    procs = {name: subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+
+    def finish(name):
+        out, err = procs[name].communicate(timeout=120)
+        return subprocess.CompletedProcess(cmds[name], procs[name].returncode, out, err)
+
+    yield finish
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_port_imports_no_jax(fresh_interpreters):
     """Every module of the package, and chip_smoke as a module, import
     without pulling in jax, flax, msgpack or the JAX package (the port reads
     and writes flax msgpack bundles with its own codec)."""
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import instancediff_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'instancediff_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'instancediff_tpu'))\n"
-        "assert not bad, bad\n"
-        "print('ok', len([n for n in sys.modules if n.startswith('instancediff_torch')]))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=120)
+    out = fresh_interpreters("imports")
     assert out.returncode == 0, out.stderr
     # the package and every module, ddpm_model, ddpm_sde and group_norm_silu included
     assert int(out.stdout.split()[1]) >= 23
@@ -329,10 +355,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
             demo.main([])
 
 
-def test_chip_smoke_fails_without_cuda():
+def test_chip_smoke_fails_without_cuda(fresh_interpreters):
     if torch.cuda.is_available():
         pytest.skip("checks the script's refusal on a machine without CUDA")
-    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
-                         text=True, timeout=120)
+    out = fresh_interpreters("chip_smoke")
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout

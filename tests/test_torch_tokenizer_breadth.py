@@ -6,6 +6,7 @@ writes, the three reduction-mask tokenizers with the same numpy seed, and
 exactly."""
 
 import gzip
+import os
 
 import numpy as np
 import pytest
@@ -13,6 +14,8 @@ import pytest
 from instancediff_tpu.models import tokenizer as jtok
 
 from instancediff_torch.models import tokenizer as tok
+
+from test_torch_engine import one_torch_thread  # noqa: F401  (autouse)
 
 CORPUS = [
     "Speckle in OCT",
@@ -167,3 +170,99 @@ def test_siglip_fallback_matches_jax(tmp_path):
     np.testing.assert_array_equal(port(LONG), jtok.SigLipTokenizer(missing, 16)(LONG))
     ids = port("Speckle, in OCT!")[0]
     assert ids[3] == port.eos_id == 1 and (ids[4:] == port.pad_id).all()
+
+
+# ------------------------------------------------- the reference's vocab files
+
+# WordPiece pieces of the five artifact prompts, after the four specials
+VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "speck", "##le", "in", "oct", "ultra", "sound",
+         "noise", "cry", "##o", "-", "em", "image", "low", "dose", "ct", "gaussian", "mri"]
+LAYOUTS = {"top": "", "nested": "BiomedCLIP", "absent": None}
+
+
+@pytest.fixture(params=LAYOUTS, ids=LAYOUTS.keys())
+def asset_dir(request, tmp_path, monkeypatch):
+    """Both packages' ``_REFERENCE_ASSET_DIR`` pointed at ``tmp_path``, with
+    a small ``vocab.txt`` and BPE merges file at its top level, in its
+    ``BiomedCLIP/`` subdirectory, or absent. Checks afterwards that the
+    real directory was not written."""
+    real = tok._REFERENCE_ASSET_DIR, jtok._REFERENCE_ASSET_DIR
+    existed = [os.path.exists(d) for d in real]
+    sub = LAYOUTS[request.param]
+    if sub is not None:
+        (tmp_path / sub).mkdir(exist_ok=True)
+        (tmp_path / sub / "vocab.txt").write_text("\n".join(VOCAB) + "\n", encoding="utf-8")
+        with gzip.open(tmp_path / sub / "bpe_simple_vocab_16e6.txt.gz", "wt",
+                       encoding="utf-8") as f:
+            f.write("#version: 0.2\n" + "\n".join(MERGES) + "\n")
+    monkeypatch.setattr(tok, "_REFERENCE_ASSET_DIR", str(tmp_path))
+    monkeypatch.setattr(jtok, "_REFERENCE_ASSET_DIR", str(tmp_path))
+    yield request.param
+    assert [os.path.exists(d) for d in real] == existed
+
+
+def test_reference_asset_dir_is_jax_s():
+    """Unpatched, the port looks where the JAX package looks, whatever the
+    caller's home directory is."""
+    assert tok._REFERENCE_ASSET_DIR == jtok._REFERENCE_ASSET_DIR
+
+
+def test_default_vocab_path_matches_jax(asset_dir):
+    for kind in ("bert", "bpe"):
+        got = tok.default_vocab_path(kind)
+        assert got == jtok.default_vocab_path(kind)
+        assert (got is None) == (asset_dir == "absent")
+
+
+def _engine(clip_type, tiny):
+    """A drift engine with the tiny UNet and the ``clip_type`` text tower
+    (full width unless ``tiny``), its vocab found by itself."""
+    from instancediff_torch.models.drift_model import CLIPDriftEngine
+
+    settings = dict(in_nc=2, out_nc=5, nf=8, ch_mult=[1], context_dim=16, score_map_chan=4,
+                    num_res_blocks=1)
+    return CLIPDriftEngine(settings, settings, score_map_ch_mult=(1,), score_map_ngf=8,
+                           CLIP_Type=clip_type, tiny_text_encoder=tiny, device="cpu")
+
+
+@pytest.mark.parametrize("asset_dir", ["nested"], indirect=True)
+@pytest.mark.parametrize("clip_type", ["BiomedCLIP", "CLIP"])
+def test_engine_prompt_ids_from_the_reference_vocab(asset_dir, clip_type):
+    """A full-width tower's engine tokenises the five prompts with the
+    reference's file where JAX's engine finds one (``default_vocab_path``,
+    here in the nested directory, where the BPE file ships), to the JAX
+    tokenizer's ids from that file; a tiny tower still hashes."""
+    from instancediff_torch.models.engine import ARTIFACT_PROMPTS
+
+    prompts = list(ARTIFACT_PROMPTS)
+    for tiny in (False, True):
+        eng = _engine(clip_type, tiny)
+        text = eng.text_encoder
+        kind = "bert" if clip_type == "BiomedCLIP" else "bpe"
+        path = None if tiny else jtok.default_vocab_path(kind)
+        assert (path is None) == tiny
+        if kind == "bert":
+            ids, mask = jtok.BertWordPieceTokenizer(path, context_length=text.context_length,
+                                                    vocab_size=text.vocab_size)(prompts)
+            np.testing.assert_array_equal(eng.prompt_mask.numpy(), mask)
+        else:
+            ids = jtok.ClipBPETokenizer(path, context_length=text.context_length,
+                                        vocab_size=text.vocab_size)(prompts)
+        np.testing.assert_array_equal(eng.prompt_ids.numpy(), ids)
+
+
+def test_get_biomedclip_reads_only_the_fixed_vocab_file(asset_dir):
+    """``get_BiomedCLIP`` follows JAX's rule for that loader: the one file
+    ``<asset dir>/vocab.txt``, tiny or not, no subdirectory lookup."""
+    from instancediff_torch.models.biomedclip import get_BiomedCLIP
+    from instancediff_torch.models.clip_vit import CLIPVisionTower
+    from instancediff_torch.models.engine import ARTIFACT_PROMPTS
+    from instancediff_torch.utils.convert import flax_params
+
+    visual = flax_params(CLIPVisionTower(embed_dim=512, flavour="timm", image_size=32,
+                                         patch_size=8, width=32, layers=2, heads=4))
+    model = get_BiomedCLIP(tiny=True, params=visual, device="cpu")
+    path = jtok.default_vocab_path("bert") if asset_dir == "top" else None
+    want = jtok.BertWordPieceTokenizer(path, context_length=32, vocab_size=512)
+    for got, w in zip(model.tokenizer(list(ARTIFACT_PROMPTS)), want(list(ARTIFACT_PROMPTS))):
+        np.testing.assert_array_equal(got, w)

@@ -56,28 +56,45 @@ def start_world(fn, world: int, *args) -> tuple:
              for rank in range(world)]
     for p in procs:
         p.start()
-    return procs, queue
+    return procs, queue, (fn, world, *args)
+
+
+# the error of a rank 0 whose store could not bind the port chosen: another
+# process took it between ``free_port`` and the bind
+PORT_TAKEN = "EADDRINUSE"
+PORT_RETRIES = 2
 
 
 def finish_world(started: tuple, timeout: float = WORLD_TIMEOUT) -> list:
-    """The ranks' results of a ``start_world`` world, as ``run_world``."""
-    procs, queue = started
-    world = len(procs)
-    results, errors = {}, []
-    try:
-        for _ in range(world):
-            rank, err, out = queue.get(timeout=timeout)
-            if err:
-                errors.append(f"rank {rank}:\n{err}")
-            results[rank] = out
-    except queue_mod.Empty:
-        errors.append(f"the world did not finish in {timeout} s (ranks done: {sorted(results)})")
-    finally:
-        for p in procs:
-            p.join(timeout=10)
-            if p.is_alive():
-                p.kill()
-                p.join()
+    """The ranks' results of a ``start_world`` world, as ``run_world``. A
+    world whose port was taken before its store bound it is stopped and
+    started again on another port (``PORT_RETRIES`` times)."""
+    for attempt in range(PORT_RETRIES + 1):
+        procs, queue, call = started
+        world = len(procs)
+        results, errors, retry = {}, [], False
+        try:
+            for _ in range(world):
+                rank, err, out = queue.get(timeout=timeout)
+                if err:
+                    errors.append(f"rank {rank}:\n{err}")
+                    # the other ranks wait for a store that is not there
+                    retry = PORT_TAKEN in err and attempt < PORT_RETRIES
+                    if retry:
+                        break
+                results[rank] = out
+        except queue_mod.Empty:
+            errors.append(f"the world did not finish in {timeout} s "
+                          f"(ranks done: {sorted(results)})")
+        finally:
+            for p in procs:
+                p.join(timeout=0 if retry else 10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if not retry:
+            break
+        started = start_world(*call)
     if errors:
         raise AssertionError("\n".join(errors))
     return [results[r] for r in range(world)]
